@@ -1,0 +1,423 @@
+#!/usr/bin/env python3
+"""Drive fermat_tpu_torch on one CUDA card and hold it to its references.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases, one line each, in order (any failure raises and exits non-zero; no
+result is printed then):
+  1. device   — a CUDA card must be present; prints its name and power limit;
+  2. build    — compiles the port's CUDA sources (fermat_tpu_torch/ops/csrc)
+                for sm_90a, one nvcc per source, all started together;
+  3. kernels  — each kernel against its plain PyTorch version on the card:
+                trace_closest / trace_any on 262,144 random rays against the
+                CornellBox and random_soup(4096), gather_rows on (36, 52),
+                (36, 23) and (4096, 52) tables with out-of-range indices;
+                all bit-equal (the kernels are built with --fmad=false);
+  4. main     — progressive PT through RenderingContext on cuda: glossy
+                CornellBox, 512x512, max_path_length=6; best of 3 batches of
+                8 passes after a warm-up pass; ms/pass and Mrays/s (closest +
+                shadow rays actually traced, as bench.py counts them); the
+                kernel launch counts of those passes;
+  5. parity   — one 512x512 pass with the kernels and one with the plain
+                versions forced in their place: equal `rays`, equal images;
+                then the golden configuration (tests/golden/
+                torch_port_cornell_32.npz, the JAX package's CPU output and
+                scene view) on the card's kernel path, within the tolerances
+                of tests/test_torch_pt.py;
+  6. timing   — every launch of one main-path pass is replayed alone: device
+                time of the kernel, of its plain version and (gather only) of
+                `index_select`, beside the bound from the bytes and
+                operations the inputs need.
+Then the card's nvidia-smi line, one JSON line {"kernels": [...]}, and last
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+RES, MPL, PASSES, REPS = 512, 6, 8, 3
+N_RAYS = 262_144
+# FP32 arithmetic operations of one Moller-Trumbore ray-triangle test as
+# written in ops/csrc/trace.cu:hit_test (comparisons not counted)
+FLOPS_PER_TEST = 46
+# published H100 peaks (NVIDIA data sheets): memory bytes/s, FP32 (non-tensor) flop/s
+PEAKS = {"SXM": (3.35e12, 67e12), "PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12)}
+
+
+class SmokeFailure(AssertionError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def peaks_for(name: str):
+    part = "PCIe" if "PCIe" in name else "NVL" if "NVL" in name else "SXM"
+    return part, PEAKS[part]
+
+
+def _on_device(event) -> bool:
+    """A kernel (or memcpy/memset) on the card, not the CPU op that launched
+    it: the profiler books a kernel's time on both."""
+    import torch
+
+    return event.device_type == torch.autograd.DeviceType.CUDA
+
+
+def device_ms(fn, reps: int = 20):
+    """Device time per call: summed kernel time from torch.profiler over
+    `reps` calls; CUDA events around the calls where the profiler sees no
+    device activity. Returns (ms, timer)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.events() if _on_device(e))
+    if us > 0:
+        return us / 1e3 / reps, "profiler"
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, "events"
+
+
+@contextlib.contextmanager
+def patched(replacements):
+    """Temporarily replace module attributes [(module, name, value)]."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in replacements]
+    for m, n, v in replacements:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def image_close(got, want) -> tuple:
+    """tests/test_torch_pt.py tolerance on (N, 3) images: >= 99% of pixels
+    within atol 1e-4, rtol 1e-3, channel means within 1e-3 relative."""
+    import numpy as np
+
+    near = np.isclose(got, want, atol=1e-4, rtol=1e-3).all(axis=1).mean()
+    gm, wm = got.mean(axis=0), want.mean(axis=0)
+    mean_rel = float(np.max(np.abs(gm - wm) / np.maximum(np.abs(wm), 1e-7)))
+    return near >= 0.99 and mean_rel <= 1e-3, float(near), mean_rel
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing to drive",
+              file=sys.stderr)
+        return 1
+    if not (ROOT / "fermat_tpu_torch" / "ops" / "csrc").is_dir():
+        print("chip_smoke: run it from the root of a checkout (fermat_tpu_torch/ missing)",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+
+    from fermat_tpu_torch.core.math import Vec3
+    from fermat_tpu_torch.integrators import pt
+    from fermat_tpu_torch.ops import _cuda
+    from fermat_tpu_torch.ops import gather as gather_mod
+    from fermat_tpu_torch.ops import trace as trace_mod
+    from fermat_tpu_torch.render.context import RenderingContext
+    from fermat_tpu_torch.scene import lights as lights_mod
+    from fermat_tpu_torch.scene import mesh as mesh_mod
+    from fermat_tpu_torch.scene.procedural import cornell_box, cornell_camera, random_soup
+    from fermat_tpu_torch.scene.view import SceneView
+
+    kernels = {"trace_closest": trace_mod.CLOSEST, "trace_any": trace_mod.ANY,
+               "gather_rows": gather_mod.GATHER}
+
+    # ---- 1. device ----
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    part, (bw, fp32) = peaks_for(name)
+    log(f"[1 device] {name} ({torch.cuda.device_count()} visible); nvidia-smi: {smi}; "
+        f"bounds use H100 {part} peaks {bw / 1e12:.2f} TB/s, {fp32 / 1e12:.0f} TFLOP/s FP32")
+
+    # ---- 2. build ----
+    t0 = time.perf_counter()
+    built = _cuda.build(sorted({k.source for k in kernels.values()}))
+    log(f"[2 build] {time.perf_counter() - t0:.1f} s wall: "
+        + ", ".join(f"{s} {r.seconds:.1f} s" for s, r in built.items()))
+    for r in built.values():
+        for line in r.log.splitlines():
+            if "registers" in line:
+                log(f"    ptxas {r.source}: {line.split(':', 1)[-1].strip()}")
+
+    # ---- 3. kernel vs plain on the card ----
+    gen = torch.Generator(device=dev).manual_seed(20261016)
+    max_err = {k: 0.0 for k in kernels}
+    bits = lambda t: t.contiguous().view(torch.int32)
+
+    def lanes(x, n):
+        return trace_mod._lanes(x, n, dev)
+
+    for scene, storage in (("cornell", cornell_box(glossy_boxes=True)),
+                           ("soup4096", random_soup(4096))):
+        tris = storage.device_view(dev).tri_soup()
+        lo = torch.tensor(storage.vertices.min(0), device=dev)[:, None]
+        hi = torch.tensor(storage.vertices.max(0), device=dev)[:, None]
+        o = torch.rand(3, N_RAYS, generator=gen, device=dev) * (hi - lo) + lo
+        d = torch.randn(3, N_RAYS, generator=gen, device=dev)
+        d = d / d.norm(dim=0, keepdim=True)
+        o, d = Vec3(*o), Vec3(*d)
+        active = torch.rand(N_RAYS, generator=gen, device=dev) < 0.8
+        tmax = torch.rand(N_RAYS, generator=gen, device=dev) * float((hi - lo).norm())
+        hit = trace_mod.trace_closest(tris, o, d, 1e-4, 3.0e38, active)
+        ref = trace_mod._closest_plain(tris, o, d, lanes(1e-4, N_RAYS), lanes(3.0e38, N_RAYS),
+                                       active)
+        torch.cuda.synchronize()
+        check(torch.equal(hit.tri, ref.tri), f"trace_closest {scene}: tri differs from plain")
+        for a, b in ((hit.t, ref.t), (hit.u, ref.u), (hit.v, ref.v)):
+            check(torch.equal(bits(a), bits(b)), f"trace_closest {scene}: t/u/v not bit-equal")
+        err = max(float((a - b).abs().max()) for a, b in
+                  ((hit.t, ref.t), (hit.u, ref.u), (hit.v, ref.v)))
+        max_err["trace_closest"] = max(max_err["trace_closest"], err)
+        occ = trace_mod.trace_any(tris, o, d, 0.0, tmax, active)
+        occ_ref = trace_mod._any_plain(tris, o, d, lanes(0.0, N_RAYS), tmax, active)
+        torch.cuda.synchronize()
+        check(torch.equal(occ, occ_ref), f"trace_any {scene}: occ differs from plain")
+        max_err["trace_any"] = max(max_err["trace_any"], float((occ != occ_ref).sum()))
+        hits = float((hit.tri >= 0).float().mean())
+        check(0.05 < hits and bool(occ.any()) and not bool(occ.all()),
+              f"{scene}: degenerate test rays (hit fraction {hits})")
+        log(f"[3 kernels] {scene} ({tris.shape[1]} tris, {N_RAYS} rays, "
+            f"{float(active.float().mean()):.2f} active): trace_closest tri equal, t/u/v "
+            f"bit-equal (hit {hits:.3f}); trace_any equal (occluded "
+            f"{float(occ.float().mean()):.3f})")
+    for rows, cols in ((36, 52), (36, 23), (4096, 52)):
+        table = torch.randn(rows, cols, generator=gen, device=dev)
+        idx = torch.randint(-4, rows + 4, (N_RAYS,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        out = gather_mod.gather_rows(table, idx)
+        ref = gather_mod._gather_plain(table, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(out), bits(ref)), f"gather_rows ({rows}, {cols}): not bit-equal")
+        max_err["gather_rows"] = max(max_err["gather_rows"], float((out - ref).abs().max()))
+        log(f"[3 kernels] gather_rows ({rows}, {cols}) x {N_RAYS} indices "
+            f"({float(((idx < 0) | (idx >= rows)).float().mean()):.3f} out of range): bit-equal")
+
+    # ---- 4. main path ----
+    ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), RES, RES,
+                                  renderer="pt", max_path_length=MPL)
+    check(ctx.device.type == "cuda", "RenderingContext did not default to cuda")
+    ctx.render(1)  # warm-up (first-use costs)
+    for k in kernels.values():
+        k.launches = 0
+    best, best_rays = float("inf"), 0.0
+    for _ in range(REPS):
+        rays0 = float(ctx.stats["rays"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.render_batch(PASSES)  # ends in torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if dt < best:
+            best, best_rays = dt, float(ctx.stats["rays"]) - rays0
+    launches = {n: k.launches for n, k in kernels.items()}
+    n_main = PASSES * REPS
+    hdr = ctx.hdr_image()
+    check(np.isfinite(hdr).all() and hdr.shape == (RES, RES, 3), "image not finite")
+    check(float(hdr.mean()) > 0.01, f"image is black (mean {hdr.mean()})")
+    for n, c in launches.items():
+        check(c > 0, f"kernel {n} was never launched on the main path")
+    mrays = best_rays / best / 1e6
+    ms_pass = best / PASSES * 1e3
+    log(f"[4 main] CornellBox glossy {RES}x{RES} mpl={MPL}: {ms_pass:.2f} ms/pass, "
+        f"{mrays:.2f} Mrays/s ({best_rays / PASSES:.0f} rays/pass; best of {REPS} x "
+        f"{PASSES} passes) on {smi}; image mean {hdr.mean():.4f}; launches over "
+        f"{n_main} passes: {launches}")
+    # where one pass's device time goes (the device is idle for the rest)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ctx.render_batch(1)
+    by_name = {}
+    for e in prof.events():
+        if _on_device(e):
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.self_device_time_total, c + 1)
+    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+    n_kern = sum(c for _, c in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    log(f"[4 main] one pass under torch.profiler: {n_kern} device kernels, device busy "
+        f"{busy_ms:.2f} ms of the {ms_pass:.2f} ms pass (idle share "
+        f"{1 - busy_ms / ms_pass:.3f}); top by device time: "
+        + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
+
+    # ---- 5. parity on the card ----
+    opts = pt.PTOptions(**ctx.renderer_options)
+
+    def plain_closest(tris, o, d, tmin, tmax, active=None):
+        n = o.x.shape[0]
+        return trace_mod._closest_plain(tris, o, d, lanes(tmin, n), lanes(tmax, n), active)
+
+    def plain_any(tris, o, d, tmin, tmax, active=None):
+        n = o.x.shape[0]
+        return trace_mod._any_plain(tris, o, d, lanes(tmin, n), lanes(tmax, n), active)
+
+    plain = [(pt, "trace_closest", plain_closest), (pt, "trace_any", plain_any),
+             (mesh_mod, "gather_rows", gather_mod._gather_plain),
+             (lights_mod, "gather_rows", gather_mod._gather_plain)]
+    out_k = pt.render_pass(ctx.view, opts, RES, RES, 1000, 0)
+    before = {n: k.launches for n, k in kernels.items()}
+    with patched(plain):
+        out_p = pt.render_pass(ctx.view, opts, RES, RES, 1000, 0)
+    torch.cuda.synchronize()
+    check(before == {n: k.launches for n, k in kernels.items()},
+          "the forced plain pass launched a kernel")
+    check(float(out_k.rays) == float(out_p.rays), "kernel vs plain pass: rays differ")
+    diffs = [float((getattr(out_k, c).stack() - getattr(out_p, c).stack()).abs().max())
+             for c in ("composited", "direct", "diffuse", "specular")]
+    for c in ("composited", "direct", "diffuse", "specular"):
+        ok, near, mean_rel = image_close(getattr(out_k, c).stack().cpu().numpy(),
+                                         getattr(out_p, c).stack().cpu().numpy())
+        check(ok, f"kernel vs plain pass: {c} differs ({near}, {mean_rel})")
+    log(f"[5 parity] {RES}x{RES} pass, kernels vs plain versions: rays equal "
+        f"({float(out_k.rays):.0f}), max |image diff| {max(diffs):.3g}")
+
+    gz = np.load(ROOT / "tests" / "golden" / "torch_port_cornell_32.npz")
+    gview = SceneView.from_numpy({k[5:]: gz[k] for k in gz.files if k.startswith("view.")}, dev)
+    gres = int(gz["res"])
+    gopts = pt.PTOptions(max_path_length=int(gz["max_path_length"]),
+                         lobes=tuple(bool(x) for x in gz["lobes"]),
+                         clearcoat=bool(gz["clearcoat"]))
+    gout = pt.render_pass(gview, gopts, gres, gres, int(gz["instance"]), int(gz["seed"]))
+    grays = float(gout.rays)
+    check(abs(grays - float(gz["rays"])) <= 0.005 * float(gz["rays"]),
+          f"golden: rays {grays} vs JAX {float(gz['rays'])}")
+    report = []
+    for c in ("composited", "direct", "diffuse", "specular"):
+        ok, near, mean_rel = image_close(getattr(gout, c).stack().cpu().numpy(),
+                                         gz[c].reshape(-1, 3))
+        check(ok, f"golden {c}: {near:.4f} of pixels close, mean rel {mean_rel:.2e}")
+        report.append(f"{c} {near:.4f}/{mean_rel:.1e}")
+    log(f"[5 parity] golden {gres}x{gres} mpl={int(gz['max_path_length'])} vs the JAX CPU "
+        f"image: rays {grays:.0f} vs {float(gz['rays']):.0f}; pixels close/mean rel: "
+        + ", ".join(report))
+
+    # ---- 6. per-launch timing at the main path's inputs ----
+    calls = {n: [] for n in kernels}
+
+    def recorder(name, fn):
+        def wrapper(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return wrapper
+
+    with patched([(pt, "trace_closest", recorder("trace_closest", pt.trace_closest)),
+                  (pt, "trace_any", recorder("trace_any", pt.trace_any)),
+                  (mesh_mod, "gather_rows", recorder("gather_rows", mesh_mod.gather_rows)),
+                  (lights_mod, "gather_rows", recorder("gather_rows", lights_mod.gather_rows))]):
+        pt.render_pass(ctx.view, opts, RES, RES, 2000, 0)
+    torch.cuda.synchronize()
+
+    def first_hit_tests(tris, o, d, tmax, active) -> float:
+        """Ray-triangle tests an any-hit ray needs: up to its first hit."""
+        tt, _, _, inside = trace_mod._mt(tris, o, d)
+        ok = inside & (tt > 0.0) & (tt < tmax[:, None])
+        first = torch.where(ok.any(1), ok.int().argmax(1) + 1, tris.shape[1])
+        return float(first[active].sum())
+
+    rows = []
+    for kname, kern in kernels.items():
+        ms = plain_ms = lib_ms = bound = 0.0
+        by_bytes = by_ops = 0.0
+        timers = set()
+        shapes = set()
+        for args in calls[kname]:
+            if kname == "gather_rows":
+                table, idx = args
+                n, (r, k) = idx.shape[0], table.shape
+                byt, ops = n * 4 + r * k * 4 + n * k * 4, 0.0
+                f_k = lambda: gather_mod.gather_rows(table, idx)
+                f_p = lambda: gather_mod._gather_plain(table, idx)
+                idx64 = idx.long()
+                f_l = lambda: table.index_select(0, idx64)
+                shapes.add(f"table {r}x{k}, {n} idx")
+            else:
+                tris, o, d, tmin, tmax, active = args
+                n, t = o.x.shape[0], tris.shape[1]
+                act = active if active is not None else torch.ones(n, dtype=torch.bool,
+                                                                   device=dev)
+                tmin_l, tmax_l = lanes(tmin, n), lanes(tmax, n)
+                if kname == "trace_closest":
+                    byt = n * (24 + 1 + 16) + 36 * t
+                    ops = float(act.sum()) * t * FLOPS_PER_TEST
+                    f_k = lambda: trace_mod.trace_closest(tris, o, d, tmin, tmax, active)
+                    f_p = lambda: trace_mod._closest_plain(tris, o, d, tmin_l, tmax_l, act)
+                else:
+                    byt = n * (24 + 1 + 4 + 1) + 36 * t
+                    ops = first_hit_tests(tris, o, d, tmax_l, act) * FLOPS_PER_TEST
+                    f_k = lambda: trace_mod.trace_any(tris, o, d, tmin, tmax, active)
+                    f_p = lambda: trace_mod._any_plain(tris, o, d, tmin_l, tmax_l, act)
+                f_l = None
+                shapes.add(f"{n} rays x {t} tris")
+            m, tm = device_ms(f_k)
+            ms += m
+            timers.add(tm)
+            plain_ms += device_ms(f_p, reps=5)[0]
+            if f_l is not None:
+                lib_ms += device_ms(f_l)[0]
+            b_bytes, b_ops = byt / bw * 1e3, ops / fp32 * 1e3
+            bound += max(b_bytes, b_ops)
+            by_bytes += b_bytes
+            by_ops += b_ops
+        nc = len(calls[kname])
+        check(nc > 0, f"{kname}: no launch captured in the timing pass")
+        err = max_err[kname]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": f"fermat_tpu_torch/ops/csrc/{kern.source}",
+            "replaces": kern.replaces,
+            "launches": launches[kname],
+            "launches_per_pass": launches[kname] / n_main,
+            "max_abs_err": err, "max_abs_err_vs_plain": err,
+            "ms": ms / nc, "plain_ms": plain_ms / nc, "bound_ms": bound / nc,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": (lib_ms / nc) if kname == "gather_rows" else None,
+            "us_per_launch": ms / nc * 1e3,
+            "timer": "+".join(sorted(timers)),
+            "shapes": sorted(shapes),
+        })
+        log(f"[6 timing] {kname}: {ms / nc * 1e3:.2f} us/launch (plain "
+            f"{plain_ms / nc * 1e3:.1f} us, bound {bound / nc * 1e3:.2f} us by "
+            f"{rows[-1]['bound_by']}) over the {nc} launches of one pass; {sorted(shapes)}")
+
+    print(smi, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,31 @@
+"""fermat_tpu_torch — the PyTorch/CUDA port of fermat_tpu for NVIDIA Hopper.
+
+The JAX package `fermat_tpu` is the reference; this package mirrors its
+layout (core/, scene/, bsdf/, accel/, ops/, integrators/, render/) and
+imports neither JAX nor anything of `fermat_tpu`.
+
+Devices are explicit: entry points run on "cuda" unless the caller passes
+device="cpu". On the CPU every hand-written kernel is replaced by its plain
+PyTorch version (the tensor's device decides); on a CUDA tensor a wrapper
+launches its kernel or raises.
+
+Slice 1 covers progressive path tracing on scenes of at most 4096 triangles:
+the dense tracer (ops/trace.py, CUDA) and the row gather (ops/gather.py,
+CUDA) are the kernels on that path.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; raises when CUDA is asked for and absent
+    (the port never carries on on the CPU behind the caller's back)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise NotImplementedError(f"device type {dev.type!r}")
+    return dev

@@ -1,0 +1,95 @@
+"""Vector math on structure-of-arrays Vec3 (fermat_tpu/core/math.py).
+
+A Vec3 is three same-shaped tensors, one per component, so every per-ray
+operation is a flat elementwise op over the wavefront.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+Tensor = torch.Tensor
+
+
+class Vec3(NamedTuple):
+    """SoA 3-vector: three same-shaped tensors."""
+
+    x: Tensor
+    y: Tensor
+    z: Tensor
+
+    def __add__(self, o: "Vec3") -> "Vec3":
+        return Vec3(self.x + o.x, self.y + o.y, self.z + o.z)
+
+    def __sub__(self, o: "Vec3") -> "Vec3":
+        return Vec3(self.x - o.x, self.y - o.y, self.z - o.z)
+
+    def __neg__(self) -> "Vec3":
+        return Vec3(-self.x, -self.y, -self.z)
+
+    def __mul__(self, s) -> "Vec3":
+        if isinstance(s, Vec3):
+            return Vec3(self.x * s.x, self.y * s.y, self.z * s.z)
+        return Vec3(self.x * s, self.y * s, self.z * s)
+
+    __rmul__ = __mul__
+
+    def stack(self) -> Tensor:
+        """To AoS (..., 3) — output boundary only."""
+        return torch.stack([self.x, self.y, self.z], dim=-1)
+
+    @staticmethod
+    def full(n: int, v0: float, v1: float, v2: float, device) -> "Vec3":
+        f = lambda v: torch.full((n,), v, dtype=torch.float32, device=device)
+        return Vec3(f(v0), f(v1), f(v2))
+
+    @staticmethod
+    def zeros(n: int, device) -> "Vec3":
+        z = torch.zeros(n, dtype=torch.float32, device=device)
+        return Vec3(z, z, z)
+
+
+def dot(a: Vec3, b: Vec3) -> Tensor:
+    return a.x * b.x + a.y * b.y + a.z * b.z
+
+
+def cross(a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(
+        a.y * b.z - a.z * b.y,
+        a.z * b.x - a.x * b.z,
+        a.x * b.y - a.y * b.x,
+    )
+
+
+def normalize(a: Vec3, eps: float = 1e-20) -> Vec3:
+    inv = torch.rsqrt(torch.clamp_min(dot(a, a), eps))
+    return a * inv
+
+
+def select(m: Tensor, a: Vec3, fill: float = 0.0) -> Vec3:
+    """Componentwise where(m, a, fill)."""
+    return Vec3(torch.where(m, a.x, fill), torch.where(m, a.y, fill),
+                torch.where(m, a.z, fill))
+
+
+def orthonormal_basis(n: Vec3):
+    """(t, b) orthonormal to n — branchless Frisvad/Duff construction."""
+    s = torch.where(n.z >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + n.z)
+    b = n.x * n.y * a
+    t = Vec3(1.0 + s * n.x * n.x * a, s * b, -s * n.x)
+    bt = Vec3(b, s + n.y * n.y * a, -n.y)
+    return t, bt
+
+
+def to_local(v: Vec3, t: Vec3, b: Vec3, n: Vec3) -> Vec3:
+    return Vec3(dot(v, t), dot(v, b), dot(v, n))
+
+
+def to_world(v: Vec3, t: Vec3, b: Vec3, n: Vec3) -> Vec3:
+    return Vec3(
+        v.x * t.x + v.y * b.x + v.z * n.x,
+        v.x * t.y + v.y * b.y + v.z * n.y,
+        v.x * t.z + v.y * b.z + v.z * n.z,
+    )

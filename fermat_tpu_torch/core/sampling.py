@@ -1,0 +1,30 @@
+"""Sampling warps and MIS heuristics (fermat_tpu/core/sampling.py)."""
+from __future__ import annotations
+
+import torch
+
+from fermat_tpu_torch.core.math import Vec3
+
+TWO_PI = 6.283185307179586
+INV_PI = 0.3183098861837907
+PI = 3.141592653589793
+
+
+def square_to_cosine_hemisphere(u0, u1) -> Vec3:
+    """Cosine-weighted hemisphere about +z (pdf = cos/pi)."""
+    r = torch.sqrt(u0)
+    phi = TWO_PI * u1
+    return Vec3(r * torch.cos(phi), r * torch.sin(phi),
+                torch.sqrt(torch.clamp_min(1.0 - u0, 0.0)))
+
+
+def square_to_uniform_triangle(u0, u1):
+    """Uniform barycentrics on a triangle (sqrt warp)."""
+    su0 = torch.sqrt(u0)
+    return 1.0 - su0, u1 * su0
+
+
+def power_heuristic(pdf_a, pdf_b):
+    """a^2/(a^2+b^2) in the overflow-safe ratio form 1/(1+r^2)."""
+    r = pdf_b / torch.clamp_min(pdf_a, 1e-32)
+    return torch.where(pdf_a > 0.0, 1.0 / (1.0 + r * r), 0.0)

@@ -1,0 +1,159 @@
+"""RenderingContext — owns the scene, the framebuffer and the renderer
+registry (fermat_tpu/render/context.py).
+
+The context runs on "cuda" unless the caller passes device="cpu"; with
+device="cuda" and no GPU it raises. The registry holds "pt" only.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from fermat_tpu_torch import resolve_device
+from fermat_tpu_torch.bsdf.composite import scene_clearcoat, scene_lobes
+from fermat_tpu_torch.core.camera import Camera
+from fermat_tpu_torch.integrators import pt as pt_mod
+from fermat_tpu_torch.render.framebuffer import Framebuffer, to_rgba8
+from fermat_tpu_torch.scene.mesh import MeshStorage
+from fermat_tpu_torch.scene.view import SceneView
+
+# renderer registry: name -> factory(**options) -> (render_pass_fn, options)
+_RENDERER_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_renderer(name: str, factory: Callable) -> None:
+    _RENDERER_REGISTRY[name] = factory
+
+
+def _pt_factory(**kw):
+    if kw.pop("narrow", False):
+        raise NotImplementedError("the narrowing wavefront (narrow=1) is a later slice")
+    return pt_mod.render_pass, pt_mod.PTOptions(**kw)
+
+
+register_renderer("pt", _pt_factory)
+
+
+@dataclass
+class RenderingContext:
+    view: SceneView
+    res_x: int
+    res_y: int
+    renderer: str = "pt"
+    renderer_options: dict = field(default_factory=dict)
+    seed: int = 0
+    fb: Optional[Framebuffer] = None
+    gbuffer: Optional[dict] = None
+    instance: int = 0
+    stats: dict = field(default_factory=dict)
+    _pass: Optional[tuple] = None
+
+    @staticmethod
+    def create(storage: MeshStorage, camera: Camera, res_x: int, res_y: int,
+               renderer: str = "pt", dir_lights=(), seed: int = 0, texture_dir=None,
+               env_radiance=(0.0, 0.0, 0.0), point_lights=(), env_map=None,
+               device="cuda", **renderer_options) -> "RenderingContext":
+        if renderer not in _RENDERER_REGISTRY:
+            raise NotImplementedError(
+                f"renderer {renderer!r} is not ported; registered: {sorted(_RENDERER_REGISTRY)}")
+        for name, value in (("dir_lights", dir_lights), ("point_lights", point_lights)):
+            if len(value):
+                raise NotImplementedError(f"{name}: analytic lights are a later slice")
+        if texture_dir is not None or env_map is not None:
+            raise NotImplementedError("textures and environment maps are a later slice")
+        dev = resolve_device(device)
+        view = SceneView.build(storage, camera, dev, env_radiance=env_radiance)
+        renderer_options = dict(renderer_options)
+        renderer_options.setdefault("lobes", scene_lobes(storage.materials))
+        renderer_options.setdefault("clearcoat", scene_clearcoat(storage.materials))
+        ctx = RenderingContext(view=view, res_x=res_x, res_y=res_y, renderer=renderer,
+                               renderer_options=renderer_options, seed=seed)
+        ctx.fb = Framebuffer.create(res_y, res_x, dev)
+        return ctx
+
+    @property
+    def device(self) -> torch.device:
+        return self.view.device
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _one_pass(self) -> None:
+        if self._pass is None:
+            self._pass = _RENDERER_REGISTRY[self.renderer](**self.renderer_options)
+        pass_fn, opts = self._pass
+        res_x, res_y = self.res_x, self.res_y
+        out = pass_fn(self.view, opts, res_x, res_y, self.instance, self.seed)
+        img = lambda v: v.stack().reshape(res_y, res_x, 3)
+        self.fb = self.fb.accumulate_pass(
+            self.instance, img(out.diffuse), img(out.specular), img(out.direct),
+            img(out.composited), img(out.diffuse_albedo), img(out.specular_albedo))
+        shape = (res_y, res_x)
+        self.gbuffer = {
+            "normal": img(out.normal),
+            "position": img(out.position),
+            "miss": (out.tri < 0).reshape(shape),
+            "depth": out.depth.reshape(shape),
+            "uv": out.uv.reshape(res_y, res_x, 2),
+            "tri": out.tri.reshape(shape),
+            "material": out.material.reshape(shape),
+            # closest + shadow rays traced this pass (dead lanes excluded)
+            "rays": out.rays,
+        }
+        # running device-side total over all passes (read without a sync per pass)
+        self.stats["rays"] = self.stats.get("rays", 0.0) + out.rays
+        self.instance += 1
+
+    def render(self, n_passes: int = 1, progress: bool = False) -> Framebuffer:
+        """Progressive render loop; each pass ends in a device sync so that
+        `stats["pass_times"]` holds device-complete wall times."""
+        for _ in range(n_passes):
+            t0 = time.perf_counter()
+            self._one_pass()
+            self._sync()
+            dt = time.perf_counter() - t0
+            self.stats.setdefault("pass_times", []).append(dt)
+            if progress:
+                print(f"pass {self.instance - 1}: {dt * 1e3:.1f} ms")
+        return self.fb
+
+    def render_batch(self, n_passes: int) -> Framebuffer:
+        """Progressive render of `n_passes` with one device sync at the end."""
+        t0 = time.perf_counter()
+        for _ in range(n_passes):
+            self._one_pass()
+        self._sync()
+        self.stats.setdefault("batch_times", []).append((n_passes, time.perf_counter() - t0))
+        return self.fb
+
+    def restart(self) -> None:
+        """Invalidate accumulation (camera-move semantics)."""
+        self.fb = Framebuffer.create(self.res_y, self.res_x, self.device)
+        self.instance = 0
+
+    def image(self, exposure: float = 1.0, gamma: float = 2.2) -> np.ndarray:
+        return to_rgba8(self.fb.composited, exposure, gamma).cpu().numpy()
+
+    def hdr_image(self) -> np.ndarray:
+        return self.fb.composited.cpu().numpy()
+
+    def dump_speed_stats(self) -> dict:
+        """Pass-time stats and the ray rate from the `rays` counter
+        (PathTracer::dump_speed_stats, pathtracer_impl.h:342-350)."""
+        times = self.stats.get("pass_times", [])
+        if not times:
+            return {}
+        steady = times[1:] if len(times) > 1 else times
+        mean = float(np.mean(steady))
+        out = {"passes": len(times), "mean_pass_ms": 1e3 * mean,
+               "first_pass_ms": 1e3 * times[0], "device": str(self.device)}
+        if self.gbuffer is not None:
+            rays = float(self.gbuffer["rays"])
+            out["rays_per_pass"] = rays
+            out["rays_per_s"] = rays / mean
+        return out

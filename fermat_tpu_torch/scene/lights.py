@@ -1,0 +1,82 @@
+"""Mesh-emitter sampling (fermat_tpu/scene/lights.py:31-149).
+
+The tables are built on the host in numpy float32 with a sequential
+`np.cumsum` and then moved to the device: a parallel cumsum on the card
+rounds differently, which can move a CDF step and flip a light pick.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from fermat_tpu_torch.core.math import Vec3
+from fermat_tpu_torch.core.sampling import square_to_uniform_triangle
+from fermat_tpu_torch.ops.gather import gather_rows
+
+Tensor = torch.Tensor
+
+
+class MeshLightsView(NamedTuple):
+    """Device view over the emissive set (MeshLightsStorage analog)."""
+
+    cdf: Tensor  # (T,) inclusive, normalized to 1 over all triangles
+    pdf_area: Tensor  # (T,) area pdf of sampling a point on tri t (0 if not emissive)
+    has_lights: Tensor  # () bool
+    rows: Tensor  # (T, 23): p0 e1 e2 gn Le pdf_area uv0 duv1 duv2 emap
+
+    @staticmethod
+    def build(mesh_np: dict, device) -> "MeshLightsView":
+        """From the host arrays of a MeshView (`MeshView` fields as numpy:
+        p0, e1, e2, gn (T, 3), uv0, uv1, uv2 (T, 2), material_id (T,),
+        emissive (M, 3), emissive_map (M,)).
+
+        Weight = luminance(emissive) * area, computed as the JAX package's
+        SceneView.build does (mesh_lights.textured_tri_energies, then
+        MeshLightsView.build with those weights).
+        """
+        f32 = np.float32
+        mid = mesh_np["material_id"]
+        le = mesh_np["emissive"][mid]  # (T, 3) f32
+        e1, e2 = mesh_np["e1"], mesh_np["e2"]
+        energy = (le @ np.array([0.2126, 0.7152, 0.0722])) * (
+            0.5 * np.linalg.norm(np.cross(e1, e2), axis=1))
+        w = np.maximum(energy.astype(f32), f32(0.0))
+        c = np.cross(e1, e2)
+        area = f32(0.5) * np.sqrt(np.maximum(
+            c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] + c[:, 2] * c[:, 2], f32(0.0)))
+        total = w.sum(dtype=f32)
+        has = bool(total > 0.0)
+        safe_total = total if has else f32(1.0)
+        cdf = np.cumsum(w, dtype=f32) / safe_total
+        pdf_area = np.where((w > 0.0) & (area > 0.0),
+                            (w / safe_total) / np.maximum(area, f32(1e-20)),
+                            f32(0.0)).astype(f32)
+        uv0, uv1, uv2 = mesh_np["uv0"], mesh_np["uv1"], mesh_np["uv2"]
+        rows = np.concatenate([
+            mesh_np["p0"], e1, e2, mesh_np["gn"], le, pdf_area[:, None],
+            uv0, uv1 - uv0, uv2 - uv0,
+            mesh_np["emissive_map"][mid].astype(f32)[:, None],
+        ], axis=1).astype(f32)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return MeshLightsView(cdf=t(cdf), pdf_area=t(pdf_area),
+                              has_lights=torch.tensor(has, device=device), rows=t(rows))
+
+    def sample(self, u0: Tensor, u1: Tensor, u2: Tensor) -> Tuple[Vec3, Vec3, Vec3, Tensor, Tensor]:
+        """One point on the emissive set per lane: (position, normal, Le,
+        pdf_area, tri). The pick is count(cdf <= u2), clipped
+        (lights.py:98-103), i.e. searchsorted(right=True)."""
+        t_count = self.cdf.shape[0]
+        tri = torch.searchsorted(self.cdf, u2, right=True)
+        tri = torch.clamp(tri, 0, t_count - 1).to(torch.int32)
+        b0, b1 = square_to_uniform_triangle(u0, u1)
+        r = gather_rows(self.rows, tri)
+        vec = lambda c: Vec3(r[:, c], r[:, c + 1], r[:, c + 2])
+        p0, e1, e2, n, le = vec(0), vec(3), vec(6), vec(9), vec(12)
+        pos = p0 + e1 * b0 + e2 * b1
+        return pos, n, le, r[:, 15], tri
+
+    def pdf_area_of(self, tri: Tensor) -> Tensor:
+        """Area pdf for MIS when a BSDF ray hits an emitter (lights.py:139-149)."""
+        return gather_rows(self.pdf_area[:, None], torch.clamp_min(tri, 0))[:, 0]

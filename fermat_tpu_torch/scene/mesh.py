@@ -1,0 +1,198 @@
+"""Mesh storage: numpy host mirror + torch device view
+(fermat_tpu/scene/mesh.py:31-370).
+
+`MeshStorage` is the port's own copy of the host-side triangle mesh (the JAX
+package's lives in a module that imports JAX). `MeshView` is the device-side
+triangle soup, pre-gathered per corner.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+
+from fermat_tpu_torch.core.math import Vec3, cross, normalize
+from fermat_tpu_torch.ops.gather import gather_rows
+from fermat_tpu_torch.scene.materials import HostMaterial, MaterialTable
+
+Tensor = torch.Tensor
+
+
+@dataclass
+class MeshStorage:
+    """Host-side mesh (numpy), built by procedural scenes; MeshStorage.h analog."""
+
+    vertices: np.ndarray = field(default_factory=lambda: np.zeros((0, 3), np.float32))
+    triangles: np.ndarray = field(default_factory=lambda: np.zeros((0, 3), np.int32))
+    normals: np.ndarray = field(default_factory=lambda: np.zeros((0, 3), np.float32))
+    normal_indices: np.ndarray = field(default_factory=lambda: np.zeros((0, 3), np.int32))  # -1 => face normal
+    uvs: np.ndarray = field(default_factory=lambda: np.zeros((0, 2), np.float32))
+    uv_indices: np.ndarray = field(default_factory=lambda: np.zeros((0, 3), np.int32))  # -1 => zero uv
+    material_ids: np.ndarray = field(default_factory=lambda: np.zeros((0,), np.int32))
+    materials: List[HostMaterial] = field(default_factory=list)
+
+    @property
+    def n_triangles(self) -> int:
+        return self.triangles.shape[0]
+
+    def device_view(self, device) -> "MeshView":
+        """The kernel-facing SoA view (MeshView.h:96 analog), computed in
+        numpy exactly as mesh.py:174-227 and then moved to `device`."""
+        t = self.triangles.astype(np.int32)
+        v = self.vertices.astype(np.float32)
+        p0 = v[t[:, 0]]
+        p1 = v[t[:, 1]]
+        p2 = v[t[:, 2]]
+        gn = np.cross(p1 - p0, p2 - p0)
+        gn /= np.maximum(np.linalg.norm(gn, axis=1, keepdims=True), 1e-20)
+        corner_n = np.repeat(gn[:, None, :], 3, axis=1)  # (T, 3 corners, 3)
+        if self.normals.shape[0]:
+            ni = self.normal_indices
+            ok = ni >= 0
+            corner_n[ok] = self.normals[np.where(ok, ni, 0)][ok]
+        corner_uv = np.zeros((self.n_triangles, 3, 2), np.float32)
+        if self.uvs.shape[0]:
+            ui = self.uv_indices
+            ok = ui >= 0
+            corner_uv[ok] = self.uvs[np.where(ok, ui, 0)][ok]
+
+        mat = [m.finalize_flags() for m in self.materials] or [HostMaterial("default")]
+        # texture-LOD base: uv-space area vs world-space area per triangle
+        wld_area = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0), axis=1)
+        uv_e1 = corner_uv[:, 1] - corner_uv[:, 0]
+        uv_e2 = corner_uv[:, 2] - corner_uv[:, 0]
+        uv_area = 0.5 * np.abs(uv_e1[:, 0] * uv_e2[:, 1] - uv_e1[:, 1] * uv_e2[:, 0])
+        lod_base = 0.5 * np.log2(
+            (uv_area + 1e-20) / (wld_area + 1e-20)
+        ).astype(np.float32)
+        j = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        v3 = lambda a: Vec3(j(a[:, 0]), j(a[:, 1]), j(a[:, 2]))
+        return MeshView(
+            p0=v3(p0), e1=v3(p1 - p0), e2=v3(p2 - p0), gn=v3(gn),
+            n0=v3(corner_n[:, 0]), n1=v3(corner_n[:, 1]), n2=v3(corner_n[:, 2]),
+            uv0=j(corner_uv[:, 0]), uv1=j(corner_uv[:, 1]), uv2=j(corner_uv[:, 2]),
+            material_id=j(
+                self.material_ids.astype(np.int32)
+                if self.material_ids.shape[0]
+                else np.zeros(self.n_triangles, np.int32)
+            ),
+            lod_base=j(lod_base),
+            materials=MaterialTable.from_host(mat, device),
+        )
+
+
+class ShadeHit(NamedTuple):
+    """Differential geometry + material lanes at a hit (shade_fetch output)."""
+
+    pos: Vec3
+    gn: Vec3
+    sn: Vec3
+    uv: Tensor  # (N, 2)
+    mat_id: Tensor  # int32
+    lod_base: Tensor
+    mats: MaterialTable  # fields are (N,) lanes
+
+
+class MeshView(NamedTuple):
+    """Device-side triangle soup, pre-gathered per corner (MeshView.h:96-170).
+
+    Triangles are stored as (p0, e1, e2) so Moller-Trumbore needs no vertex
+    indirection; shading normals and uvs are resolved per corner.
+    """
+
+    p0: Vec3  # (T,)
+    e1: Vec3  # p1 - p0
+    e2: Vec3  # p2 - p0
+    gn: Vec3  # geometric unit normal
+    n0: Vec3  # shading normals at the corners
+    n1: Vec3
+    n2: Vec3
+    uv0: Tensor  # (T, 2)
+    uv1: Tensor
+    uv2: Tensor
+    material_id: Tensor  # (T,) int32
+    lod_base: Tensor  # (T,) 0.5*log2(uv_area/world_area)
+    materials: MaterialTable
+
+    @property
+    def n_triangles(self) -> int:
+        return self.material_id.shape[0]
+
+    def tri_soup(self) -> Tensor:
+        """(9, T) float32 rows p0 xyz, e1 xyz, e2 xyz: the tracer's input
+        (the unpadded counterpart of pallas_trace._pad_tris)."""
+        return torch.stack([self.p0.x, self.p0.y, self.p0.z,
+                            self.e1.x, self.e1.y, self.e1.z,
+                            self.e2.x, self.e2.y, self.e2.z]).contiguous()
+
+    def packed_rows(self) -> Tensor:
+        """Per-triangle attributes as one (T, 29) row matrix: p0(0:3)
+        e1(3:6) e2(6:9) gn(9:12) n0(12:15) n1(15:18) n2(18:21) uv0(21:23)
+        uv1(23:25) uv2(25:27) mat_id(27) lod_base(28)."""
+        return torch.stack(
+            [
+                self.p0.x, self.p0.y, self.p0.z,
+                self.e1.x, self.e1.y, self.e1.z,
+                self.e2.x, self.e2.y, self.e2.z,
+                self.gn.x, self.gn.y, self.gn.z,
+                self.n0.x, self.n0.y, self.n0.z,
+                self.n1.x, self.n1.y, self.n1.z,
+                self.n2.x, self.n2.y, self.n2.z,
+                self.uv0[:, 0], self.uv0[:, 1],
+                self.uv1[:, 0], self.uv1[:, 1],
+                self.uv2[:, 0], self.uv2[:, 1],
+                self.material_id.to(torch.float32),
+                self.lod_base,
+            ],
+            dim=1,
+        )
+
+    def shade_rows(self) -> Tensor:
+        """(T, 52) joined shading table: packed_rows (29 cols) ++ the
+        material row gathered per triangle (19 float cols + 4 texture-slot
+        ids), so a hit shade is ONE row fetch (mesh.py:303-322)."""
+        m = self.materials
+        maps = torch.stack(
+            [m.diffuse_map, m.specular_map, m.emissive_map, m.bump_map], dim=1
+        ).to(torch.float32)
+        mfull = torch.cat([m.packed_rows(), maps], dim=1)
+        return torch.cat(
+            [self.packed_rows(), mfull[self.material_id.long()]], dim=1
+        ).contiguous()
+
+    def shade_fetch(self, tri: Tensor, u: Tensor, v: Tensor, table: Tensor) -> ShadeHit:
+        """One-fetch differential geometry + material lanes at a hit
+        (mesh.py:324-370); `table` is shade_rows(), built once per pass."""
+        r = gather_rows(table, tri)
+        vec = lambda c: Vec3(r[:, c], r[:, c + 1], r[:, c + 2])
+        p0, e1, e2, gn = vec(0), vec(3), vec(6), vec(9)
+        n0, n1, n2 = vec(12), vec(15), vec(18)
+        pos = p0 + e1 * u + e2 * v
+        w = 1.0 - u - v
+        sn = normalize(n0 * w + n1 * u + n2 * v)
+        uv = (r[:, 21:23] * w[:, None] + r[:, 23:25] * u[:, None]
+              + r[:, 25:27] * v[:, None])
+        # round half to even, as jnp.round (mesh.py:353)
+        ival = lambda c: torch.round(r[:, c]).to(torch.int32)
+        mats = MaterialTable(
+            diffuse=vec(29),
+            specular=vec(32),
+            emissive=vec(35),
+            diffuse_trans=vec(38),
+            reflectivity=vec(41),
+            roughness=r[:, 44],
+            ior=r[:, 45],
+            opacity=r[:, 46],
+            flags=ival(47),
+            diffuse_map=ival(48),
+            specular_map=ival(49),
+            emissive_map=ival(50),
+            bump_map=ival(51),
+        )
+        return ShadeHit(pos, gn, sn, uv, ival(27), r[:, 28], mats)
+
+    def triangle_areas(self) -> Tensor:
+        c = cross(self.e1, self.e2)
+        return 0.5 * torch.sqrt(torch.clamp_min(c.x * c.x + c.y * c.y + c.z * c.z, 0.0))

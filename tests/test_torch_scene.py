@@ -1,0 +1,81 @@
+"""SceneView.build of the port against fermat_tpu's on the CornellBox, and
+SceneView.from_numpy, which carries fermat_tpu's scene state across.
+
+The host-side tables are built in numpy by both packages, except where the
+JAX package computes in XLA (triangle areas, the light CDF, the shade-row
+join): those agree within 1e-6 relative.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from fermat_tpu.scene import procedural as jproc
+from fermat_tpu.scene.view import SceneView as JView
+from fermat_tpu_torch.scene import procedural as tproc
+from fermat_tpu_torch.scene.view import SceneView as TView
+
+
+def jax_view_arrays(view) -> dict:
+    """Leaves of a fermat_tpu SceneView as numpy, keyed by field path."""
+    leaves, _ = jax.tree_util.tree_flatten_with_path(view)
+    return {jax.tree_util.keystr(p).lstrip("."): np.asarray(a) for p, a in leaves}
+
+
+def port_view_arrays(obj, prefix="") -> dict:
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj.cpu().numpy()}
+    out = {}
+    for name in obj._fields:
+        out.update(port_view_arrays(getattr(obj, name), f"{prefix}.{name}" if prefix else name))
+    return out
+
+
+@pytest.fixture(scope="module")
+def views():
+    jv = JView.build(jproc.cornell_box(glossy_boxes=True), jproc.cornell_camera())
+    tv = TView.build(tproc.cornell_box(glossy_boxes=True), tproc.cornell_camera(), "cpu")
+    return jv, tv
+
+
+def test_build_matches_jax_tables(views):
+    jv, tv = views
+    close = lambda got, want: np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                                         rtol=1e-6, atol=1e-7)
+    close(tv.mesh.shade_rows(), jv.mesh.shade_rows())
+    close(tv.lights.rows, jv.lights.rows)
+    close(tv.lights.pdf_area, jv.lights.pdf_area)
+    close(tv.lights.cdf, jv.lights.cdf)
+    assert bool(tv.lights.has_lights) == bool(jv.lights.has_lights)
+    close(tv.env, jv.env)
+    # the per-triangle geometry is numpy on both sides: bit-equal
+    got, want = port_view_arrays(tv), jax_view_arrays(jv)
+    for k in got:
+        if k.startswith(("mesh.", "camera.")):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_from_numpy_round_trips_exactly(views):
+    jv, _ = views
+    arrays = jax_view_arrays(jv)
+    tv = TView.from_numpy(arrays, "cpu")
+    got = port_view_arrays(tv)
+    assert got, "empty view"
+    for k, a in got.items():
+        assert a.dtype == arrays[k].dtype, k
+        np.testing.assert_array_equal(a, arrays[k], err_msg=k)
+
+
+@pytest.mark.parametrize("extra", ["env_map.pdf", "dir_lights.dir_x", "textures.texels"])
+def test_from_numpy_rejects_features_outside_the_slice(views, extra):
+    arrays = dict(jax_view_arrays(views[0]))
+    arrays[extra] = np.ones((4, 4), np.float32)
+    with pytest.raises(NotImplementedError):
+        TView.from_numpy(arrays, "cpu")
+
+
+def test_build_rejects_textures():
+    mesh = tproc.cornell_box()
+    mesh.materials[0].diffuse_map_name = "wall.tga"
+    with pytest.raises(NotImplementedError):
+        TView.build(mesh, tproc.cornell_camera(), "cpu")
