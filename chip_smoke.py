@@ -13,21 +13,49 @@ result is printed then):
                 CornellBox and random_soup(4096), gather_rows on (36, 52),
                 (36, 23) and (4096, 52) tables with out-of-range indices;
                 all bit-equal (the kernels are built with --fmad=false);
+  3b. mega    — the megakernels against their plain versions on the card at
+                128x128, 6 bounces: K3a (mega_forward) with the scene's lobes,
+                all four lobes, all four with clearcoat, and all four with
+                clearcoat on glass_cornell_box (rays equal, every
+                channel within image_close, hit flag equal on >= 99.9% of
+                pixels; prints the fraction of bit-equal pixels); K3b
+                (mega_grad) with the scene's and all lobes for the adjoint of
+                an MSE against 0.2, also on glass_cornell_box (within 1e-3
+                of max|g|);
   4. main     — progressive PT through RenderingContext on cuda: glossy
                 CornellBox, 512x512, max_path_length=6; best of 3 batches of
                 8 passes after a warm-up pass; ms/pass and Mrays/s (closest +
                 shadow rays actually traced, as bench.py counts them); the
                 kernel launch counts of those passes;
+  4b. mega    — the same render with tracer="mega": ms/pass, Mrays/s, the
+                launch counts (mega_forward once per pass, no K1/K2), one
+                pass under torch.profiler;
+  4c. train   — bench.py's train step: a K3a pass, MSE against a zero
+                target, adjoint 2(img - target)/(3N), K3b; best of 3 steps;
+                ms/step and train Mrays/s (forward rays / step wall time);
   5. parity   — one 512x512 pass with the kernels and one with the plain
                 versions forced in their place: equal `rays`, equal images;
                 then the golden configuration (tests/golden/
                 torch_port_cornell_32.npz, the JAX package's CPU output and
                 scene view) on the card's kernel path, within the tolerances
                 of tests/test_torch_pt.py;
+  5b. parity  — K3a at 512x512 against _mega_plain (rays equal, images
+                close), and K3b at 512x512 on the train step's own adjoint
+                against _mega_grad_plain (within 1e-3 of max|g|): the kernels
+                line's max_abs_err is from these main-path shapes; the card's
+                K3a and K3b at every configuration of
+                tests/golden/torch_port_mega_32.npz (the JAX megakernel's CPU
+                output), within the tolerances of tests/test_torch_mega.py;
   6. timing   — every launch of one main-path pass is replayed alone: device
                 time of the kernel, of its plain version and (gather only) of
                 `index_select`, beside the bound from the bytes and
-                operations the inputs need.
+                operations the inputs need; K3a and K3b at 512x512 likewise
+                (the train step's instance and adjoint),
+                their bound from the 27 output lanes (K3b: the adjoint in,
+                the partials out) plus the tables, and 46 flops per
+                ray-triangle test (closest rays test every triangle, shadow
+                rays up to their first hit). That bound leaves out the
+                shading arithmetic, so it is a lower bound.
 Then the card's nvidia-smi line, one JSON line {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.
 """
@@ -43,6 +71,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 RES, MPL, PASSES, REPS = 512, 6, 8, 3
 N_RAYS = 262_144
+MEGA_RES = 128  # megakernel-vs-plain comparisons (the plain pass is eager PyTorch)
+ALL_LOBES = (True, True, True, True)
 # FP32 arithmetic operations of one Moller-Trumbore ray-triangle test as
 # written in ops/csrc/trace.cu:hit_test (comparisons not counted)
 FLOPS_PER_TEST = 46
@@ -125,6 +155,45 @@ def image_close(got, want) -> tuple:
     return near >= 0.99 and mean_rel <= 1e-3, float(near), mean_rel
 
 
+def profile_one_pass(ctx):
+    """(device kernels, device-busy ms, top entries) of one pass under
+    torch.profiler; the device is idle for the rest of the pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ctx.render_batch(1)
+    by_name = {}
+    for e in prof.events():
+        if _on_device(e):
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.self_device_time_total, c + 1)
+    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+    n_kern = sum(c for _, c in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return n_kern, busy_ms, top
+
+
+def best_batches(ctx):
+    """Best of REPS batches of PASSES passes: (seconds, rays of that batch)."""
+    import torch
+
+    best, best_rays = float("inf"), 0.0
+    for _ in range(REPS):
+        rays0 = float(ctx.stats["rays"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.render_batch(PASSES)  # ends in torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if dt < best:
+            best, best_rays = dt, float(ctx.stats["rays"]) - rays0
+    return best, best_rays
+
+
+def lanes_close(got, want) -> tuple:
+    """image_close on (3, N) lane blocks of the megakernel's output."""
+    return image_close(got.t().cpu().numpy(), want.t().cpu().numpy())
+
+
 def main() -> int:
     import torch
 
@@ -139,19 +208,28 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
+    from fermat_tpu_torch.bsdf.composite import scene_lobes
     from fermat_tpu_torch.core.math import Vec3
     from fermat_tpu_torch.integrators import pt
     from fermat_tpu_torch.ops import _cuda
     from fermat_tpu_torch.ops import gather as gather_mod
+    from fermat_tpu_torch.ops import pt_mega
     from fermat_tpu_torch.ops import trace as trace_mod
     from fermat_tpu_torch.render.context import RenderingContext
     from fermat_tpu_torch.scene import lights as lights_mod
     from fermat_tpu_torch.scene import mesh as mesh_mod
-    from fermat_tpu_torch.scene.procedural import cornell_box, cornell_camera, random_soup
+    from fermat_tpu_torch.scene.procedural import (cornell_box, cornell_camera,
+                                                   glass_cornell_box, random_soup)
     from fermat_tpu_torch.scene.view import SceneView
 
-    kernels = {"trace_closest": trace_mod.CLOSEST, "trace_any": trace_mod.ANY,
-               "gather_rows": gather_mod.GATHER}
+    dense = {"trace_closest": trace_mod.CLOSEST, "trace_any": trace_mod.ANY,
+             "gather_rows": gather_mod.GATHER}
+    mega = {"mega_forward": pt_mega.FORWARD, "mega_grad": pt_mega.GRAD}
+    kernels = {**dense, **mega}
+
+    def reset_counts():
+        for k in kernels.values():
+            k.launches = 0
 
     # ---- 1. device ----
     dev = torch.device("cuda", 0)
@@ -170,7 +248,7 @@ def main() -> int:
         + ", ".join(f"{s} {r.seconds:.1f} s" for s, r in built.items()))
     for r in built.values():
         for line in r.log.splitlines():
-            if "registers" in line:
+            if "registers" in line or "spill" in line:
                 log(f"    ptxas {r.source}: {line.split(':', 1)[-1].strip()}")
 
     # ---- 3. kernel vs plain on the card ----
@@ -226,52 +304,150 @@ def main() -> int:
         log(f"[3 kernels] gather_rows ({rows}, {cols}) x {N_RAYS} indices "
             f"({float(((idx < 0) | (idx >= rows)).float().mean()):.3f} out of range): bit-equal")
 
+    # ---- 3b. megakernels vs plain on the card ----
+    # the CornellBox has no transmissive or coated material, so its three
+    # lobe sets trace the same paths; glass_cornell_box drives those lobes
+    glossy = cornell_box(glossy_boxes=True)
+    mview = SceneView.build(glossy, cornell_camera(), dev)
+    glass_view = SceneView.build(glass_cornell_box(), cornell_camera(), dev)
+    lobes_scene = tuple(scene_lobes(glossy.materials))
+    nm = MEGA_RES * MEGA_RES
+    for label, lobes, cc, mv in (
+            ("scene lobes", lobes_scene, False, mview), ("all lobes", ALL_LOBES, False, mview),
+            ("all lobes + clearcoat", ALL_LOBES, True, mview),
+            ("glass boxes, all lobes + clearcoat", ALL_LOBES, True, glass_view)):
+        mopts = pt.PTOptions(tracer="mega", max_path_length=MPL, lobes=lobes, clearcoat=cc)
+        tb = pt_mega.build_mega_tables(mv, MEGA_RES, MEGA_RES, mopts.ray_eps)
+        out = pt_mega._mega_forward(tb, mopts, MEGA_RES, nm, 7, 0)
+        ref = pt_mega._mega_plain(tb, mopts, MEGA_RES, nm, 7, 0)
+        torch.cuda.synchronize()
+        check(float(out[26].sum()) == float(ref[26].sum()),
+              f"mega_forward {label}: rays {float(out[26].sum())} vs plain {float(ref[26].sum())}")
+        worst = 1.0
+        for c0, cname in ((0, "direct"), (3, "diffuse"), (6, "specular")):
+            ok, near, mean_rel = lanes_close(out[c0:c0 + 3], ref[c0:c0 + 3])
+            check(ok, f"mega_forward {label}: {cname} differs ({near}, {mean_rel})")
+            worst = min(worst, near)
+        ok, near, _ = lanes_close(out[0:3] + out[3:6] + out[6:9], ref[0:3] + ref[3:6] + ref[6:9])
+        check(ok, f"mega_forward {label}: composited differs")
+        hit_eq = float((out[10] == ref[10]).float().mean())
+        check(hit_eq >= 0.999, f"mega_forward {label}: hit flag equal on {hit_eq}")
+        bit_eq = float((bits(out) == bits(ref)).all(dim=0).float().mean())
+        max_err["mega_forward"] = max(max_err["mega_forward"],
+                                      float((out[:9] - ref[:9]).abs().max()))
+        check(float(out[:9].sum()) > 0.0, f"mega_forward {label}: black image")
+        log(f"[3b mega] mega_forward {label}, {MEGA_RES}x{MEGA_RES} mpl={MPL}: rays equal "
+            f"({float(out[26].sum()):.0f}); pixels close >= {worst:.4f}; hit flag equal "
+            f"{hit_eq:.4f}; bit-equal pixels (all 27 lanes) {bit_eq:.4f}")
+    for label, lobes, mv in (("scene lobes", lobes_scene, mview),
+                             ("all lobes", ALL_LOBES, mview),
+                             ("glass boxes, all lobes", ALL_LOBES, glass_view)):
+        mopts = pt.PTOptions(tracer="mega", max_path_length=MPL, lobes=lobes)
+        tb = pt_mega.build_mega_tables(mv, MEGA_RES, MEGA_RES, mopts.ray_eps)
+        img = pt_mega._mega_forward(tb, mopts, MEGA_RES, nm, 9, 0)
+        comp = (img[0:3] + img[3:6] + img[6:9]).t().contiguous()
+        adjoint = 2.0 * (comp - 0.2) / (nm * 3)
+        g = pt_mega._mega_grad(tb, mopts, MEGA_RES, nm, 9, 0, adjoint)
+        g_ref = pt_mega._mega_grad_plain(tb, mopts, MEGA_RES, nm, 9, 0, adjoint)
+        torch.cuda.synchronize()
+        scale = float(g_ref.abs().max())
+        err = float((g - g_ref).abs().max())
+        check(scale > 0.0 and err <= 1e-3 * scale,
+              f"mega_grad {label}: max err {err} vs max|g| {scale}")
+        max_err["mega_grad"] = max(max_err["mega_grad"], err)
+        log(f"[3b mega] mega_grad {label}, {MEGA_RES}x{MEGA_RES} mpl={MPL}, MSE vs 0.2: "
+            f"max |g - plain| {err:.3g} = {err / scale:.2e} of max|g| {scale:.4g}")
+
     # ---- 4. main path ----
     ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), RES, RES,
                                   renderer="pt", max_path_length=MPL)
     check(ctx.device.type == "cuda", "RenderingContext did not default to cuda")
     ctx.render(1)  # warm-up (first-use costs)
-    for k in kernels.values():
-        k.launches = 0
-    best, best_rays = float("inf"), 0.0
-    for _ in range(REPS):
-        rays0 = float(ctx.stats["rays"])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ctx.render_batch(PASSES)  # ends in torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if dt < best:
-            best, best_rays = dt, float(ctx.stats["rays"]) - rays0
+    reset_counts()
+    best, best_rays = best_batches(ctx)
     launches = {n: k.launches for n, k in kernels.items()}
     n_main = PASSES * REPS
     hdr = ctx.hdr_image()
     check(np.isfinite(hdr).all() and hdr.shape == (RES, RES, 3), "image not finite")
     check(float(hdr.mean()) > 0.01, f"image is black (mean {hdr.mean()})")
-    for n, c in launches.items():
-        check(c > 0, f"kernel {n} was never launched on the main path")
+    for n in dense:
+        check(launches[n] > 0, f"kernel {n} was never launched on the main path")
     mrays = best_rays / best / 1e6
     ms_pass = best / PASSES * 1e3
     log(f"[4 main] CornellBox glossy {RES}x{RES} mpl={MPL}: {ms_pass:.2f} ms/pass, "
         f"{mrays:.2f} Mrays/s ({best_rays / PASSES:.0f} rays/pass; best of {REPS} x "
         f"{PASSES} passes) on {smi}; image mean {hdr.mean():.4f}; launches over "
         f"{n_main} passes: {launches}")
-    # where one pass's device time goes (the device is idle for the rest)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ctx.render_batch(1)
-    by_name = {}
-    for e in prof.events():
-        if _on_device(e):
-            t, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.self_device_time_total, c + 1)
-    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
-    n_kern = sum(c for _, c in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    n_kern, busy_ms, top = profile_one_pass(ctx)
     log(f"[4 main] one pass under torch.profiler: {n_kern} device kernels, device busy "
         f"{busy_ms:.2f} ms of the {ms_pass:.2f} ms pass (idle share "
         f"{1 - busy_ms / ms_pass:.3f}); top by device time: "
         + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
+
+    # ---- 4b. the megakernel path ----
+    mctx = RenderingContext.create(glossy, cornell_camera(), RES, RES, renderer="pt",
+                                   max_path_length=MPL, tracer="mega")
+    mctx.render(1)  # warm-up (first-use costs: the build, the tables)
+    reset_counts()
+    m_best, m_rays = best_batches(mctx)
+    m_launches = {n: k.launches for n, k in kernels.items()}
+    m_hdr = mctx.hdr_image()
+    check(np.isfinite(m_hdr).all() and m_hdr.shape == (RES, RES, 3), "mega image not finite")
+    check(float(m_hdr.mean()) > 0.01, f"mega image is black (mean {m_hdr.mean()})")
+    check(m_launches["mega_forward"] == n_main,
+          f"mega_forward launched {m_launches['mega_forward']} times in {n_main} passes")
+    check(all(m_launches[n] == 0 for n in dense) and m_launches["mega_grad"] == 0,
+          f"the mega path launched another kernel: {m_launches}")
+    m_ms = m_best / PASSES * 1e3
+    m_mrays = m_rays / m_best / 1e6
+    log(f"[4b mega] CornellBox glossy {RES}x{RES} mpl={MPL} tracer=mega: {m_ms:.3f} ms/pass, "
+        f"{m_mrays:.2f} Mrays/s ({m_rays / PASSES:.0f} rays/pass; best of {REPS} x {PASSES} "
+        f"passes) on {smi}; image mean {m_hdr.mean():.4f}; launches over {n_main} passes: "
+        f"{m_launches}")
+    mk_n, m_busy, m_top = profile_one_pass(mctx)
+    log(f"[4b mega] one pass under torch.profiler: {mk_n} device kernels, device busy "
+        f"{m_busy:.3f} ms of the {m_ms:.3f} ms pass (idle share {1 - m_busy / m_ms:.3f}); top: "
+        + "; ".join(f"{n[:50]} {t / 1e3:.3f} ms x{c}" for n, (t, c) in m_top))
+
+    # ---- 4c. train step (bench.py:129-150) ----
+    t_opts = pt.PTOptions(**mctx.renderer_options)
+    check(pt_mega.mega_grad_eligible(mctx.view, t_opts), "mega_grad_eligible fails")
+    t_tb = pt_mega.build_mega_tables(mctx.view, RES, RES, t_opts.ray_eps)
+    target = torch.zeros((RES * RES, 3), device=dev)
+
+    def train_step(inst):
+        out = pt_mega.render_pass_mega(mctx.view, t_opts, RES, RES, inst, 0, tables=t_tb)
+        img = out.composited.stack()
+        loss = torch.mean((img - target) ** 2)
+        adjoint = 2.0 * (img - target) / (img.shape[0] * 3)
+        grad = pt_mega.render_grad_diffuse_mega(mctx.view, t_opts, RES, RES, inst, adjoint, 0,
+                                                tables=t_tb)
+        return loss, out.rays, grad, adjoint
+
+    train_step(0)
+    torch.cuda.synchronize()
+    reset_counts()
+    t_best, t_rays, t_grad = float("inf"), 0.0, None
+    for rep in range(REPS):
+        t0 = time.perf_counter()
+        loss, rays_v, grad, adjoint = train_step(rep + 1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if dt < t_best:
+            t_best, t_rays, t_grad = dt, float(rays_v), grad
+    # the last step's own inputs: K3b is held to its plain version on them (5b)
+    # and timed on them (6)
+    t_inst, t_adj = REPS, adjoint
+    t_launches = {n: k.launches for n, k in kernels.items()}
+    check(t_launches["mega_forward"] == REPS and t_launches["mega_grad"] == REPS,
+          f"train steps launched {t_launches}")
+    check(bool(torch.isfinite(t_grad).all()) and float(t_grad.abs().max()) > 0.0,
+          "train-step gradient is not finite or is zero")
+    t_mrays = t_rays / t_best / 1e6
+    log(f"[4c train] {RES}x{RES} mpl={MPL} MSE vs 0, K3a + K3b: {t_best * 1e3:.3f} ms/step, "
+        f"train {t_mrays:.2f} Mrays/s (forward rays / step wall time; best of {REPS}) on {smi}; "
+        f"loss {float(loss):.5g}; launches over {REPS} steps: {t_launches}; dL/d diffuse "
+        f"{np.round(t_grad.cpu().numpy(), 6).tolist()}")
 
     # ---- 5. parity on the card ----
     opts = pt.PTOptions(**ctx.renderer_options)
@@ -324,6 +500,76 @@ def main() -> int:
         f"image: rays {grays:.0f} vs {float(gz['rays']):.0f}; pixels close/mean rel: "
         + ", ".join(report))
 
+    # ---- 5b. megakernel parity: 512x512 against the plain version; JAX golden ----
+    m_opts, m_tb = t_opts, t_tb  # the mega pass's options and tables
+    n_full = RES * RES
+    out_k = pt_mega._mega_forward(m_tb, m_opts, RES, n_full, 1000, 0)
+    out_p = pt_mega._mega_plain(m_tb, m_opts, RES, n_full, 1000, 0)
+    torch.cuda.synchronize()
+    check(float(out_k[26].sum()) == float(out_p[26].sum()), "mega 512: rays differ from plain")
+    report = []
+    for c0, cname in ((0, "direct"), (3, "diffuse"), (6, "specular")):
+        ok, near, mean_rel = lanes_close(out_k[c0:c0 + 3], out_p[c0:c0 + 3])
+        check(ok, f"mega 512 vs plain: {cname} differs ({near}, {mean_rel})")
+        report.append(f"{cname} {near:.4f}/{mean_rel:.1e}")
+    ok, near, mean_rel = lanes_close(out_k[0:3] + out_k[3:6] + out_k[6:9],
+                                     out_p[0:3] + out_p[3:6] + out_p[6:9])
+    check(ok, "mega 512 vs plain: composited differs")
+    # the kernels line reports the errors at the main path's shapes (3b's at
+    # 128x128 are in its log lines)
+    max_err["mega_forward"] = float((out_k[:9] - out_p[:9]).abs().max())
+    log(f"[5b parity] mega_forward {RES}x{RES} mpl={MPL} vs _mega_plain: rays equal "
+        f"({float(out_k[26].sum()):.0f}); pixels close/mean rel: composited {near:.4f}/"
+        f"{mean_rel:.1e}, " + ", ".join(report) + "; bit-equal pixels "
+        f"{float((bits(out_k) == bits(out_p)).all(dim=0).float().mean()):.4f}; max |radiance "
+        f"diff| {max_err['mega_forward']:.3g}")
+    del out_k, out_p
+    g = pt_mega._mega_grad(t_tb, t_opts, RES, n_full, t_inst, 0, t_adj)
+    g_ref = pt_mega._mega_grad_plain(t_tb, t_opts, RES, n_full, t_inst, 0, t_adj)
+    torch.cuda.synchronize()
+    scale, err = float(g_ref.abs().max()), float((g - g_ref).abs().max())
+    check(scale > 0.0 and err <= 1e-3 * scale,
+          f"mega_grad {RES}x{RES}: max err {err} vs max|g| {scale}")
+    max_err["mega_grad"] = err
+    log(f"[5b parity] mega_grad {RES}x{RES} mpl={MPL} on the train step's adjoint (instance "
+        f"{t_inst}, MSE vs 0) vs _mega_grad_plain: max |g - plain| {err:.3g} = "
+        f"{err / scale:.2e} of max|g| {scale:.4g}")
+
+    gm = np.load(ROOT / "tests" / "golden" / "torch_port_mega_32.npz")
+    mres, mseed = int(gm["res"]), int(gm["seed"])
+    report = []
+    gm_glass = SceneView.build(glass_cornell_box(), cornell_camera(), dev)
+    for cfg in ("A", "B", "C", "D"):  # D renders glass_cornell_box
+        c_opts = pt.PTOptions(tracer="mega", max_path_length=int(gm[f"{cfg}.max_path_length"]),
+                              lobes=tuple(bool(x) for x in gm[f"{cfg}.lobes"]),
+                              clearcoat=bool(gm[f"{cfg}.clearcoat"]))
+        c_out = pt.render_pass(gm_glass if cfg == "D" else gview, c_opts, mres, mres,
+                               int(gm[f"{cfg}.instance"]), mseed)
+        c_rays, want = float(c_out.rays), float(gm[f"{cfg}.rays"])
+        check(abs(c_rays - want) <= 0.005 * want, f"mega golden {cfg}: rays {c_rays} vs {want}")
+        worst = 1.0
+        for c in ("composited", "direct", "diffuse", "specular"):
+            ok, near, mean_rel = image_close(getattr(c_out, c).stack().cpu().numpy(),
+                                             gm[f"{cfg}.{c}"].reshape(-1, 3))
+            check(ok, f"mega golden {cfg} {c}: {near:.4f} close, mean rel {mean_rel:.2e}")
+            worst = min(worst, near)
+        for key in ("tri", "material"):
+            eq = float((getattr(c_out, key).cpu().numpy() == gm[f"{cfg}.{key}"].ravel()).mean())
+            check(eq >= 0.999, f"mega golden {cfg}: {key} equal on {eq}")
+        report.append(f"{cfg} rays {c_rays:.0f}/{want:.0f} pixels close >= {worst:.4f}")
+    for cfg in ("A", "D"):  # D: glass_cornell_box without the coat (K3b gates it out)
+        g_opts = pt.PTOptions(tracer="mega", max_path_length=int(gm[f"{cfg}.max_path_length"]),
+                              lobes=tuple(bool(x) for x in gm[f"{cfg}.lobes"]),
+                              clearcoat=bool(gm[f"grad.{cfg}.clearcoat"]))
+        g_card = pt_mega.render_grad_diffuse_mega(
+            gm_glass if cfg == "D" else gview, g_opts, mres, mres, int(gm[f"{cfg}.instance"]),
+            torch.from_numpy(gm[f"grad.{cfg}.adjoint"]).to(dev), mseed).cpu().numpy()
+        want = gm[f"grad.{cfg}"]
+        g_err = float(np.abs(g_card - want).max() / np.abs(want).max())
+        check(g_err <= 1e-3, f"mega golden: gradient {cfg} off by {g_err} of max|g|")
+        report.append(f"gradient {cfg} within {g_err:.2e} of max|g|")
+    log(f"[5b parity] JAX megakernel golden {mres}x{mres} on the card: " + "; ".join(report))
+
     # ---- 6. per-launch timing at the main path's inputs ----
     calls = {n: [] for n in kernels}
 
@@ -348,7 +594,7 @@ def main() -> int:
         return float(first[active].sum())
 
     rows = []
-    for kname, kern in kernels.items():
+    for kname, kern in dense.items():
         ms = plain_ms = lib_ms = bound = 0.0
         by_bytes = by_ops = 0.0
         timers = set()
@@ -411,6 +657,61 @@ def main() -> int:
         log(f"[6 timing] {kname}: {ms / nc * 1e3:.2f} us/launch (plain "
             f"{plain_ms / nc * 1e3:.1f} us, bound {bound / nc * 1e3:.2f} us by "
             f"{rows[-1]['bound_by']}) over the {nc} launches of one pass; {sorted(shapes)}")
+
+    # the megakernels at the main path's inputs; the bound counts what this
+    # pass's paths need: every closest ray tests all triangles, every shadow
+    # ray tests up to its first hit (recorded from the plain version's pass,
+    # whose rays equal the kernel's)
+    traced = {"closest": 0.0, "shadow": 0.0}
+
+    def rec_closest(tris, o, d, tmin, tmax, active):
+        traced["closest"] += float(active.sum()) * tris.shape[1]
+        return trace_mod._closest_plain(tris, o, d, tmin, tmax, active)
+
+    def rec_any(tris, o, d, tmin, tmax, active):
+        traced["shadow"] += first_hit_tests(tris, o, d, tmax, active)
+        return trace_mod._any_plain(tris, o, d, tmin, tmax, active)
+
+    inst_t = t_inst
+    with patched([(pt_mega, "_closest_plain", rec_closest), (pt_mega, "_any_plain", rec_any)]):
+        pt_mega._mega_plain(m_tb, m_opts, RES, n_full, inst_t, 0)
+    torch.cuda.synchronize()
+    tests = traced["closest"] + traced["shadow"]
+    table_bytes = 4 * sum(t.numel() for t in (m_tb.tri, m_tb.mat, m_tb.light, m_tb.cam))
+    blocks = -(-n_full // pt_mega.BLOCK)
+    for kname, f_k, f_p, byt, n_launch, per in (
+            ("mega_forward", lambda: pt_mega._mega_forward(m_tb, m_opts, RES, n_full, inst_t, 0),
+             lambda: pt_mega._mega_plain(m_tb, m_opts, RES, n_full, inst_t, 0),
+             pt_mega.N_OUT * n_full * 4 + table_bytes, m_launches["mega_forward"], n_main),
+            ("mega_grad", lambda: pt_mega._mega_grad(m_tb, m_opts, RES, n_full, inst_t, 0, t_adj),
+             lambda: pt_mega._mega_grad_plain(m_tb, m_opts, RES, n_full, inst_t, 0, t_adj),
+             n_full * 12 + blocks * m_tb.n_mats * 12 + table_bytes, t_launches["mega_grad"],
+             REPS)):
+        ms, tm = device_ms(f_k, reps=10)
+        plain_ms = device_ms(f_p, reps=1)[0]
+        b_bytes, b_ops = byt / bw * 1e3, tests * FLOPS_PER_TEST / fp32 * 1e3
+        kern = mega[kname]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": f"fermat_tpu_torch/ops/csrc/{kern.source}",
+            "replaces": kern.replaces,
+            "launches": n_launch,
+            ("launches_per_pass" if kname == "mega_forward" else "launches_per_step"):
+                n_launch / per,
+            "max_abs_err": max_err[kname], "max_abs_err_vs_plain": max_err[kname],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": None,
+            "us_per_launch": ms * 1e3,
+            "timer": tm,
+            "shapes": [f"{RES}x{RES} pixels, mpl {MPL}, {m_tb.n_tris} tris, "
+                       f"{traced['closest']:.0f} closest + {traced['shadow']:.0f} shadow tests"],
+        })
+        log(f"[6 timing] {kname}: {ms * 1e3:.1f} us/launch (plain {plain_ms * 1e3:.1f} us, "
+            f"bound {max(b_bytes, b_ops) * 1e3:.2f} us by {rows[-1]['bound_by']}: "
+            f"{byt / 1e6:.2f} MB, {tests * FLOPS_PER_TEST / 1e9:.3f} GFLOP of ray-triangle "
+            f"tests, shading not counted) at {RES}x{RES}, {n_launch / per:g} launch per "
+            f"{'pass' if kname == 'mega_forward' else 'step'}")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -9,9 +9,12 @@ device="cpu". On the CPU every hand-written kernel is replaced by its plain
 PyTorch version (the tensor's device decides); on a CUDA tensor a wrapper
 launches its kernel or raises.
 
-Slice 1 covers progressive path tracing on scenes of at most 4096 triangles:
-the dense tracer (ops/trace.py, CUDA) and the row gather (ops/gather.py,
-CUDA) are the kernels on that path.
+Ported so far: progressive path tracing on scenes of at most 4096
+triangles through the dense tracer (ops/trace.py) and the row gather
+(ops/gather.py), and, with tracer="mega" on scenes within the megakernel's
+caps (128 triangles, 32 materials, 32 emitters), the whole-pass megakernel
+and its replay-gradient train step (ops/pt_mega.py). All five kernels are
+hand-written CUDA.
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ optional perfectly-specular clearcoat (fermat_tpu/bsdf/composite.py).
 Components (bsdf.h:127-155): 0 diffuse reflection, 1 diffuse transmission,
 2 glossy reflection, 3 glossy transmission, 4 clearcoat reflection.
 `lobes` = (dr, dt, gr, gt) is a static mask: a disabled lobe is not computed.
-Only the GGX glossy model is in this slice (glossy="ltc" raises).
+Only the GGX glossy model is ported (glossy="ltc" raises).
 """
 from __future__ import annotations
 
@@ -72,10 +72,14 @@ def _max_comp(v: Vec3) -> Tensor:
     return torch.maximum(torch.maximum(v.x, v.y), v.z)
 
 
-def _e_glossy(p: BsdfParams, cos_t: Tensor) -> Tensor:
+def _e_glossy(p: BsdfParams, cos_t: Tensor, e_fn=None) -> Tensor:
     """Fresnel-scaled glossy directional albedo (hemispherical-average
-    Schlick F_avg = F0 + (1 - F0)/21, exactly 0 for F0 = 0)."""
-    e1 = ggx.glossy_reflectance(p.roughness, cos_t)
+    Schlick F_avg = F0 + (1 - F0)/21, exactly 0 for F0 = 0).
+
+    `e_fn(roughness, cos_t)` replaces the bilinear F=1 albedo lookup; the
+    megakernel path passes its exact 32-knot piecewise-linear rebuild
+    (ops/pt_mega.py). Every function below threads it through."""
+    e1 = (e_fn or ggx.glossy_reflectance)(p.roughness, cos_t)
     f0m = _max_comp(p.f0)
     # XLA lowers a division by a constant to a multiply by its float32
     # reciprocal; the port writes it so, to round like the reference
@@ -121,7 +125,7 @@ def scene_lobes(materials_host) -> tuple:
     return (True, has_dt, True, has_gt)
 
 
-def component_weights(p: BsdfParams, wi: Vec3, wo: Vec3):
+def component_weights(p: BsdfParams, wi: Vec3, wo: Vec3, e_fn=None):
     """(glossy_refl r_coeff Vec3, diffuse_w, diffuse_trans_w, glossy_trans_w)
     (bsdf.h:722-744)."""
     h = normalize(wi + wo)
@@ -135,21 +139,23 @@ def component_weights(p: BsdfParams, wi: Vec3, wo: Vec3):
         torch.where(suppressed, 0.0, r_coeff.z),
     )
     t = 1.0 - _max_comp(r_coeff)
-    k = (1.0 - _e_glossy(p, torch.abs(wi.z))) * (1.0 - _e_glossy(p, torch.abs(wo.z)))
+    k = (1.0 - _e_glossy(p, torch.abs(wi.z), e_fn)) * (
+        1.0 - _e_glossy(p, torch.abs(wo.z), e_fn))
     diffuse_w = t * p.opacity * k
     diffuse_trans_w = t * p.opacity * k
     glossy_trans_w = t * (1.0 - p.opacity)
     return r_coeff, diffuse_w, diffuse_trans_w, glossy_trans_w
 
 
-def _selection_probs(p: BsdfParams, wi: Vec3, lobes=ALL_LOBES, clearcoat: bool = False):
+def _selection_probs(p: BsdfParams, wi: Vec3, lobes=ALL_LOBES, clearcoat: bool = False,
+                     e_fn=None):
     """Lobe selection probabilities from view-dependent weight luminances;
     with the clearcoat the coat takes mean(Fc) (bsdf.h:999-1001)."""
     nov = torch.abs(wi.z)
     r_lum = _max_comp(schlick(nov, p.f0))
     r_lum = torch.where(p.ior == 0.0, 0.0, r_lum)
     t = 1.0 - r_lum
-    k = 1.0 - _e_glossy(p, nov)
+    k = 1.0 - _e_glossy(p, nov, e_fn)
     zero = torch.zeros_like(nov)
     w_dr = t * p.opacity * k * _max_comp(p.diffuse) if lobes[0] else zero
     w_dt = t * p.opacity * k * _max_comp(p.diffuse_trans) if lobes[1] else zero
@@ -171,10 +177,10 @@ def _selection_probs(p: BsdfParams, wi: Vec3, lobes=ALL_LOBES, clearcoat: bool =
     return p_dr, p_dt, p_gr, p_gt, zero
 
 
-def _lobe_values(p: BsdfParams, wi: Vec3, wo: Vec3, lobes):
+def _lobe_values(p: BsdfParams, wi: Vec3, wo: Vec3, lobes, e_fn=None):
     """Shared head of f_and_pdf / f_split: lobe weights and per-lobe values."""
     alpha = ggx._alpha(p.roughness)
-    r_coeff, w_d, w_dt, w_gt = component_weights(p, wi, wo)
+    r_coeff, w_d, w_dt, w_gt = component_weights(p, wi, wo, e_fn)
     same = (wi.z * wo.z) > 0.0
     abs_co = torch.abs(wo.z)
     zero = torch.zeros_like(abs_co)
@@ -188,8 +194,8 @@ def _lobe_values(p: BsdfParams, wi: Vec3, wo: Vec3, lobes):
     return alpha, r_coeff, same, abs_co, zero, f_dr, f_dt, g_r, pdf_gr, g_t
 
 
-def _mix_pdf(p, wi, wo, lobes, clearcoat, alpha, same, abs_co, zero, pdf_gr):
-    p_dr, p_dt, p_gr, p_gt, _ = _selection_probs(p, wi, lobes, clearcoat)
+def _mix_pdf(p, wi, wo, lobes, clearcoat, alpha, same, abs_co, zero, pdf_gr, e_fn=None):
+    p_dr, p_dt, p_gr, p_gt, _ = _selection_probs(p, wi, lobes, clearcoat, e_fn)
     return (
         p_dr * (torch.where(same, abs_co * INV_PI, 0.0) if lobes[0] else zero)
         + p_dt * (torch.where(~same, abs_co * INV_PI, 0.0) if lobes[1] else zero)
@@ -199,28 +205,30 @@ def _mix_pdf(p, wi, wo, lobes, clearcoat, alpha, same, abs_co, zero, pdf_gr):
 
 
 def f_and_pdf(p: BsdfParams, wi: Vec3, wo: Vec3, lobes=ALL_LOBES,
-              clearcoat: bool = False, glossy: str = "ggx") -> Tuple[Vec3, Tensor]:
+              clearcoat: bool = False, glossy: str = "ggx",
+              e_fn=None) -> Tuple[Vec3, Tensor]:
     """Composite f and the mixture pdf of `sample` (bsdf.h:336-413)."""
     _check_glossy(glossy)
     alpha, r_coeff, same, abs_co, zero, f_dr, f_dt, g_r, pdf_gr, g_t = (
-        _lobe_values(p, wi, wo, lobes))
+        _lobe_values(p, wi, wo, lobes, e_fn))
     fx = p.diffuse.x * f_dr + p.diffuse_trans.x * f_dt + r_coeff.x * g_r + g_t
     fy = p.diffuse.y * f_dr + p.diffuse_trans.y * f_dt + r_coeff.y * g_r + g_t
     fz = p.diffuse.z * f_dr + p.diffuse_trans.z * f_dt + r_coeff.z * g_r + g_t
     if clearcoat:
         tc = clearcoat_fresnel(p, wi)
         fx, fy, fz = fx * (1.0 - tc.x), fy * (1.0 - tc.y), fz * (1.0 - tc.z)
-    mix = _mix_pdf(p, wi, wo, lobes, clearcoat, alpha, same, abs_co, zero, pdf_gr)
+    mix = _mix_pdf(p, wi, wo, lobes, clearcoat, alpha, same, abs_co, zero, pdf_gr, e_fn)
     return Vec3(fx, fy, fz), mix
 
 
 def f_split(p: BsdfParams, wi: Vec3, wo: Vec3, lobes=ALL_LOBES,
-            clearcoat: bool = False, glossy: str = "ggx") -> Tuple[Vec3, Vec3, Tensor]:
+            clearcoat: bool = False, glossy: str = "ggx",
+            e_fn=None) -> Tuple[Vec3, Vec3, Tensor]:
     """(f_diffuse, f_glossy, mixture_pdf) — the per-component split used to
     route diffuse vs specular framebuffer channels."""
     _check_glossy(glossy)
     alpha, r_coeff, same, abs_co, zero, f_dr, f_dt, g_r, pdf_gr, g_t = (
-        _lobe_values(p, wi, wo, lobes))
+        _lobe_values(p, wi, wo, lobes, e_fn))
     fd = Vec3(
         p.diffuse.x * f_dr + p.diffuse_trans.x * f_dt,
         p.diffuse.y * f_dr + p.diffuse_trans.y * f_dt,
@@ -231,8 +239,24 @@ def f_split(p: BsdfParams, wi: Vec3, wo: Vec3, lobes=ALL_LOBES,
         tc = clearcoat_fresnel(p, wi)
         fd = Vec3(fd.x * (1.0 - tc.x), fd.y * (1.0 - tc.y), fd.z * (1.0 - tc.z))
         fg = Vec3(fg.x * (1.0 - tc.x), fg.y * (1.0 - tc.y), fg.z * (1.0 - tc.z))
-    mix = _mix_pdf(p, wi, wo, lobes, clearcoat, alpha, same, abs_co, zero, pdf_gr)
+    mix = _mix_pdf(p, wi, wo, lobes, clearcoat, alpha, same, abs_co, zero, pdf_gr, e_fn)
     return fd, fg, mix
+
+
+def diffuse_refl_unit(p: BsdfParams, wi: Vec3, wo: Vec3, clearcoat: bool = False,
+                      e_fn=None, lobes=ALL_LOBES) -> Vec3:
+    """d f / d p.diffuse: the diffuse-reflection lobe with the albedo factored
+    out (composite.py:326-345). f_split's fd is exactly linear in p.diffuse
+    and component_weights does not read it, so this is the per-channel
+    partial derivative the replay-gradient kernel accumulates; the channels
+    differ only under clearcoat (the 1 - Fc coat transmission is chromatic)."""
+    _r, w_d, _w_dt, _w_gt = component_weights(p, wi, wo, e_fn)
+    same = (wi.z * wo.z) > 0.0
+    f_dr = torch.where(same, INV_PI, 0.0) * w_d if lobes[0] else torch.zeros_like(w_d)
+    if clearcoat:
+        tc = clearcoat_fresnel(p, wi)
+        return Vec3(f_dr * (1.0 - tc.x), f_dr * (1.0 - tc.y), f_dr * (1.0 - tc.z))
+    return Vec3(f_dr, f_dr, f_dr)
 
 
 class BsdfSample(NamedTuple):
@@ -245,10 +269,10 @@ class BsdfSample(NamedTuple):
 
 
 def sample(p: BsdfParams, wi: Vec3, u0, u1, u2, lobes=ALL_LOBES,
-           clearcoat: bool = False, glossy: str = "ggx") -> BsdfSample:
+           clearcoat: bool = False, glossy: str = "ggx", e_fn=None) -> BsdfSample:
     """One-sample-MIS lobe sampling (Bsdf::sample, bsdf.h:830-1140)."""
     _check_glossy(glossy)
-    p_dr, p_dt, p_gr, p_gt, p_cc = _selection_probs(p, wi, lobes, clearcoat)
+    p_dr, p_dt, p_gr, p_gt, p_cc = _selection_probs(p, wi, lobes, clearcoat, e_fn)
     alpha = ggx._alpha(p.roughness)
     side = torch.where(wi.z >= 0, 1.0, -1.0)
 
@@ -290,7 +314,7 @@ def sample(p: BsdfParams, wi: Vec3, u0, u1, u2, lobes=ALL_LOBES,
         wo = Vec3(torch.where(is_cc, -wi.x, wo.x), torch.where(is_cc, -wi.y, wo.y),
                   torch.where(is_cc, wi.z, wo.z))
 
-    fv, mix_pdf = f_and_pdf(p, wi, wo, lobes, clearcoat, glossy)
+    fv, mix_pdf = f_and_pdf(p, wi, wo, lobes, clearcoat, glossy, e_fn)
     # glossy-trans TIR lanes have pdf 0
     mix_pdf = torch.where(is_gt & (pdf_gt_s <= 0.0), 0.0, mix_pdf)
     valid = mix_pdf > 1e-12

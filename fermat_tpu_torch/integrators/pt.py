@@ -8,6 +8,7 @@ the rest). Per bounce: closest trace (K1a) -> one 52-column shade-row fetch
 fetch, K2) -> mesh-light NEE with f_split (light-row fetch, K2) and a
 shadow any-hit (K1b) -> BSDF sample -> Russian roulette -> channel routing
 -> hard zeroing of dead lanes. The G-buffer is taken at the first hit.
+tracer="mega" runs the same pass as one kernel launch (ops/pt_mega.py).
 
 Runs under torch.no_grad(): autograd through the pass (the `.detach()`
 counterparts of pt.py:227-255) belongs to the differentiable slice.
@@ -25,6 +26,7 @@ from fermat_tpu_torch.core.math import (Vec3, dot, orthonormal_basis, select, to
                                         to_world)
 from fermat_tpu_torch.core.rng import M32, TiledSequence
 from fermat_tpu_torch.core.sampling import power_heuristic
+from fermat_tpu_torch.ops import pt_mega
 from fermat_tpu_torch.ops.trace import trace_any, trace_closest
 from fermat_tpu_torch.scene.view import SceneView
 
@@ -68,11 +70,16 @@ class PTOptions(NamedTuple):
 
 
 def _trace_mode(n_triangles: int, opts: PTOptions) -> str:
-    """The dense tracer serves tracer="auto" up to 4096 triangles
-    (pt.py:214-224). Its wrappers launch the CUDA kernels on a CUDA view and
-    run the plain versions on a CPU view."""
+    """tracer="mega" runs the whole pass in the megakernel (pt.py:502-511);
+    the dense tracer serves tracer="auto" up to 4096 triangles
+    (pt.py:214-224), as in JAX, which never routes "auto" to the megakernel.
+    The wrappers launch the CUDA kernels on a CUDA view and run the plain
+    versions on a CPU view."""
+    if opts.tracer == "mega":
+        return "mega"
     if opts.tracer != "auto":
-        raise NotImplementedError(f"tracer={opts.tracer!r}: only 'auto' is ported")
+        raise NotImplementedError(
+            f"tracer={opts.tracer!r}: only 'auto' (dense) and 'mega' are ported")
     if n_triangles > DENSE_MAX_TRIANGLES:
         raise NotImplementedError(
             f"{n_triangles} triangles: scenes over {DENSE_MAX_TRIANGLES} need the "
@@ -304,10 +311,16 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
 
 @torch.no_grad()
 def render_pass(view: SceneView, opts: PTOptions, res_x: int, res_y: int,
-                instance: int, seed: int = 0) -> _PassOutput:
+                instance: int, seed: int = 0,
+                tables: "pt_mega.MegaTables | None" = None) -> _PassOutput:
     """Trace one progressive pass over the full pixel grid
-    (PathTracer::render, pathtracer_impl.h:197) on the view's device."""
-    _trace_mode(view.mesh.n_triangles, opts)
+    (PathTracer::render, pathtracer_impl.h:197) on the view's device.
+    tracer="mega" hands the whole pass to ops/pt_mega.render_pass_mega, with
+    `tables` (built from the view when None); other tracers take none."""
+    if _trace_mode(view.mesh.n_triangles, opts) == "mega":
+        return pt_mega.render_pass_mega(view, opts, res_x, res_y, instance, seed, tables)
+    if tables is not None:
+        raise ValueError(f"tables are the megakernel's; tracer={opts.tracer!r} takes none")
     _check_options(opts)
     dev = view.device
     n = res_x * res_y

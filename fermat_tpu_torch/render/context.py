@@ -17,6 +17,7 @@ from fermat_tpu_torch import resolve_device
 from fermat_tpu_torch.bsdf.composite import scene_clearcoat, scene_lobes
 from fermat_tpu_torch.core.camera import Camera
 from fermat_tpu_torch.integrators import pt as pt_mod
+from fermat_tpu_torch.ops import pt_mega
 from fermat_tpu_torch.render.framebuffer import Framebuffer, to_rgba8
 from fermat_tpu_torch.scene.mesh import MeshStorage
 from fermat_tpu_torch.scene.view import SceneView
@@ -84,11 +85,17 @@ class RenderingContext:
             torch.cuda.synchronize(self.device)
 
     def _one_pass(self) -> None:
-        if self._pass is None:
-            self._pass = _RENDERER_REGISTRY[self.renderer](**self.renderer_options)
-        pass_fn, opts = self._pass
         res_x, res_y = self.res_x, self.res_y
-        out = pass_fn(self.view, opts, res_x, res_y, self.instance, self.seed)
+        if self._pass is None:
+            pass_fn, opts = _RENDERER_REGISTRY[self.renderer](**self.renderer_options)
+            kw = {}
+            if getattr(opts, "tracer", None) == "mega":
+                # the megakernel's scene tables are baked from the view once
+                # (a build reads the view back to the host); restart() rebakes
+                kw["tables"] = pt_mega.build_mega_tables(self.view, res_x, res_y, opts.ray_eps)
+            self._pass = (pass_fn, opts, kw)
+        pass_fn, opts, kw = self._pass
+        out = pass_fn(self.view, opts, res_x, res_y, self.instance, self.seed, **kw)
         img = lambda v: v.stack().reshape(res_y, res_x, 3)
         self.fb = self.fb.accumulate_pass(
             self.instance, img(out.diffuse), img(out.specular), img(out.direct),
@@ -132,9 +139,12 @@ class RenderingContext:
         return self.fb
 
     def restart(self) -> None:
-        """Invalidate accumulation (camera-move semantics)."""
+        """Invalidate accumulation (camera-move semantics); the next pass
+        rebuilds the renderer, and with it the megakernel's tables from the
+        view as it is then."""
         self.fb = Framebuffer.create(self.res_y, self.res_x, self.device)
         self.instance = 0
+        self._pass = None
 
     def image(self, exposure: float = 1.0, gamma: float = 2.2) -> np.ndarray:
         return to_rgba8(self.fb.composited, exposure, gamma).cpu().numpy()

@@ -106,6 +106,23 @@ def cornell_box(light_scale: float = 1.0, glossy_boxes: bool = False,
     )
 
 
+# the box material of glass_cornell_box
+GLASS_BOX = dict(opacity=0.6, diffuse_trans=(0.2, 0.25, 0.3), reflectivity=(0.05, 0.04, 0.03),
+                 ior=1.5)
+
+
+def glass_cornell_box() -> MeshStorage:
+    """The glossy Cornell box with half-transmissive, clearcoated boxes. Not a
+    scene of the JAX package: its CornellBox has no transmissive or coated
+    material, so this variant is what drives the transmission and clearcoat
+    lobes in the parity checks."""
+    storage = cornell_box(glossy_boxes=True)
+    box = storage.materials[4]
+    for key, value in GLASS_BOX.items():
+        setattr(box, key, value)
+    return storage
+
+
 def cornell_camera() -> Camera:
     """models/CornellBox/camera-frontal.txt (a host camera; SceneView.build
     moves it to the scene's device)."""

@@ -5,8 +5,12 @@ imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-With --fmad=false the kernels round like their plain versions, so every
-comparison here is exact (bit-equal floats, equal hit ids and flags).
+With --fmad=false the tracer and gather kernels round like their plain
+versions, so those comparisons are exact (bit-equal floats, equal hit ids
+and flags). The megakernels (K3a/K3b) are held to their plain versions with
+the image tolerances of tests/test_torch_pt.py and equal `rays`: a path is
+a long chain of transcendental calls and data-dependent branches, so one
+ulp anywhere may move a lobe pick on a few pixels.
 """
 import os
 import sys
@@ -17,9 +21,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from fermat_tpu_torch.core.math import Vec3  # noqa: E402
+from fermat_tpu_torch.integrators import pt as tpt  # noqa: E402
 from fermat_tpu_torch.ops import gather as gather_mod  # noqa: E402
+from fermat_tpu_torch.ops import pt_mega  # noqa: E402
 from fermat_tpu_torch.ops import trace as trace_mod  # noqa: E402
-from fermat_tpu_torch.scene.procedural import cornell_box, random_soup  # noqa: E402
+from fermat_tpu_torch.scene.procedural import (cornell_box, cornell_camera,  # noqa: E402
+                                               glass_cornell_box, random_soup)
+from fermat_tpu_torch.scene.view import SceneView  # noqa: E402
 
 
 @pytest.fixture
@@ -85,3 +93,73 @@ def test_wrappers_count_launches_and_reject_bad_input(dev):
     assert gather_mod.GATHER.launches == before + 1
     with pytest.raises(TypeError):
         gather_mod.gather_rows(table, torch.zeros(5, dtype=torch.int64, device=dev))
+
+
+def _image_ok(got, want) -> bool:
+    near = torch.isclose(got, want, atol=1e-4, rtol=1e-3).all(dim=0).float().mean()
+    gm, wm = got.mean(dim=1), want.mean(dim=1)
+    mean_rel = ((gm - wm).abs() / wm.abs().clamp_min(1e-7)).max()
+    return bool(near >= 0.99) and bool(mean_rel <= 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,lobes,clearcoat", [
+    ("cornell", (True, False, True, False), False),
+    ("cornell", (True, True, True, True), True),
+    ("glass", (True, True, True, True), False),
+    ("glass", (True, True, True, True), True),
+])
+def test_mega_forward_matches_plain_on_card(dev, scene, lobes, clearcoat):
+    res = 64
+    storage = glass_cornell_box() if scene == "glass" else cornell_box(glossy_boxes=True)
+    view = SceneView.build(storage, cornell_camera(), dev)
+    opts = tpt.PTOptions(tracer="mega", max_path_length=6, lobes=lobes, clearcoat=clearcoat)
+    tb = pt_mega.build_mega_tables(view, res, res, opts.ray_eps)
+    before = pt_mega.FORWARD.launches
+    out = pt_mega._mega_forward(tb, opts, res, res * res, 5, 0)
+    ref = pt_mega._mega_plain(tb, opts, res, res * res, 5, 0)
+    torch.cuda.synchronize()
+    assert pt_mega.FORWARD.launches == before + 1
+    assert float(out[26].sum()) == float(ref[26].sum())  # rays
+    for k in range(0, 9, 3):  # direct, diffuse, specular
+        assert _image_ok(out[k:k + 3], ref[k:k + 3])
+    assert float((out[10] == ref[10]).float().mean()) >= 0.999  # hit flag
+    assert float(out[:9].sum()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,lobes", [("cornell", (True, False, True, False)),
+                                         ("glass", (True, True, True, True))])
+def test_mega_grad_matches_plain_on_card(dev, scene, lobes):
+    res = 64
+    n = res * res
+    storage = glass_cornell_box() if scene == "glass" else cornell_box(glossy_boxes=True)
+    view = SceneView.build(storage, cornell_camera(), dev)
+    opts = tpt.PTOptions(tracer="mega", max_path_length=6, lobes=lobes)
+    tb = pt_mega.build_mega_tables(view, res, res, opts.ray_eps)
+    img = pt_mega._mega_forward(tb, opts, res, n, 2, 0)
+    comp = (img[0:3] + img[3:6] + img[6:9]).t().contiguous()
+    adjoint = 2.0 * (comp - 0.2) / (n * 3)
+    g = pt_mega._mega_grad(tb, opts, res, n, 2, 0, adjoint)
+    ref = pt_mega._mega_grad_plain(tb, opts, res, n, 2, 0, adjoint)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    assert scale > 0.0
+    assert float((g - ref).abs().max()) <= 1e-3 * scale
+
+
+@pytest.mark.cuda
+def test_mega_wrappers_reject_bad_input(dev):
+    view = SceneView.build(cornell_box(glossy_boxes=True), cornell_camera(), dev)
+    opts = tpt.PTOptions(tracer="mega", max_path_length=2)
+    tb = pt_mega.build_mega_tables(view, 8, 8, opts.ray_eps)
+    with pytest.raises(ValueError):  # a table on the wrong device
+        pt_mega._mega_forward(tb._replace(cam=tb.cam.cpu()), opts, 8, 64, 0, 0)
+    with pytest.raises(ValueError):  # an adjoint of the wrong shape
+        pt_mega._mega_grad(tb, opts, 8, 64, 0, 0, torch.zeros(63, 3, device=dev))
+    with pytest.raises(TypeError):
+        pt_mega._mega_grad(tb, opts, 8, 64, 0, 0, torch.zeros(64, 3, device=dev,
+                                                             dtype=torch.float64))
+    with pytest.raises(NotImplementedError):
+        soup = SceneView.build(random_soup(200), cornell_camera(), dev)
+        tpt.render_pass(soup, opts, 8, 8, 0)
