@@ -22,6 +22,13 @@ result is printed then):
                 (mega_grad) with the scene's and all lobes for the adjoint of
                 an MSE against 0.2, also on glass_cornell_box (within 1e-3
                 of max|g|);
+  3c. large   — the large-scene kernels against their plain versions:
+                trace_closest_frontier / trace_any_frontier (K5a/K5b) on
+                65,536 random rays against big_room(8300) and
+                random_soup(4096) and on 256x256 camera rays of big_room;
+                cdf_pick_rows (K4) on big_room's emissive subset and on a
+                544-row table, NaN and out-of-range u included; all
+                bit-equal;
   4. main     — progressive PT through RenderingContext on cuda: glossy
                 CornellBox, 512x512, max_path_length=6; best of 3 batches of
                 8 passes after a warm-up pass; ms/pass and Mrays/s (closest +
@@ -33,6 +40,14 @@ result is printed then):
   4c. train   — bench.py's train step: a K3a pass, MSE against a zero
                 target, adjoint 2(img - target)/(3N), K3b; best of 3 steps;
                 ms/step and train Mrays/s (forward rays / step wall time);
+  4d. large   — the big_room stage of tools/bench_secondaries.py through
+                RenderingContext on cuda: big_room(8300) (99,636
+                triangles), 1600x896, max_path_length=6, the scene's lobes;
+                the monolithic pass (render_batch) and narrow=1 (render,
+                NarrowPass); best of 3 batches of 3 passes after a warm-up
+                pass; ms/pass, Mrays/s, launch counts (6 of each of K5a,
+                K5b and K4 per monolithic pass; no K1 or K3), the narrowing
+                widths, one pass of each under torch.profiler;
   5. parity   — one 512x512 pass with the kernels and one with the plain
                 versions forced in their place: equal `rays`, equal images;
                 then the golden configuration (tests/golden/
@@ -46,6 +61,12 @@ result is printed then):
                 K3a and K3b at every configuration of
                 tests/golden/torch_port_mega_32.npz (the JAX megakernel's CPU
                 output), within the tolerances of tests/test_torch_mega.py;
+  5c. large   — the big_room golden (tests/golden/torch_port_bigroom_24.npz,
+                the JAX package's frontier pass on the CPU) on the card
+                within the tolerances of tests/test_torch_bigroom.py, and one
+                400x224 big_room pass with the kernels and one with the
+                plain versions forced in their place: equal `rays`, equal
+                first hits, close images;
   6. timing   — every launch of one main-path pass is replayed alone: device
                 time of the kernel, of its plain version and (gather only) of
                 `index_select`, beside the bound from the bytes and
@@ -55,7 +76,14 @@ result is printed then):
                 the partials out) plus the tables, and 46 flops per
                 ray-triangle test (closest rays test every triangle, shadow
                 rays up to their first hit). That bound leaves out the
-                shading arithmetic, so it is a lower bound.
+                shading arithmetic, so it is a lower bound. K4 and K5 at the
+                inputs of one monolithic big_room pass, every launch
+                replayed, their plain versions too, and every launch's
+                output held to its plain version's (bit-equal; the kernels
+                line's max_abs_err for K4/K5 is from these comparisons);
+                K5's bound counts 46 flops for every real triangle of every
+                cluster a ray must enter (see phase 6's code), K4's is its
+                bytes.
 Then the card's nvidia-smi line, one JSON line {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.
 """
@@ -71,6 +99,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 RES, MPL, PASSES, REPS = 512, 6, 8, 3
 N_RAYS = 262_144
+# the big_room stage of tools/bench_secondaries.py; fewer passes per batch
+BIG_BOXES, BIG_W, BIG_H, BIG_PASSES = 8300, 1600, 896, 3
+PLAIN_W, PLAIN_H = 400, 224  # the big_room pass held to the forced plain versions
+N_LARGE = 65_536
 MEGA_RES = 128  # megakernel-vs-plain comparisons (the plain pass is eager PyTorch)
 ALL_LOBES = (True, True, True, True)
 # FP32 arithmetic operations of one Moller-Trumbore ray-triangle test as
@@ -155,13 +187,17 @@ def image_close(got, want) -> tuple:
     return near >= 0.99 and mean_rel <= 1e-3, float(near), mean_rel
 
 
-def profile_one_pass(ctx):
+def profile_one_pass(ctx, narrow: bool = False):
     """(device kernels, device-busy ms, top entries) of one pass under
-    torch.profiler; the device is idle for the rest of the pass."""
+    torch.profiler; the device is idle for the rest of the pass. narrow: the
+    pass goes through render() (NarrowPass when the context has narrow=1)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ctx.render_batch(1)
+        if narrow:
+            ctx.render(1)
+        else:
+            ctx.render_batch(1)
     by_name = {}
     for e in prof.events():
         if _on_device(e):
@@ -173,8 +209,9 @@ def profile_one_pass(ctx):
     return n_kern, busy_ms, top
 
 
-def best_batches(ctx):
-    """Best of REPS batches of PASSES passes: (seconds, rays of that batch)."""
+def best_batches(ctx, passes: int = PASSES, narrow: bool = False):
+    """Best of REPS batches of `passes` passes: (seconds, rays of that
+    batch). narrow: render() (one sync per pass) instead of render_batch."""
     import torch
 
     best, best_rays = float("inf"), 0.0
@@ -182,7 +219,10 @@ def best_batches(ctx):
         rays0 = float(ctx.stats["rays"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ctx.render_batch(PASSES)  # ends in torch.cuda.synchronize()
+        if narrow:
+            ctx.render(passes)  # each pass ends in torch.cuda.synchronize()
+        else:
+            ctx.render_batch(passes)  # ends in torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         if dt < best:
             best, best_rays = dt, float(ctx.stats["rays"]) - rays0
@@ -208,24 +248,33 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
+    from fermat_tpu_torch.accel.cluster import build_clusters
+    from fermat_tpu_torch.accel.traverse import Hit
     from fermat_tpu_torch.bsdf.composite import scene_lobes
+    from fermat_tpu_torch.core.camera import generate_camera_rays
     from fermat_tpu_torch.core.math import Vec3
+    from fermat_tpu_torch.core.rng import TiledSequence
     from fermat_tpu_torch.integrators import pt
     from fermat_tpu_torch.ops import _cuda
+    from fermat_tpu_torch.ops import cdf_gather
+    from fermat_tpu_torch.ops import frontier_trace as ft
     from fermat_tpu_torch.ops import gather as gather_mod
     from fermat_tpu_torch.ops import pt_mega
     from fermat_tpu_torch.ops import trace as trace_mod
     from fermat_tpu_torch.render.context import RenderingContext
     from fermat_tpu_torch.scene import lights as lights_mod
     from fermat_tpu_torch.scene import mesh as mesh_mod
-    from fermat_tpu_torch.scene.procedural import (cornell_box, cornell_camera,
-                                                   glass_cornell_box, random_soup)
+    from fermat_tpu_torch.scene.procedural import (big_room, big_room_camera, cornell_box,
+                                                   cornell_camera, glass_cornell_box,
+                                                   random_soup)
     from fermat_tpu_torch.scene.view import SceneView
 
     dense = {"trace_closest": trace_mod.CLOSEST, "trace_any": trace_mod.ANY,
              "gather_rows": gather_mod.GATHER}
     mega = {"mega_forward": pt_mega.FORWARD, "mega_grad": pt_mega.GRAD}
-    kernels = {**dense, **mega}
+    large = {"trace_closest_frontier": ft.CLOSEST, "trace_any_frontier": ft.ANY,
+             "cdf_pick_rows": cdf_gather.PICK}
+    kernels = {**dense, **mega, **large}
 
     def reset_counts():
         for k in kernels.values():
@@ -358,6 +407,70 @@ def main() -> int:
         log(f"[3b mega] mega_grad {label}, {MEGA_RES}x{MEGA_RES} mpl={MPL}, MSE vs 0.2: "
             f"max |g - plain| {err:.3g} = {err / scale:.2e} of max|g| {scale:.4g}")
 
+    # ---- 3c. large-scene kernels vs plain on the card ----
+    t0 = time.perf_counter()
+    room = big_room(BIG_BOXES)
+    bctx = RenderingContext.create(room, big_room_camera(), BIG_W, BIG_H, renderer="pt",
+                                   max_path_length=MPL)
+    bview = bctx.view
+    cl_room = bview.clusters
+    check(cl_room is not None and bview.lights.compact is not None,
+          "big_room's view has no cluster table or no emissive subset")
+    log(f"[3c large] big_room({BIG_BOXES}): {room.n_triangles} triangles, "
+        f"{int((cl_room.count > 0).sum())} clusters ({cl_room.rows.shape[0]} padded to groups, "
+        f"{cl_room.lo_x.shape[1]} box columns), {cl_room.node_box.shape[0]} top-level nodes, "
+        f"{bview.lights.compact[0].shape[0]} emissive rows; view built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    soup_storage = random_soup(4096)
+    soup_cl = build_clusters(soup_storage.device_view(dev))
+    pix = torch.arange(256 * 256, device=dev)
+    jx, jy = TiledSequence.create(0, 0).sample_2d(pix, 0)
+    cam_o, cam_d, _ = generate_camera_rays(bview.camera, 256, 256, jx, jy, pix)
+    for scene, cl, lo, hi in (("big_room", cl_room, (-8.0, 0.0, -8.0), (8.0, 8.0, 8.0)),
+                              ("soup4096", soup_cl, tuple(soup_storage.vertices.min(0)),
+                               tuple(soup_storage.vertices.max(0)))):
+        lo_t = torch.tensor(lo, device=dev)[:, None]
+        hi_t = torch.tensor(hi, device=dev)[:, None]
+        o = torch.rand(3, N_LARGE, generator=gen, device=dev) * (hi_t - lo_t) + lo_t
+        d = torch.randn(3, N_LARGE, generator=gen, device=dev)
+        d = d / d.norm(dim=0, keepdim=True)
+        ray_sets = [("random", Vec3(*o), Vec3(*d))]
+        if scene == "big_room":
+            ray_sets.append(("camera", cam_o, cam_d))
+        for rays, o, d in ray_sets:
+            n = o.x.shape[0]
+            active = torch.rand(n, generator=gen, device=dev) < 0.8
+            tmax = torch.rand(n, generator=gen, device=dev) * float((hi_t - lo_t).norm())
+            hit = ft.trace_closest_frontier(cl, o, d, 1e-4, 3.0e38, active, with_uv=False)
+            t_ref, tri_ref = ft._closest_plain(cl, o, d, lanes(1e-4, n), lanes(3.0e38, n), active)
+            occ = ft.trace_any_frontier(cl, o, d, 0.0, tmax, active)
+            occ_ref = ft._any_plain(cl, o, d, lanes(0.0, n), tmax, active)
+            torch.cuda.synchronize()
+            check(torch.equal(hit.tri, tri_ref), f"K5a {scene} {rays}: tri differs from plain")
+            check(torch.equal(bits(hit.t), bits(t_ref)), f"K5a {scene} {rays}: t not bit-equal")
+            check(torch.equal(occ, occ_ref), f"K5b {scene} {rays}: occ differs from plain")
+            hits = float((hit.tri >= 0).float().mean())
+            check(0.05 < hits and bool(occ.any()) and not bool(occ.all()),
+                  f"{scene} {rays}: degenerate test rays (hit fraction {hits})")
+            log(f"[3c large] {scene} ({cl.rows.shape[0]} clusters), {n} {rays} rays "
+                f"({float(active.float().mean()):.2f} active): trace_closest_frontier tri equal, "
+                f"t bit-equal (hit {hits:.3f}); trace_any_frontier equal (occluded "
+                f"{float(occ.float().mean()):.3f})")
+    w = torch.rand(544, generator=gen, device=dev) + 1e-3
+    for label, rows, cdf in (("big_room emissive subset", *bview.lights.compact),
+                             ("544 rows", torch.randn(544, 23, generator=gen, device=dev),
+                              (torch.cumsum(w, 0) / w.sum()).contiguous())):
+        u = torch.rand(N_RAYS, generator=gen, device=dev)
+        u[:rows.shape[0]] = cdf
+        u[rows.shape[0]:rows.shape[0] + 3] = torch.tensor([float("nan"), 1.0, 1.5], device=dev)
+        out = cdf_gather.cdf_pick_rows(rows, cdf, u)
+        ref = cdf_gather._pick_plain(rows, cdf, u)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(out), bits(ref)), f"cdf_pick_rows {label}: not bit-equal")
+        check(torch.equal(out[rows.shape[0]], rows[0]), f"cdf_pick_rows {label}: NaN u")
+        log(f"[3c large] cdf_pick_rows {label} ({rows.shape[0]}x{rows.shape[1]}) x {N_RAYS} "
+            f"(u = cdf entries, NaN, 1.0, 1.5 included): bit-equal")
+
     # ---- 4. main path ----
     ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), RES, RES,
                                   renderer="pt", max_path_length=MPL)
@@ -372,6 +485,8 @@ def main() -> int:
     check(float(hdr.mean()) > 0.01, f"image is black (mean {hdr.mean()})")
     for n in dense:
         check(launches[n] > 0, f"kernel {n} was never launched on the main path")
+    check(all(launches[n] == 0 for n in (*mega, *large)),
+          f"the dense CornellBox path launched another kernel: {launches}")
     mrays = best_rays / best / 1e6
     ms_pass = best / PASSES * 1e3
     log(f"[4 main] CornellBox glossy {RES}x{RES} mpl={MPL}: {ms_pass:.2f} ms/pass, "
@@ -448,6 +563,49 @@ def main() -> int:
         f"train {t_mrays:.2f} Mrays/s (forward rays / step wall time; best of {REPS}) on {smi}; "
         f"loss {float(loss):.5g}; launches over {REPS} steps: {t_launches}; dL/d diffuse "
         f"{np.round(t_grad.cpu().numpy(), 6).tolist()}")
+
+    # ---- 4d. the large-scene path: big_room 1600x896 (tools/bench_secondaries.py) ----
+    bopts = pt.PTOptions(**bctx.renderer_options)
+    n_big = BIG_PASSES * REPS
+    per_bounce = MPL * n_big
+    big = {}
+    for mode in ("monolithic", "narrow=1"):
+        narrow = mode != "monolithic"
+        if narrow:
+            bctx.renderer_options["narrow"] = 1
+            bctx.restart()
+        bctx.render(1)  # warm-up (first-use costs)
+        reset_counts()
+        b_best, b_rays = best_batches(bctx, BIG_PASSES, narrow=narrow)
+        b_launches = {n: k.launches for n, k in kernels.items()}
+        b_hdr = bctx.hdr_image()
+        check(np.isfinite(b_hdr).all() and b_hdr.shape == (BIG_H, BIG_W, 3),
+              f"big_room {mode}: image not finite")
+        check(float(b_hdr.mean()) > 0.001, f"big_room {mode}: image is black ({b_hdr.mean()})")
+        check(all(b_launches[n] == 0 for n in ("trace_closest", "trace_any", *mega)),
+              f"big_room {mode} launched a kernel of another path: {b_launches}")
+        for n in large:
+            check(b_launches[n] > 0, f"kernel {n} was never launched on the big_room path")
+        if not narrow:  # every bounce runs: one closest trace, NEE, one shadow ray set
+            check(all(b_launches[n] == per_bounce for n in large),
+                  f"big_room monolithic: {b_launches} over {n_big} passes of {MPL} bounces")
+        b_ms = b_best / BIG_PASSES * 1e3
+        b_mrays = b_rays / b_best / 1e6
+        n_kern, busy_ms, top = profile_one_pass(bctx, narrow=narrow)
+        prof = bctx._pass[3].last_profile if narrow else None
+        big[mode] = dict(ms=b_ms, mrays=b_mrays, rays=b_rays / BIG_PASSES, launches=b_launches,
+                         kernels=n_kern, busy_ms=busy_ms, idle=1 - busy_ms / b_ms)
+        log(f"[4d large] big_room({BIG_BOXES}) {BIG_W}x{BIG_H} mpl={MPL} {mode}: {b_ms:.2f} "
+            f"ms/pass, {b_mrays:.3f} Mrays/s ({b_rays / BIG_PASSES:.0f} rays/pass; best of "
+            f"{REPS} x {BIG_PASSES} passes) on {smi}; image mean {b_hdr.mean():.4f}; launches "
+            f"over {n_big} passes: {b_launches}"
+            + (f"; (bounce, live, width): {prof}" if prof else ""))
+        log(f"[4d large] {mode}: one pass under torch.profiler: {n_kern} device kernels, device "
+            f"busy {busy_ms:.2f} ms of the {b_ms:.2f} ms pass (idle share "
+            f"{1 - busy_ms / b_ms:.3f}); top by device time: "
+            + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
+    bctx.renderer_options.pop("narrow")
+    bctx.restart()
 
     # ---- 5. parity on the card ----
     opts = pt.PTOptions(**ctx.renderer_options)
@@ -569,6 +727,69 @@ def main() -> int:
         check(g_err <= 1e-3, f"mega golden: gradient {cfg} off by {g_err} of max|g|")
         report.append(f"gradient {cfg} within {g_err:.2e} of max|g|")
     log(f"[5b parity] JAX megakernel golden {mres}x{mres} on the card: " + "; ".join(report))
+
+    # ---- 5c. large-scene parity: the JAX golden; kernels vs forced plain ----
+    gb = np.load(ROOT / "tests" / "golden" / "torch_port_bigroom_24.npz")
+    gbview = SceneView.from_numpy({k[5:]: gb[k] for k in gb.files if k.startswith("view.")},
+                                  dev)
+    check(gbview.clusters is not None, "big_room golden view has no cluster table")
+    gbres = int(gb["res"])
+    gbopts = pt.PTOptions(max_path_length=int(gb["max_path_length"]),
+                          lobes=tuple(bool(x) for x in gb["lobes"]))
+    before = {n: k.launches for n, k in kernels.items()}
+    gbout = pt.render_pass(gbview, gbopts, gbres, gbres, int(gb["instance"]), int(gb["seed"]))
+    check(all(kernels[n].launches > before[n] for n in large),
+          "the golden big_room pass did not launch the large-scene kernels")
+    gb_rays = float(gbout.rays)
+    check(abs(gb_rays - float(gb["rays"])) <= 0.005 * float(gb["rays"]),
+          f"big_room golden: rays {gb_rays} vs JAX {float(gb['rays'])}")
+    report = []
+    for c in ("composited", "direct", "diffuse", "specular"):
+        ok, near, mean_rel = image_close(getattr(gbout, c).stack().cpu().numpy(),
+                                         gb[c].reshape(-1, 3))
+        check(ok, f"big_room golden {c}: {near:.4f} of pixels close, mean rel {mean_rel:.2e}")
+        report.append(f"{c} {near:.4f}/{mean_rel:.1e}")
+    tri_eq = float((gbout.tri.cpu().numpy() == gb["tri"].ravel()).mean())
+    check(tri_eq >= 0.99, f"big_room golden: first-hit triangle equal on {tri_eq}")
+    log(f"[5c large] big_room({int(gb['n_boxes'])}) golden {gbres}x{gbres} "
+        f"mpl={int(gb['max_path_length'])} (JAX render_pass, tracer='frontier', CPU) on the "
+        f"card: rays {gb_rays:.0f} vs {float(gb['rays']):.0f}; first-hit triangle equal "
+        f"{tri_eq:.4f}; pixels close/mean rel: " + ", ".join(report))
+
+    def plain_closest_frontier(cl, o, d, tmin, tmax, active=None, with_uv=True):
+        n = o.x.shape[0]
+        t, tri = ft._closest_plain(cl, o, d, lanes(tmin, n), lanes(tmax, n), active)
+        return Hit(t=t, tri=tri, u=torch.zeros_like(t), v=torch.zeros_like(t))
+
+    def plain_any_frontier(cl, o, d, tmin, tmax, active=None):
+        n = o.x.shape[0]
+        return ft._any_plain(cl, o, d, lanes(tmin, n), lanes(tmax, n), active)
+
+    large_plain = [(pt, "trace_closest_frontier", plain_closest_frontier),
+                   (pt, "trace_any_frontier", plain_any_frontier),
+                   (pt, "cdf_pick_rows", cdf_gather._pick_plain),
+                   (mesh_mod, "gather_rows", gather_mod._gather_plain),
+                   (lights_mod, "gather_rows", gather_mod._gather_plain)]
+    t0 = time.perf_counter()
+    out_k = pt.render_pass(bview, bopts, PLAIN_W, PLAIN_H, 1000, 0)
+    before = {n: k.launches for n, k in kernels.items()}
+    with patched(large_plain):
+        out_p = pt.render_pass(bview, bopts, PLAIN_W, PLAIN_H, 1000, 0)
+    torch.cuda.synchronize()
+    check(before == {n: k.launches for n, k in kernels.items()},
+          "the forced plain big_room pass launched a kernel")
+    check(float(out_k.rays) == float(out_p.rays), "big_room kernel vs plain pass: rays differ")
+    diffs = []
+    for c in ("composited", "direct", "diffuse", "specular"):
+        a, b = getattr(out_k, c).stack(), getattr(out_p, c).stack()
+        ok, near, mean_rel = image_close(a.cpu().numpy(), b.cpu().numpy())
+        check(ok, f"big_room kernel vs plain pass: {c} differs ({near}, {mean_rel})")
+        diffs.append(float((a - b).abs().max()))
+    check(torch.equal(out_k.tri, out_p.tri), "big_room kernel vs plain pass: first hits differ")
+    log(f"[5c large] big_room({BIG_BOXES}) {PLAIN_W}x{PLAIN_H} mpl={MPL} pass, kernels vs "
+        f"plain versions: rays equal ({float(out_k.rays):.0f}), first hits equal, max |image "
+        f"diff| {max(diffs):.3g} ({time.perf_counter() - t0:.1f} s for both passes)")
+    del out_k, out_p
 
     # ---- 6. per-launch timing at the main path's inputs ----
     calls = {n: [] for n in kernels}
@@ -713,6 +934,139 @@ def main() -> int:
             f"tests, shading not counted) at {RES}x{RES}, {n_launch / per:g} launch per "
             f"{'pass' if kname == 'mega_forward' else 'step'}")
 
+    # the large-scene kernels at the big_room main path's inputs (one
+    # monolithic 1600x896 pass, every launch replayed): each launch's kernel
+    # output is held to its plain version's (t bit-equal and tri equal, occ
+    # equal, K4 rows bit-equal), and the kernels line's max_abs_err comes
+    # from these comparisons. Bounds: K4 bytes (u in, the rows out, the table
+    # once); K5 the larger of bytes (rays in, hits out, the cluster rows once)
+    # and the tests any exact cluster-leaf tracer must do, 46 flops each: a
+    # closest ray tests every real triangle of every cluster whose box entry
+    # lies before its final hit, an unoccluded shadow ray every real triangle
+    # of every cluster it enters, an occluded one at least the one triangle
+    # that stops it (counted from the plain side's entries and hits)
+    lcalls = {n: [] for n in large}
+
+    def lrecorder(name, fn):
+        def wrapper(*args, **kw):
+            lcalls[name].append(args)
+            return fn(*args, **kw)
+        return wrapper
+
+    with patched([(pt, n, lrecorder(n, getattr(pt, n))) for n in large]):
+        pt.render_pass(bview, bopts, BIG_W, BIG_H, 2000, 0)
+    torch.cuda.synchronize()
+
+    def needed_tests(cl, o, d, tmin, tmax, active, t_final, occluded=None):
+        """(ray-triangle tests, cluster entries) the active rays need (see
+        above), summed."""
+        tests = entries = 0.0
+        cnt = torch.zeros(cl.lo_x.shape[1], dtype=torch.float32, device=dev)
+        cnt[:cl.count.shape[0]] = cl.count.float()
+        for sl in ft._chunks(o.x.shape[0], cl.lo_x.shape[1]):
+            e = ft.cluster_entries(cl, Vec3(*(c[sl] for c in o)), Vec3(*(c[sl] for c in d)),
+                                   tmin[sl], tmax[sl])
+            enter = (e < t_final[sl][:, None]) if occluded is None else torch.isfinite(e)
+            n_tri = enter.float() @ cnt
+            n_cl = enter.sum(1).float()
+            if occluded is not None:
+                n_tri = torch.where(occluded[sl], 1.0, n_tri)
+                n_cl = torch.where(occluded[sl], 1.0, n_cl)
+            tests += float(n_tri[active[sl]].sum())
+            entries += float(n_cl[active[sl]].sum())
+        return tests, entries
+
+    table_bytes = 4 * (cl_room.rows.numel() + cl_room.count.numel() + cl_room.node_box.numel()
+                       + cl_room.node_ref.numel() + 6 * cl_room.lo_x.shape[1])
+    for kname in large:
+        kern = large[kname]
+        ms = plain_ms = bound = by_bytes = by_ops = err = 0.0
+        visits = n_tests = 0.0
+        timers, shapes = set(), set()
+        for args in lcalls[kname]:
+            if kname == "cdf_pick_rows":
+                rows_t, cdf_t, u_t = args
+                n, (r, k) = u_t.shape[0], rows_t.shape
+                byt, ops = 4 * n + 4 * n * k + 4 * r * k + 4 * r, 0.0
+                f_k = lambda: cdf_gather.cdf_pick_rows(rows_t, cdf_t, u_t)
+                f_p = lambda: cdf_gather._pick_plain(rows_t, cdf_t, u_t)
+                got, want = f_k(), f_p()
+                torch.cuda.synchronize()
+                check(torch.equal(bits(got), bits(want)),
+                      "cdf_pick_rows at the big_room pass's inputs: not bit-equal to plain")
+                err = max(err, float((got - want).abs().max()))
+                shapes.add(f"rows {r}x{k}, {n} u")
+            else:
+                cl, o, d, tmin, tmax, active = args
+                n = o.x.shape[0]
+                tmin_l, tmax_l = lanes(tmin, n), lanes(tmax, n)
+                if kname == "trace_closest_frontier":
+                    f_k = lambda: ft.trace_closest_frontier(cl, o, d, tmin, tmax, active,
+                                                            with_uv=False)
+                    f_p = lambda: ft._closest_plain(cl, o, d, tmin_l, tmax_l, active)
+                    t_fin, tri_fin = f_p()
+                    hit = f_k()
+                    torch.cuda.synchronize()
+                    check(torch.equal(hit.tri, tri_fin) and torch.equal(bits(hit.t), bits(t_fin)),
+                          "trace_closest_frontier at the big_room pass's inputs: t or tri "
+                          "differs from plain")
+                    err = max(err, float((hit.t - t_fin).abs().max()))
+                    need, ent = needed_tests(cl, o, d, tmin_l, tmax_l, active, t_fin)
+                    byt = n * (33 + 8) + table_bytes
+                else:
+                    f_k = lambda: ft.trace_any_frontier(cl, o, d, tmin, tmax, active)
+                    f_p = lambda: ft._any_plain(cl, o, d, tmin_l, tmax_l, active)
+                    occ_p, occ_k = f_p(), f_k()
+                    torch.cuda.synchronize()
+                    check(torch.equal(occ_k, occ_p),
+                          "trace_any_frontier at the big_room pass's inputs: occ differs "
+                          "from plain")
+                    err = max(err, float((occ_k != occ_p).sum()))
+                    need, ent = needed_tests(cl, o, d, tmin_l, tmax_l, active, None, occ_p)
+                    byt = n * (33 + 1) + table_bytes
+                visits += ent
+                n_tests += need
+                ops = need * FLOPS_PER_TEST
+                shapes.add(f"{n} rays x {int((cl.count > 0).sum())} clusters")
+            m, tm = device_ms(f_k, reps=5)
+            ms += m
+            timers.add(tm)
+            plain_ms += device_ms(f_p, reps=1)[0]
+            b_bytes, b_ops = byt / bw * 1e3, ops / fp32 * 1e3
+            bound += max(b_bytes, b_ops)
+            by_bytes += b_bytes
+            by_ops += b_ops
+        nc = len(lcalls[kname])
+        check(nc > 0, f"{kname}: no launch captured in the timing pass")
+        max_err[kname] = err
+        row = {
+            "name": kname, "route": "cuda",
+            "source": f"fermat_tpu_torch/ops/csrc/{kern.source}",
+            "replaces": kern.replaces,
+            "launches": big["monolithic"]["launches"][kname],
+            "launches_per_pass": big["monolithic"]["launches"][kname] / n_big,
+            "max_abs_err": err, "max_abs_err_vs_plain": err,
+            "ms": ms / nc, "plain_ms": plain_ms / nc, "bound_ms": bound / nc,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None,
+            "us_per_launch": ms / nc * 1e3,
+            "timer": "+".join(sorted(timers)),
+            "shapes": sorted(shapes),
+        }
+        if kname != "cdf_pick_rows":
+            row["clusters_needed_per_launch"] = visits / nc
+            row["tests_needed_per_launch"] = n_tests / nc
+        rows.append(row)
+        log(f"[6 timing] {kname}: {ms / nc * 1e3:.1f} us/launch (plain {plain_ms / nc * 1e3:.1f} "
+            f"us, bound {bound / nc * 1e3:.2f} us by {row['bound_by']}"
+            + (f", {visits / nc:.0f} cluster entries and {n_tests / nc:.0f} ray-triangle tests "
+               f"needed per launch" if visits else "")
+            + f") over the {nc} launches of one big_room pass, each equal to its plain "
+            f"version (max abs err {err:.3g}); {sorted(shapes)}")
+
+    log("[summary] big_room " + "; ".join(
+        f"{m}: {v['ms']:.2f} ms/pass, {v['mrays']:.3f} Mrays/s, {v['kernels']} device kernels, "
+        f"idle {v['idle']:.3f}" for m, v in big.items()))
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

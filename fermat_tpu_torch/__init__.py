@@ -9,12 +9,15 @@ device="cpu". On the CPU every hand-written kernel is replaced by its plain
 PyTorch version (the tensor's device decides); on a CUDA tensor a wrapper
 launches its kernel or raises.
 
-Ported so far: progressive path tracing on scenes of at most 4096
-triangles through the dense tracer (ops/trace.py) and the row gather
-(ops/gather.py), and, with tracer="mega" on scenes within the megakernel's
-caps (128 triangles, 32 materials, 32 emitters), the whole-pass megakernel
-and its replay-gradient train step (ops/pt_mega.py). All five kernels are
-hand-written CUDA.
+Ported so far: progressive path tracing through RenderingContext, on scenes
+of at most 4096 triangles with the dense tracer (ops/trace.py) and on larger
+ones with the cluster-table frontier tracer (ops/frontier_trace.py) and the
+fused light pick (ops/cdf_gather.py), monolithic or through the narrowing
+driver (render option narrow=1); every table fetch goes through the row
+gather (ops/gather.py). With tracer="mega", on scenes within the
+megakernel's caps (128 triangles, 32 materials, 32 emitters), a pass is one
+launch of the whole-pass megakernel, and the replay-gradient train step is
+another (ops/pt_mega.py). All eight kernels are hand-written CUDA.
 """
 from __future__ import annotations
 

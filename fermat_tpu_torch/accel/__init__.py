@@ -1,5 +1,8 @@
 """Acceleration structures and the hit record.
 
-Slice 1 traces every scene with the dense tracer (ops/trace.py); the BVH and
-cluster tracers of fermat_tpu/accel are later slices.
+Scenes of at most 4096 triangles trace with the dense tracer (ops/trace.py)
+and need no structure. Larger ones carry the cluster table of cluster.py,
+whose leaves come from the host binned-SAH builder of bvh.py and whose
+top-level tree the frontier tracer walks (ops/frontier_trace.py). The
+device skip-link BVH walk of fermat_tpu/accel/bvh.py is not ported.
 """

@@ -1,0 +1,233 @@
+"""The cluster table of the large-scene tracer (fermat_tpu/accel/cluster.py).
+
+`build_clusters` partitions the triangles into clusters of at most 128
+(binned-SAH leaves, merged greedily in DFS order while the union box stays
+within 1.4x the summed areas) and lays them out exactly as the JAX package
+does: a cluster-major (C_pad, 16, 128) float32 table, rows p0xyz e1xyz e2xyz
+and the original triangle id in row 9 (-1 and degenerate zeros in padding
+lanes), C_pad the cluster count rounded up to a group of 8, and per-cluster
+boxes as (1, Cp) rows with Cp rounded up to 128 and inverted (+big, -big)
+padding boxes. For the same mesh these are bit-equal to the JAX package's.
+The table stays on the host; the device holds the row copy below.
+
+The frontier kernel (ops/frontier_trace.py) reads three more things built
+here, which the JAX package does not have: the triangles of each cluster as
+(C_pad, 128, 12) rows (one 48-byte row per triangle), the number of real
+triangles per cluster, and a top-level BVH over the real clusters' boxes
+(accel/bvh.build_bvh with one cluster per leaf). The Pallas kernel needs no
+such tree: it slab-tests every ray block against every cluster box.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from fermat_tpu_torch.accel.bvh import build_bvh
+from fermat_tpu_torch.core.math import Vec3
+
+Tensor = torch.Tensor
+
+DENSE_MAX_TRIANGLES = 4096  # above it a scene view carries a cluster table
+CLUSTER = 128  # triangles per cluster
+GROUP = 8  # clusters per group (pads the cluster count)
+SAH_MERGE = 1.4  # union-area gate of the DFS merge
+MAX_DEPTH = 60  # the kernel's per-thread stack holds MAX_DEPTH + 2 entries
+_BIG = 3.0e38
+
+
+class ClusterView(NamedTuple):
+    tri: np.ndarray  # (C_pad, 16, 128) f32, the JAX package's table, on the host
+    lo_x: Tensor  # (1, Cp) per-cluster boxes; padding boxes inverted
+    lo_y: Tensor
+    lo_z: Tensor
+    hi_x: Tensor
+    hi_y: Tensor
+    hi_z: Tensor
+    rows: Tensor  # (C_pad, 128, 12) f32: p0 e1 e2 xyz, original id, 0, 0
+    count: Tensor  # (C_pad,) int32 real triangles per cluster (a prefix)
+    node_box: Tensor  # (n_nodes, 6) f32 lo xyz, hi xyz of the top-level BVH
+    node_ref: Tensor  # (n_nodes,) int32: inner -> right child, leaf -> ~cluster
+    p0: Vec3  # the original-order soup, for barycentrics from a winning id
+    e1: Vec3
+    e2: Vec3
+
+    def boxes(self) -> Tensor:
+        """(6, Cp) lo xyz, hi xyz rows."""
+        return torch.cat([self.lo_x, self.lo_y, self.lo_z, self.hi_x, self.hi_y, self.hi_z])
+
+
+def _sah_leaves(p0, e1, e2, cent, max_size: int = CLUSTER) -> list:
+    """Binned-SAH leaves of at most `max_size` triangles, then the greedy
+    DFS-order merge (cluster.py:185-240)."""
+    v1 = p0 + e1
+    v2 = p0 + e2
+    lo = np.minimum(np.minimum(p0, v1), v2)
+    hi = np.maximum(np.maximum(p0, v1), v2)
+    _bvh, slots = build_bvh(cent, lo, hi, leaf_size=max_size)
+    slots = slots.reshape(-1, max_size)  # DFS leaves, -1 padded
+    leaves = [row[row >= 0].astype(np.int64) for row in slots]
+
+    def box(ids):
+        return lo[ids].min(0), hi[ids].max(0)
+
+    def area(b):
+        d = np.maximum(b[1] - b[0], 0)
+        return d[0] * d[1] + d[1] * d[2] + d[2] * d[0]
+
+    merged = []
+    cur = leaves[0]
+    cb = box(cur)
+    for nxt in leaves[1:]:
+        if cur.size + nxt.size <= max_size:
+            nb = box(nxt)
+            ub = (np.minimum(cb[0], nb[0]), np.maximum(cb[1], nb[1]))
+            if area(ub) <= SAH_MERGE * (area(cb) + area(nb)):
+                cur = np.concatenate([cur, nxt])
+                cb = ub
+                continue
+        merged.append(cur)
+        cur, cb = nxt, box(nxt)
+    merged.append(cur)
+    return merged
+
+
+def _median_leaves(cent: np.ndarray, max_size: int = CLUSTER) -> list:
+    """Recursive longest-axis median split of the centroids (cluster.py:150)."""
+    out = []
+    stack = [np.arange(cent.shape[0], dtype=np.int64)]
+    while stack:
+        ids = stack.pop()
+        if ids.size <= max_size:
+            out.append(ids)
+            continue
+        c = cent[ids]
+        ax = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+        srt = ids[np.argsort(c[:, ax], kind="stable")]
+        mid = ids.size // 2
+        stack.append(srt[mid:])
+        stack.append(srt[:mid])
+    return out
+
+
+def _morton3d(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
+    def expand(v):
+        v = v.astype(np.uint64) & 0x3FF
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    return (expand(x) << 2) | (expand(y) << 1) | expand(z)
+
+
+def _morton_leaves(cent: np.ndarray) -> list:
+    lo, hi = cent.min(axis=0), cent.max(axis=0)
+    ext = np.maximum(hi - lo, 1e-12)
+    q = np.clip(((cent - lo) / ext) * 1023.0, 0, 1023).astype(np.uint32)
+    order = np.argsort(_morton3d(q[:, 0], q[:, 1], q[:, 2]), kind="stable").astype(np.int64)
+    return [order[s:s + CLUSTER] for s in range(0, cent.shape[0], CLUSTER)]
+
+
+def _top_level(c_lo: np.ndarray, c_hi: np.ndarray):
+    """BVH over the real clusters' boxes, one cluster per leaf: (node_box
+    (n, 6), node_ref (n,)) with node_ref = right child or ~cluster."""
+    cent = ((c_lo + c_hi) * np.float32(0.5)).astype(np.float32)
+    bvh, _ = build_bvh(cent, c_lo, c_hi, leaf_size=1)
+    n = bvh.n_nodes
+    ref = np.empty(n, np.int32)
+    depth = np.zeros(n, np.int64)
+    for i in range(n):
+        if bvh.is_leaf[i]:
+            ref[i] = ~bvh.prims[bvh.prim_start[i]]
+        else:
+            ref[i] = bvh.skip[i + 1]  # the left child's skip is the right child
+            depth[i + 1] = depth[ref[i]] = depth[i] + 1
+    if depth.max() > MAX_DEPTH:
+        raise ValueError(f"cluster BVH depth {depth.max()} exceeds the kernel's "
+                         f"stack ({MAX_DEPTH})")
+    return np.concatenate([bvh.lo, bvh.hi], axis=1).astype(np.float32), ref
+
+
+def build_clusters(mesh_view, method: str = "sah") -> ClusterView:
+    """Partition the mesh's triangles into clusters (cluster.py:243-371).
+
+    method: "sah" (binned-SAH leaves + greedy DFS merge; the JAX package's
+    default), "median" (longest-axis median split) or "morton" (128
+    consecutive triangles of the morton order)."""
+    h = lambda t: t.detach().cpu().numpy()
+    v3 = lambda v: np.stack([h(v.x), h(v.y), h(v.z)], axis=1)
+    p0, e1, e2 = v3(mesh_view.p0), v3(mesh_view.e1), v3(mesh_view.e2)
+    v1 = p0 + e1
+    v2 = p0 + e2
+    cent = (p0 + v1 + v2) / 3.0
+    if method == "sah":
+        leaves = _sah_leaves(p0, e1, e2, cent)
+    elif method == "median":
+        leaves = _median_leaves(cent)
+    elif method == "morton":
+        leaves = _morton_leaves(cent)
+    else:
+        raise ValueError(f"cluster method {method!r}")
+
+    n_clusters = len(leaves)
+    c_pad = -(-n_clusters // GROUP) * GROUP
+    tp = c_pad * CLUSTER
+    slot = np.full((c_pad, CLUSTER), -1, np.int64)
+    for i, leaf in enumerate(leaves):
+        slot[i, : leaf.size] = leaf
+    flat = slot.reshape(-1)
+    valid = flat >= 0
+    take = np.where(valid, flat, 0)
+
+    def comp(a):
+        return np.where(valid, a[take], 0.0).astype(np.float32)
+
+    comps = [comp(p0[:, 0]), comp(p0[:, 1]), comp(p0[:, 2]),
+             comp(e1[:, 0]), comp(e1[:, 1]), comp(e1[:, 2]),
+             comp(e2[:, 0]), comp(e2[:, 1]), comp(e2[:, 2]),
+             np.where(valid, flat, -1).astype(np.float32)]
+    comps = comps + [np.zeros(tp, np.float32)] * 6
+    tri = np.stack([c.reshape(c_pad, CLUSTER) for c in comps], axis=1)
+
+    p0p = np.stack(comps[0:3], 1)
+    e1p = np.stack(comps[3:6], 1)
+    e2p = np.stack(comps[6:9], 1)
+    v1p = p0p + e1p
+    v2p = p0p + e2p
+    mins = np.where(valid[:, None], np.minimum(np.minimum(p0p, v1p), v2p), _BIG)
+    maxs = np.where(valid[:, None], np.maximum(np.maximum(p0p, v1p), v2p), -_BIG)
+    c_lo = mins.reshape(c_pad, CLUSTER, 3).min(axis=1)
+    c_hi = maxs.reshape(c_pad, CLUSTER, 3).max(axis=1)
+    cp = -(-c_pad // 128) * 128
+    c_lo = np.concatenate([c_lo, np.full((cp - c_pad, 3), _BIG, np.float32)])
+    c_hi = np.concatenate([c_hi, np.full((cp - c_pad, 3), -_BIG, np.float32)])
+    boxes = np.concatenate([c_lo, c_hi], axis=1).T.astype(np.float32)
+    return cluster_view(tri, boxes, mesh_view)
+
+
+def cluster_view(tri: np.ndarray, boxes: np.ndarray, mesh_view) -> ClusterView:
+    """The device view from the host table (C_pad, 16, 128) and the (6, Cp)
+    boxes (lo xyz, hi xyz rows), with the kernel's rows, counts and
+    top-level BVH derived from them; on the mesh view's device. The table
+    itself stays on the host: the tracers read only its (C_pad, 128, 12)
+    row copy."""
+    tri = np.asarray(tri, np.float32)
+    boxes = np.asarray(boxes, np.float32).reshape(6, -1)
+    count = (tri[:, 9, :] >= 0.0).sum(axis=1).astype(np.int32)
+    real = np.nonzero(count > 0)[0]  # padding clusters: no triangle, inverted box
+    node_box, node_ref = _top_level(boxes[:3, real].T, boxes[3:, real].T)
+    leaf = node_ref < 0
+    node_ref[leaf] = ~real[~node_ref[leaf]]
+    dev = mesh_view.p0.x.device
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    row = lambda k: t(boxes[k].reshape(1, -1))
+    return ClusterView(
+        tri=tri,
+        lo_x=row(0), lo_y=row(1), lo_z=row(2), hi_x=row(3), hi_y=row(4), hi_z=row(5),
+        rows=t(tri[:, :12, :].transpose(0, 2, 1)),
+        count=t(count), node_box=t(node_box), node_ref=t(node_ref),
+        p0=mesh_view.p0, e1=mesh_view.e1, e2=mesh_view.e2,
+    )

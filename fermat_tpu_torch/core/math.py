@@ -73,6 +73,16 @@ def select(m: Tensor, a: Vec3, fill: float = 0.0) -> Vec3:
                 torch.where(m, a.z, fill))
 
 
+def ray_barycentrics(o: Vec3, d: Vec3, p0: Vec3, e1: Vec3, e2: Vec3):
+    """Moller-Trumbore (u, v) of the ray (o, d) on the triangle (p0, e1, e2):
+    1/det wherever det != 0 (no 1e-12 gate), (0, 0) where det == 0."""
+    pv = cross(d, e2)
+    det = dot(e1, pv)
+    inv_det = torch.where(det != 0.0, 1.0 / torch.where(det == 0.0, 1.0, det), 0.0)
+    tv = o - p0
+    return dot(tv, pv) * inv_det, dot(d, cross(tv, e1)) * inv_det
+
+
 def orthonormal_basis(n: Vec3):
     """(t, b) orthonormal to n — branchless Frisvad/Duff construction."""
     s = torch.where(n.z >= 0.0, 1.0, -1.0)

@@ -1,21 +1,28 @@
-"""Wavefront path tracer with NEE + MIS (fermat_tpu/integrators/pt.py:476-1207).
+"""Wavefront path tracer with NEE + MIS (fermat_tpu/integrators/pt.py:476-1503).
 
 One progressive pass traces the full pixel grid as masked lanes: every
 per-bounce stage is a flat (N,)-lane tensor op, and the bounce loop is a
 plain Python loop (the JAX version peels bounce 0 and runs a fori_loop over
-the rest). Per bounce: closest trace (K1a) -> one 52-column shade-row fetch
-(K2) -> constant-environment miss term -> emissive hit with MIS (pdf_area
-fetch, K2) -> mesh-light NEE with f_split (light-row fetch, K2) and a
-shadow any-hit (K1b) -> BSDF sample -> Russian roulette -> channel routing
--> hard zeroing of dead lanes. The G-buffer is taken at the first hit.
-tracer="mega" runs the same pass as one kernel launch (ops/pt_mega.py).
+the rest). Per bounce: closest trace -> one 52-column shade-row fetch (K2)
+-> constant-environment miss term -> emissive hit with MIS (pdf_area fetch,
+K2) -> mesh-light NEE with f_split and a shadow any-hit -> BSDF sample ->
+Russian roulette -> channel routing -> hard zeroing of dead lanes. The
+G-buffer is taken at the first hit.
+
+Scenes of at most 4096 triangles trace with the dense tracer (K1a/K1b) and
+sample lights from the full light table. Larger scenes trace over the
+cluster table with the frontier tracer (K5a/K5b), take the barycentrics
+from the shade-row fetch (MeshView.shade_fetch_ray), and, above 2048
+triangles, pick lights from the emissive subset with K4. tracer="mega"
+runs the whole pass as one kernel launch (ops/pt_mega.py). `NarrowPass`
+runs the same bounces with live lanes compacted between them.
 
 Runs under torch.no_grad(): autograd through the pass (the `.detach()`
 counterparts of pt.py:227-255) belongs to the differentiable slice.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -25,10 +32,12 @@ from fermat_tpu_torch.core.camera import generate_camera_rays
 from fermat_tpu_torch.core.math import (Vec3, dot, orthonormal_basis, select, to_local,
                                         to_world)
 from fermat_tpu_torch.core.rng import M32, TiledSequence
-from fermat_tpu_torch.core.sampling import power_heuristic
+from fermat_tpu_torch.core.sampling import power_heuristic, square_to_uniform_triangle
 from fermat_tpu_torch.ops import pt_mega
+from fermat_tpu_torch.ops.cdf_gather import cdf_pick_rows
+from fermat_tpu_torch.ops.frontier_trace import trace_any_frontier, trace_closest_frontier
 from fermat_tpu_torch.ops.trace import trace_any, trace_closest
-from fermat_tpu_torch.scene.view import SceneView
+from fermat_tpu_torch.scene.view import DENSE_MAX_TRIANGLES, SceneView
 
 Tensor = torch.Tensor
 
@@ -36,8 +45,6 @@ Tensor = torch.Tensor
 CH_DIRECT = 0
 CH_DIFFUSE = 1
 CH_SPECULAR = 2
-
-DENSE_MAX_TRIANGLES = 4096
 
 
 class PTOptions(NamedTuple):
@@ -69,22 +76,61 @@ class PTOptions(NamedTuple):
     debug_nee_cheap_eval: bool = False
 
 
-def _trace_mode(n_triangles: int, opts: PTOptions) -> str:
-    """tracer="mega" runs the whole pass in the megakernel (pt.py:502-511);
-    the dense tracer serves tracer="auto" up to 4096 triangles
-    (pt.py:214-224), as in JAX, which never routes "auto" to the megakernel.
-    The wrappers launch the CUDA kernels on a CUDA view and run the plain
-    versions on a CPU view."""
-    if opts.tracer == "mega":
-        return "mega"
-    if opts.tracer != "auto":
+def _trace_mode(n_triangles: int, opts: PTOptions, has_clusters: bool) -> str:
+    """Which tracer serves the pass (pt.py:214-224). tracer="mega" runs the
+    whole pass in the megakernel; tracer="auto" takes the dense tracer up to
+    4096 triangles, as in JAX, and the frontier tracer above. The JAX
+    package routes "auto" above 4096 triangles to the frontier tracer on a
+    TPU and to its BVH walk elsewhere; the port has no BVH walk yet, so it
+    takes the frontier function on every device (the wrappers launch the
+    CUDA kernels on a CUDA view and run the plain versions on a CPU view).
+    tracer="frontier" asks for it at any size; both need the view's cluster
+    table, which SceneView builds above 4096 triangles."""
+    mode = opts.tracer
+    if mode == "auto":
+        mode = "dense" if n_triangles <= DENSE_MAX_TRIANGLES else "frontier"
+    if mode in ("dense", "mega"):
+        return mode
+    if mode != "frontier":
         raise NotImplementedError(
-            f"tracer={opts.tracer!r}: only 'auto' (dense) and 'mega' are ported")
-    if n_triangles > DENSE_MAX_TRIANGLES:
+            f"tracer={opts.tracer!r}: only 'auto', 'frontier' and 'mega' are ported")
+    if not has_clusters:
         raise NotImplementedError(
-            f"{n_triangles} triangles: scenes over {DENSE_MAX_TRIANGLES} need the "
-            "large-scene tracer, a later slice")
-    return "dense"
+            f"{n_triangles} triangles and no cluster table: the frontier tracer needs "
+            "one (SceneView builds it above 4096 triangles); the BVH walk is not ported")
+    return mode
+
+
+class _Tracers(NamedTuple):
+    closest: Callable  # (o, d, tmin, tmax, active) -> Hit
+    anyhit: Callable  # (o, d, tmin, tmax, active) -> occluded
+    uv_from_ray: bool  # closest returns no barycentrics (shade_fetch_ray)
+
+
+def _pick_tracers(view: SceneView, opts: PTOptions) -> _Tracers:
+    """The pass's closest and shadow tracers (pt.py:304-354). The module's
+    tracer names are looked up at call time, so a caller can swap them."""
+    if _trace_mode(view.mesh.n_triangles, opts, view.clusters is not None) == "frontier":
+        cl = view.clusters
+        return _Tracers(
+            lambda o, d, t0, t1, a: trace_closest_frontier(cl, o, d, t0, t1, a, with_uv=False),
+            lambda o, d, t0, t1, a: trace_any_frontier(cl, o, d, t0, t1, a), True)
+    tris = view.mesh.tri_soup()
+    return _Tracers(lambda o, d, t0, t1, a: trace_closest(tris, o, d, t0, t1, a),
+                    lambda o, d, t0, t1, a: trace_any(tris, o, d, t0, t1, a), False)
+
+
+def _sample_lights_compact(compact: Tuple[Tensor, Tensor], ul0: Tensor, ul1: Tensor,
+                           ul2: Tensor):
+    """lights.sample() over the emissive subset (pt.py:169-211): the pick and
+    the row fetch are one K4 call; the same triangle as a pick over all rows.
+    Returns (pos, n, Le, pdf_area)."""
+    rows, cdf = compact
+    r = cdf_pick_rows(rows, cdf, ul2)
+    b0, b1 = square_to_uniform_triangle(ul0, ul1)
+    vec = lambda ci: Vec3(r[:, ci], r[:, ci + 1], r[:, ci + 2])
+    p0, e1, e2, nrm, le = vec(0), vec(3), vec(6), vec(9), vec(12)
+    return p0 + e1 * b0 + e2 * b1, nrm, le, r[:, 15]
 
 
 def _check_options(opts: PTOptions) -> None:
@@ -146,6 +192,7 @@ class Carry(NamedTuple):
     rays: Tensor  # scalar f32 — total traced rays (closest + shadow)
     rays_lane: Tensor  # (N,) f32
     pix_u: Tensor  # pixel id per lane (int64 holding uint32)
+    lane0: Tensor  # original lane (pixel-grid) index, int32: NarrowPass folds by it
 
 
 def _offset_origin(pos: Vec3, gn: Vec3, d: Vec3, eps: float) -> Vec3:
@@ -172,11 +219,11 @@ def _count(c: Carry, mask: Tensor) -> Carry:
 
 
 def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequence,
-            tris: Tensor, shade_tab: Tensor) -> Carry:
+            tr: _Tracers, shade_tab: Tensor) -> Carry:
     first = b == 0
-    n = c.alive.shape[0]
+    n = c.alive.shape[0]  # the carry's width: NarrowPass runs narrower ones
     eps = opts.ray_eps
-    hit = trace_closest(tris, c.o, c.d, eps, 3.0e38, c.alive)
+    hit = tr.closest(c.o, c.d, eps, 3.0e38, c.alive)
     c = _count(c, c.alive)
     valid = c.alive & hit.hit_mask
     missed = c.alive & ~hit.hit_mask
@@ -187,7 +234,10 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
                     missed, c.channel)
 
     tri_c = torch.clamp_min(hit.tri, 0)
-    sh = view.mesh.shade_fetch(tri_c, hit.u, hit.v, shade_tab)
+    if tr.uv_from_ray:  # the tracer returned no barycentrics (pt.py:643-647)
+        sh = view.mesh.shade_fetch_ray(tri_c, c.o, c.d, shade_tab)
+    else:
+        sh = view.mesh.shade_fetch(tri_c, hit.u, hit.v, shade_tab)
     pos, gn, mats = sh.pos, sh.gn, sh.mats
     wi = -c.d  # towards the previous vertex
 
@@ -238,7 +288,10 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
     nee_on = opts.direct_lighting_nee if first else opts.indirect_lighting_nee
     if nee_on:
         ul0, ul1, ul2 = seq.sample_3d(c.pix_u, base_dim)
-        lpos, ln, lle, lpdf_a, _ = view.lights.sample(ul0, ul1, ul2)
+        if view.lights.compact is not None:
+            lpos, ln, lle, lpdf_a = _sample_lights_compact(view.lights.compact, ul0, ul1, ul2)
+        else:
+            lpos, ln, lle, lpdf_a, _ = view.lights.sample(ul0, ul1, ul2)
         to_l = lpos - pos
         dist2 = torch.clamp_min(dot(to_l, to_l), 1e-12)
         dist = torch.sqrt(dist2)
@@ -254,7 +307,7 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
         able = (valid & view.lights.has_lights & (cos_l > 1e-6) & (pdf_sa > 1e-12)
                 & ((fd.x + fd.y + fd.z + fg.x + fg.y + fg.z) > 0.0))
         so = _offset_origin(pos, gn, wo, eps)
-        occluded = trace_any(tris, so, wo, 0.0, dist * (1.0 - 1e-3), able)
+        occluded = tr.anyhit(so, wo, 0.0, dist * (1.0 - 1e-3), able)
         c = _count(c, able)
         lit = able & ~occluded
         scale = cos_s * w_mis / torch.clamp_min(pdf_sa, 1e-12)
@@ -309,28 +362,29 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
     )
 
 
-@torch.no_grad()
-def render_pass(view: SceneView, opts: PTOptions, res_x: int, res_y: int,
-                instance: int, seed: int = 0,
-                tables: "pt_mega.MegaTables | None" = None) -> _PassOutput:
-    """Trace one progressive pass over the full pixel grid
-    (PathTracer::render, pathtracer_impl.h:197) on the view's device.
-    tracer="mega" hands the whole pass to ops/pt_mega.render_pass_mega, with
-    `tables` (built from the view when None); other tracers take none."""
-    if _trace_mode(view.mesh.n_triangles, opts) == "mega":
-        return pt_mega.render_pass_mega(view, opts, res_x, res_y, instance, seed, tables)
-    if tables is not None:
-        raise ValueError(f"tables are the megakernel's; tracer={opts.tracer!r} takes none")
-    _check_options(opts)
+class _PassState(NamedTuple):
+    """What every bounce of one pass shares, built once per pass, outside
+    the bounce loop."""
+
+    seq: TiledSequence
+    tr: _Tracers
+    shade_tab: Tensor
+
+
+def _pass_state(view: SceneView, opts: PTOptions, instance: int, seed: int) -> _PassState:
+    return _PassState(TiledSequence.create(seed=seed).set_instance(instance),
+                      _pick_tracers(view, opts), view.mesh.shade_rows())
+
+
+def _first_bounce(view: SceneView, opts: PTOptions, st: _PassState, res_x: int,
+                  res_y: int) -> Carry:
+    """Camera rays over the full pixel grid and bounce 0 on them; bounce 0
+    always runs, as the JAX version peels it (pt.py:1168-1177)."""
     dev = view.device
     n = res_x * res_y
     pix = torch.arange(n, dtype=torch.int64, device=dev)
-    seq = TiledSequence.create(seed=seed).set_instance(instance)
-    jx, jy = seq.sample_2d(pix, 0)
+    jx, jy = st.seq.sample_2d(pix, 0)
     o, d, _ = generate_camera_rays(view.camera, res_x, res_y, jx, jy, pix)
-    # built once per pass, outside the bounce loop
-    shade_tab = view.mesh.shade_rows()
-    tris = view.mesh.tri_soup()
 
     zero3 = Vec3.zeros(n, dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -351,15 +405,167 @@ def render_pass(view: SceneView, opts: PTOptions, res_x: int, res_y: int,
         rays=torch.zeros((), **f32),
         rays_lane=torch.zeros(n, **f32),
         pix_u=pix,
+        lane0=torch.arange(n, **i32),
     )
-    # bounce 0 always runs, as the JAX version peels it (pt.py:1168-1177)
-    for b in range(max(opts.max_path_length, 1)):
-        c = _bounce(b, c, view, opts, seq, tris, shade_tab)
+    return _bounce(0, c, view, opts, *st)
 
-    comp = c.l_direct + c.l_diffuse + c.l_specular
+
+@torch.no_grad()
+def render_pass(view: SceneView, opts: PTOptions, res_x: int, res_y: int,
+                instance: int, seed: int = 0,
+                tables: "pt_mega.MegaTables | None" = None):
+    """Trace one progressive pass over the full pixel grid
+    (PathTracer::render, pathtracer_impl.h:197) on the view's device.
+    tracer="mega" hands the whole pass to ops/pt_mega.render_pass_mega, with
+    `tables` (built from the view when None); other tracers take none.
+    NarrowPass runs the same bounces as segments of its own (_first_bounce,
+    then one _bounce per segment on the compacted carry), in place of the
+    JAX version's segment hooks (pt.py:484-501)."""
+    if _trace_mode(view.mesh.n_triangles, opts, view.clusters is not None) == "mega":
+        return pt_mega.render_pass_mega(view, opts, res_x, res_y, instance, seed, tables)
+    if tables is not None:
+        raise ValueError(f"tables are the megakernel's; tracer={opts.tracer!r} takes none")
+    _check_options(opts)
+    st = _pass_state(view, opts, instance, seed)
+    c = _first_bounce(view, opts, st, res_x, res_y)
+    for b in range(1, opts.max_path_length):
+        c = _bounce(b, c, view, opts, *st)
+    return _assemble(_Accum(c.l_direct, c.l_diffuse, c.l_specular, c.rays_lane),
+                     _gbuffer(c), c.rays)
+
+
+class _Accum(NamedTuple):
+    """Full-width per-pixel accumulators the narrowing driver folds finished
+    lanes into, by the carried lane0 (pt.py:1210-1217)."""
+
+    direct: Vec3
+    diffuse: Vec3
+    specular: Vec3
+    rays_lane: Tensor
+
+
+def _gbuffer(c: Carry) -> tuple:
+    """The first-hit G-buffer of a carry in pixel order (final after bounce 0)."""
+    return (c.g_diff_albedo, c.g_spec_albedo, c.g_depth, c.g_tri, c.g_normal, c.g_pos,
+            c.g_uv, c.g_mat)
+
+
+def _assemble(acc: _Accum, g: tuple, rays: Tensor) -> _PassOutput:
     return _PassOutput(
-        direct=c.l_direct, diffuse=c.l_diffuse, specular=c.l_specular, composited=comp,
-        diffuse_albedo=c.g_diff_albedo, specular_albedo=c.g_spec_albedo,
-        depth=c.g_depth, tri=c.g_tri, normal=c.g_normal, position=c.g_pos,
-        uv=c.g_uv, material=c.g_mat, rays=c.rays, rays_lane=c.rays_lane,
+        direct=acc.direct, diffuse=acc.diffuse, specular=acc.specular,
+        composited=acc.direct + acc.diffuse + acc.specular,
+        diffuse_albedo=g[0], specular_albedo=g[1], depth=g[2], tri=g[3], normal=g[4],
+        position=g[5], uv=g[6], material=g[7], rays=rays, rays_lane=acc.rays_lane,
     )
+
+
+class NarrowPass:
+    """Host-driven narrowing-wavefront pass (pt.py:1220-1481): the
+    reference's shrinking queues (path_trace_loop,
+    pathtracer_kernels.h:310-391).
+
+      * bounce 0 runs at full width (_first_bounce);
+      * between bounces the live count is read back (the 4-byte readback
+        the reference pays) and live lanes are compacted into the smallest
+        power-of-2 width, no smaller than `min_width`, that holds them;
+      * each later bounce runs as a one-bounce segment (_bounce) at that
+        width, with the pass's sequence, tracers and shade table built once;
+      * finished lanes' radiance folds into full-width accumulators by the
+        carried lane0, so the estimator is the same sum re-associated
+        (allclose to render_pass; `rays` and the G-buffer equal).
+
+    PyTorch runs eagerly, so the segments are plain calls: there is no jit
+    cache per width and no buffer donation to manage.
+    """
+
+    def __init__(self, view: SceneView, opts: PTOptions, res_x: int, res_y: int,
+                 seed: int = 0, min_width: int = 1 << 13):
+        if opts.tracer == "mega":
+            raise ValueError("tracer='mega' runs the whole pass in one launch: no narrowing")
+        if opts.queue_compaction:
+            raise ValueError("narrowing replaces in-loop queue compaction")
+        _trace_mode(view.mesh.n_triangles, opts, view.clusters is not None)
+        _check_options(opts)
+        self.view, self.opts, self.seed = view, opts, seed
+        self.res_x, self.res_y = res_x, res_y
+        self.n = res_x * res_y
+        self.min_width = min(min_width, self.n)
+        self.last_profile = []  # (bounce, live, width) of the last pass
+
+    def _fold(self, c: Carry, acc: _Accum, identity: bool) -> Tuple[Carry, _Accum]:
+        """Add every lane's radiance into the full-width accumulators and
+        zero the lane copies. identity: no compaction yet, lane order is
+        pixel order, so the scatter-add is a plain add."""
+        if identity:
+            addv = lambda dst, src: dst + src
+            add1 = lambda dst, src: dst + src
+        else:
+            lane = c.lane0.long()
+            add1 = lambda dst, src: dst.index_add(0, lane, src)
+            addv = lambda dst, src: Vec3(add1(dst.x, src.x), add1(dst.y, src.y),
+                                         add1(dst.z, src.z))
+        acc = _Accum(direct=addv(acc.direct, c.l_direct),
+                     diffuse=addv(acc.diffuse, c.l_diffuse),
+                     specular=addv(acc.specular, c.l_specular),
+                     rays_lane=add1(acc.rays_lane, c.rays_lane))
+        w, dev = c.alive.shape[0], c.alive.device
+        z3 = Vec3.zeros(w, dev)
+        c = c._replace(l_direct=z3, l_diffuse=z3, l_specular=z3,
+                       rays_lane=torch.zeros(w, dtype=torch.float32, device=dev))
+        return c, acc
+
+    def _shrink(self, c: Carry, acc: _Accum, live: int, wp: int, identity: bool):
+        """Fold, then gather the live lanes into a wp-wide carry; fill lanes
+        copy lane 0 and are dead with zero accumulators."""
+        w = c.alive.shape[0]
+        c, acc = self._fold(c, acc, identity)
+        idx = torch.nonzero(c.alive)[:, 0]
+        idx = torch.cat([idx, idx.new_zeros(wp - live)])
+
+        def take(a):
+            if isinstance(a, Vec3):
+                return Vec3(*(take(x) for x in a))
+            if a.dim() == 0 or a.shape[0] != w:
+                return a  # the scalar ray counter
+            return a.index_select(0, idx)
+
+        c = Carry(*(take(a) for a in c))
+        valid = torch.arange(wp, device=idx.device) < live
+        return c._replace(alive=c.alive & valid), acc
+
+    def _bucket(self, live: int) -> int:
+        wp = self.min_width
+        while wp < live:
+            wp *= 2
+        return min(wp, self.n)
+
+    @torch.no_grad()
+    def __call__(self, instance: int) -> _PassOutput:
+        opts, view = self.opts, self.view
+        st = _pass_state(view, opts, instance, self.seed)
+        carry = _first_bounce(view, opts, st, self.res_x, self.res_y)
+        g = _gbuffer(carry)
+        dev = view.device
+        zero3 = Vec3.zeros(self.n, dev)
+        acc = _Accum(zero3, zero3, zero3, torch.zeros(self.n, dtype=torch.float32, device=dev))
+        w, identity = self.n, True
+        self.last_profile = []
+        for b in range(1, opts.max_path_length):
+            live = int(carry.alive.sum())  # the per-bounce readback
+            if live == 0:
+                break
+            wp = self._bucket(live)
+            if wp < w:
+                carry, acc = self._shrink(carry, acc, live, wp, identity)
+                w, identity = wp, False
+            self.last_profile.append((b, live, w))
+            carry = _bounce(b, carry, view, opts, *st)
+        _, acc = self._fold(carry, acc, identity)
+        return _assemble(acc, g, carry.rays)
+
+
+def render_pass_narrow(view: SceneView, opts: PTOptions, res_x: int, res_y: int,
+                       instance: int, seed: int = 0, min_width: int = 1 << 13) -> _PassOutput:
+    """One pass through NarrowPass (pt.py:1484-1499). The JAX version caches
+    the driver for its jitted segments; here building one costs nothing."""
+    return NarrowPass(view, opts, res_x, res_y, seed, min_width)(instance)

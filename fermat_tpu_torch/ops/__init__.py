@@ -4,5 +4,9 @@
   * trace.py  — K1a/K1b, dense closest / any hit (replaces ops/pallas_trace.py)
   * pt_mega.py — K3a/K3b, the whole-pass PT megakernel and its replay
     gradient (replaces ops/pallas_pt_mega.py)
+  * cdf_gather.py — K4, fused CDF pick and row fetch (replaces
+    ops/pallas_cdf_gather.py)
+  * frontier_trace.py — K5a/K5b, closest / any hit over the cluster table
+    (replaces ops/pallas_frontier_trace.py)
   * _cuda.py  — builds csrc/*.cu with nvcc on first use and binds them (ctypes)
 """

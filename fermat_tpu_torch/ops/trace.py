@@ -43,9 +43,18 @@ def _lanes(x, n: int, device) -> Tensor:
 def _mt(tile: Tensor, o: Vec3, d: Vec3):
     """Moller-Trumbore of every ray against a (9, k) tile -> (N, k) t, u, v
     and the det test; operation order as pallas_trace.py:92-108."""
-    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (r[None, :] for r in tile)
-    ox, oy, oz = o.x[:, None], o.y[:, None], o.z[:, None]
-    dx, dy, dz = d.x[:, None], d.y[:, None], d.z[:, None]
+    return mt_test([r[None, :] for r in tile], (o.x[:, None], o.y[:, None], o.z[:, None]),
+                   (d.x[:, None], d.y[:, None], d.z[:, None]))
+
+
+def mt_test(tri9, o3, d3):
+    """Moller-Trumbore on broadcastable tensors: tri9 = (p0x, p0y, p0z, e1x,
+    e1y, e1z, e2x, e2y, e2z), o3/d3 = ray components. Returns t, u, v and
+    `inside` (|det| > 1e-12 and the barycentric test); the operation order
+    is that of the CUDA kernels' hit tests."""
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = tri9
+    ox, oy, oz = o3
+    dx, dy, dz = d3
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
     pvz = dx * e2y - dy * e2x

@@ -2,7 +2,10 @@
 registry (fermat_tpu/render/context.py).
 
 The context runs on "cuda" unless the caller passes device="cpu"; with
-device="cuda" and no GPU it raises. The registry holds "pt" only.
+device="cuda" and no GPU it raises. The registry holds "pt" only. The
+renderer option narrow=1 makes render() run each pass through the narrowing
+driver (integrators/pt.NarrowPass, context.py:316-372); render_batch keeps
+the monolithic pass, as in JAX.
 """
 from __future__ import annotations
 
@@ -31,8 +34,6 @@ def register_renderer(name: str, factory: Callable) -> None:
 
 
 def _pt_factory(**kw):
-    if kw.pop("narrow", False):
-        raise NotImplementedError("the narrowing wavefront (narrow=1) is a later slice")
     return pt_mod.render_pass, pt_mod.PTOptions(**kw)
 
 
@@ -84,18 +85,24 @@ class RenderingContext:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _one_pass(self) -> None:
+    def _one_pass(self, batch: bool = False) -> None:
         res_x, res_y = self.res_x, self.res_y
         if self._pass is None:
-            pass_fn, opts = _RENDERER_REGISTRY[self.renderer](**self.renderer_options)
+            options = dict(self.renderer_options)
+            narrow = bool(options.pop("narrow", False)) and self.renderer == "pt"
+            pass_fn, opts = _RENDERER_REGISTRY[self.renderer](**options)
             kw = {}
             if getattr(opts, "tracer", None) == "mega":
                 # the megakernel's scene tables are baked from the view once
                 # (a build reads the view back to the host); restart() rebakes
                 kw["tables"] = pt_mega.build_mega_tables(self.view, res_x, res_y, opts.ray_eps)
-            self._pass = (pass_fn, opts, kw)
-        pass_fn, opts, kw = self._pass
-        out = pass_fn(self.view, opts, res_x, res_y, self.instance, self.seed, **kw)
+            drv = pt_mod.NarrowPass(self.view, opts, res_x, res_y, self.seed) if narrow else None
+            self._pass = (pass_fn, opts, kw, drv)
+        pass_fn, opts, kw, drv = self._pass
+        if drv is not None and not batch:
+            out = drv(self.instance)
+        else:
+            out = pass_fn(self.view, opts, res_x, res_y, self.instance, self.seed, **kw)
         img = lambda v: v.stack().reshape(res_y, res_x, 3)
         self.fb = self.fb.accumulate_pass(
             self.instance, img(out.diffuse), img(out.specular), img(out.direct),
@@ -130,10 +137,11 @@ class RenderingContext:
         return self.fb
 
     def render_batch(self, n_passes: int) -> Framebuffer:
-        """Progressive render of `n_passes` with one device sync at the end."""
+        """Progressive render of `n_passes` with one device sync at the end;
+        always the monolithic pass (narrowing reads back a count per bounce)."""
         t0 = time.perf_counter()
         for _ in range(n_passes):
-            self._one_pass()
+            self._one_pass(batch=True)
         self._sync()
         self.stats.setdefault("batch_times", []).append((n_passes, time.perf_counter() - t0))
         return self.fb

@@ -6,16 +6,33 @@ rounds differently, which can move a CDF step and flip a light pick.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fermat_tpu_torch.core.math import Vec3
 from fermat_tpu_torch.core.sampling import square_to_uniform_triangle
+from fermat_tpu_torch.ops.cdf_gather import pick_index
 from fermat_tpu_torch.ops.gather import gather_rows
 
 Tensor = torch.Tensor
+
+COMPACT_MIN_TRIANGLES = 2049  # the emissive subset serves scenes above 2048
+
+
+def light_compact_tables(cdf: np.ndarray, pdf_area: np.ndarray, rows: np.ndarray):
+    """(rows (L, 23), cdf (L,)) over the EMISSIVE subset of a scene with more
+    than 2048 triangles, else None (fermat_tpu/integrators/pt.py:139-166).
+    The cdf steps only at emissive rows, so a pick over the subset lands on
+    the same triangle as a pick over all T rows. Host numpy, at view build."""
+    if pdf_area.shape[0] < COMPACT_MIN_TRIANGLES:
+        return None
+    ids = np.nonzero(pdf_area > 0.0)[0]
+    if ids.size == 0:
+        return None
+    return (np.ascontiguousarray(rows[ids].astype(np.float32)),
+            np.ascontiguousarray(cdf[ids].astype(np.float32)))
 
 
 class MeshLightsView(NamedTuple):
@@ -25,6 +42,7 @@ class MeshLightsView(NamedTuple):
     pdf_area: Tensor  # (T,) area pdf of sampling a point on tri t (0 if not emissive)
     has_lights: Tensor  # () bool
     rows: Tensor  # (T, 23): p0 e1 e2 gn Le pdf_area uv0 duv1 duv2 emap
+    compact: Optional[Tuple[Tensor, Tensor]] = None  # light_compact_tables
 
     @staticmethod
     def build(mesh_np: dict, device) -> "MeshLightsView":
@@ -59,17 +77,23 @@ class MeshLightsView(NamedTuple):
             uv0, uv1 - uv0, uv2 - uv0,
             mesh_np["emissive_map"][mid].astype(f32)[:, None],
         ], axis=1).astype(f32)
+        return MeshLightsView.from_arrays(cdf, pdf_area, np.asarray(has), rows, device)
+
+    @staticmethod
+    def from_arrays(cdf: np.ndarray, pdf_area: np.ndarray, has_lights: np.ndarray,
+                    rows: np.ndarray, device) -> "MeshLightsView":
+        """The device view of host tables, with their emissive subset."""
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        return MeshLightsView(cdf=t(cdf), pdf_area=t(pdf_area),
-                              has_lights=torch.tensor(has, device=device), rows=t(rows))
+        compact = light_compact_tables(cdf, pdf_area, rows)
+        return MeshLightsView(cdf=t(cdf), pdf_area=t(pdf_area), has_lights=t(has_lights),
+                              rows=t(rows),
+                              compact=None if compact is None else tuple(map(t, compact)))
 
     def sample(self, u0: Tensor, u1: Tensor, u2: Tensor) -> Tuple[Vec3, Vec3, Vec3, Tensor, Tensor]:
         """One point on the emissive set per lane: (position, normal, Le,
         pdf_area, tri). The pick is count(cdf <= u2), clipped
-        (lights.py:98-103), i.e. searchsorted(right=True)."""
-        t_count = self.cdf.shape[0]
-        tri = torch.searchsorted(self.cdf, u2, right=True)
-        tri = torch.clamp(tri, 0, t_count - 1).to(torch.int32)
+        (lights.py:98-103): searchsorted(right=True), NaN u2 -> 0."""
+        tri = pick_index(self.cdf, u2).to(torch.int32)
         b0, b1 = square_to_uniform_triangle(u0, u1)
         r = gather_rows(self.rows, tri)
         vec = lambda c: Vec3(r[:, c], r[:, c + 1], r[:, c + 2])

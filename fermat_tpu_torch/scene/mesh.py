@@ -13,7 +13,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from fermat_tpu_torch.core.math import Vec3, cross, normalize
+from fermat_tpu_torch.core.math import Vec3, cross, normalize, ray_barycentrics
 from fermat_tpu_torch.ops.gather import gather_rows
 from fermat_tpu_torch.scene.materials import HostMaterial, MaterialTable
 
@@ -36,6 +36,48 @@ class MeshStorage:
     @property
     def n_triangles(self) -> int:
         return self.triangles.shape[0]
+
+    @property
+    def n_vertices(self) -> int:
+        return self.vertices.shape[0]
+
+    def transform(self, m: np.ndarray) -> "MeshStorage":
+        """Apply a 4x4 affine transform in place (mesh.py:96-105)."""
+        v = self.vertices @ m[:3, :3].T + m[:3, 3]
+        self.vertices = v.astype(np.float32)
+        if self.normals.shape[0]:
+            ninv = np.linalg.inv(m[:3, :3]).T
+            n = self.normals @ ninv.T
+            n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-20)
+            self.normals = n.astype(np.float32)
+        return self
+
+    def merge(self, other: "MeshStorage") -> "MeshStorage":
+        """Append another mesh in place (mesh.py:107-140). An empty
+        per-corner index array means "no attribute"; once meshes are merged
+        it becomes explicit -1 rows so the row count stays n_triangles."""
+        mat_off = len(self.materials)
+        vtx_off = self.n_vertices
+        nrm_off = self.normals.shape[0]
+        uv_off = self.uvs.shape[0]
+        tri_off = self.n_triangles
+
+        def idx_rows(idx, n):
+            return idx if idx.shape[0] == n else np.full((n, 3), -1, np.int32)
+
+        self.vertices = np.concatenate([self.vertices, other.vertices])
+        self.normals = np.concatenate([self.normals, other.normals])
+        oni = idx_rows(other.normal_indices, other.n_triangles).copy()
+        oni[oni >= 0] += nrm_off
+        self.normal_indices = np.concatenate([idx_rows(self.normal_indices, tri_off), oni])
+        self.uvs = np.concatenate([self.uvs, other.uvs])
+        oui = idx_rows(other.uv_indices, other.n_triangles).copy()
+        oui[oui >= 0] += uv_off
+        self.uv_indices = np.concatenate([idx_rows(self.uv_indices, tri_off), oui])
+        self.triangles = np.concatenate([self.triangles, other.triangles + vtx_off])
+        self.material_ids = np.concatenate([self.material_ids, other.material_ids + mat_off])
+        self.materials = self.materials + list(other.materials)
+        return self
 
     def device_view(self, device) -> "MeshView":
         """The kernel-facing SoA view (MeshView.h:96 analog), computed in
@@ -165,34 +207,48 @@ class MeshView(NamedTuple):
     def shade_fetch(self, tri: Tensor, u: Tensor, v: Tensor, table: Tensor) -> ShadeHit:
         """One-fetch differential geometry + material lanes at a hit
         (mesh.py:324-370); `table` is shade_rows(), built once per pass."""
+        return _shade(gather_rows(table, tri), u, v)
+
+    def shade_fetch_ray(self, tri: Tensor, o: Vec3, d: Vec3, table: Tensor) -> ShadeHit:
+        """shade_fetch with (u, v) derived from the ray and the fetched row's
+        own p0/e1/e2 (Moller-Trumbore barycentrics, mesh.py:372-430), for
+        closest tracers that return no barycentrics. inv_det is taken
+        wherever det != 0, as there (no 1e-12 gate)."""
         r = gather_rows(table, tri)
         vec = lambda c: Vec3(r[:, c], r[:, c + 1], r[:, c + 2])
-        p0, e1, e2, gn = vec(0), vec(3), vec(6), vec(9)
-        n0, n1, n2 = vec(12), vec(15), vec(18)
-        pos = p0 + e1 * u + e2 * v
-        w = 1.0 - u - v
-        sn = normalize(n0 * w + n1 * u + n2 * v)
-        uv = (r[:, 21:23] * w[:, None] + r[:, 23:25] * u[:, None]
-              + r[:, 25:27] * v[:, None])
-        # round half to even, as jnp.round (mesh.py:353)
-        ival = lambda c: torch.round(r[:, c]).to(torch.int32)
-        mats = MaterialTable(
-            diffuse=vec(29),
-            specular=vec(32),
-            emissive=vec(35),
-            diffuse_trans=vec(38),
-            reflectivity=vec(41),
-            roughness=r[:, 44],
-            ior=r[:, 45],
-            opacity=r[:, 46],
-            flags=ival(47),
-            diffuse_map=ival(48),
-            specular_map=ival(49),
-            emissive_map=ival(50),
-            bump_map=ival(51),
-        )
-        return ShadeHit(pos, gn, sn, uv, ival(27), r[:, 28], mats)
+        u, v = ray_barycentrics(o, d, vec(0), vec(3), vec(6))
+        return _shade(r, u, v)
 
     def triangle_areas(self) -> Tensor:
         c = cross(self.e1, self.e2)
         return 0.5 * torch.sqrt(torch.clamp_min(c.x * c.x + c.y * c.y + c.z * c.z, 0.0))
+
+
+def _shade(r: Tensor, u: Tensor, v: Tensor) -> ShadeHit:
+    """ShadeHit from fetched (N, 52) shade rows at barycentrics (u, v)."""
+    vec = lambda c: Vec3(r[:, c], r[:, c + 1], r[:, c + 2])
+    p0, e1, e2, gn = vec(0), vec(3), vec(6), vec(9)
+    n0, n1, n2 = vec(12), vec(15), vec(18)
+    pos = p0 + e1 * u + e2 * v
+    w = 1.0 - u - v
+    sn = normalize(n0 * w + n1 * u + n2 * v)
+    uv = (r[:, 21:23] * w[:, None] + r[:, 23:25] * u[:, None]
+          + r[:, 25:27] * v[:, None])
+    # round half to even, as jnp.round (mesh.py:353)
+    ival = lambda c: torch.round(r[:, c]).to(torch.int32)
+    mats = MaterialTable(
+        diffuse=vec(29),
+        specular=vec(32),
+        emissive=vec(35),
+        diffuse_trans=vec(38),
+        reflectivity=vec(41),
+        roughness=r[:, 44],
+        ior=r[:, 45],
+        opacity=r[:, 46],
+        flags=ival(47),
+        diffuse_map=ival(48),
+        specular_map=ival(49),
+        emissive_map=ival(50),
+        bump_map=ival(51),
+    )
+    return ShadeHit(pos, gn, sn, uv, ival(27), r[:, 28], mats)

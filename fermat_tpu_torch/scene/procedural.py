@@ -1,5 +1,6 @@
 """Procedural scenes (fermat_tpu/scene/procedural.py): the Cornell box built in
-code and random triangle soups for tracer tests. Host data only (numpy)."""
+code, random triangle soups for tracer tests and the large "big room" scene.
+Host data only (numpy)."""
 from __future__ import annotations
 
 from typing import List, Optional
@@ -151,3 +152,40 @@ def random_soup(n_tris: int, seed: int = 0, extent: float = 10.0) -> MeshStorage
         material_ids=np.zeros(n, np.int32),
         materials=[m],
     )
+
+
+def big_room(n_boxes: int = 2000, seed: int = 3) -> MeshStorage:
+    """A lit room filled with `n_boxes` rotated boxes (procedural.py:160-191):
+    the CornellBox scaled by (8, 4, 8) plus 12 triangles per box, all boxes
+    standing on the floor at y = 0. The numpy stream is the JAX package's,
+    so the mesh is bit-equal to its big_room for the same arguments."""
+    base = cornell_box()
+    base.transform(np.diag(np.array([8, 4, 8, 1], np.float32)))
+    vs: List = []
+    tris: List = []
+    mats: List[int] = []
+    r = np.random.default_rng(seed)
+    for _ in range(n_boxes):
+        c = (r.random(3) - 0.5) * np.array([14, 0, 14])
+        c[1] = 0.0
+        s = 0.1 + r.random(3) * np.array([0.5, 1.6, 0.5])
+        _box(vs, tris, mats, c - [s[0], 0, s[2]], c + [s[0], s[1] * 2, s[2]], 0,
+             rot_y=float(r.random() * 3.14))
+    m = HostMaterial("clutter")
+    m.diffuse = tuple(0.2 + 0.6 * r.random(3))
+    t = np.asarray(tris, np.int32)
+    clutter = MeshStorage(
+        vertices=np.asarray(vs, np.float32),
+        triangles=t,
+        normal_indices=np.full_like(t, -1),
+        uv_indices=np.full_like(t, -1),
+        material_ids=np.asarray(mats, np.int32),
+        materials=[m],
+    )
+    return base.merge(clutter)
+
+
+def big_room_camera() -> Camera:
+    """The camera of tools/bench_secondaries.py's big_room stage: eye
+    (0, 3, 10), aim (0, 1.5, 0), up y and the default 60-degree fov."""
+    return Camera.create((0.0, 3.0, 10.0), (0.0, 1.5, 0.0))

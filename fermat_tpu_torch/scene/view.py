@@ -1,19 +1,24 @@
 """SceneView — the plain view of a scene handed to the integrator
 (fermat_tpu/scene/view.py).
 
-This slice's view holds the triangle soup, the mesh-light tables, the camera
-and a constant environment radiance. There is no BVH and no cluster table:
-the dense tracer needs neither. Textures, environment maps, analytic,
-point and directional lights, and shadow sets raise NotImplementedError.
+The view holds the triangle soup, the mesh-light tables (with the emissive
+subset of scenes over 2048 triangles), the camera, a constant environment
+radiance and, for scenes over 4096 triangles, the cluster table of the
+large-scene tracer (accel/cluster.py); smaller scenes go to the dense tracer
+and carry none. There is no triangle BVH. Textures, environment maps,
+analytic, point and directional lights, and shadow sets raise
+NotImplementedError.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from fermat_tpu_torch import resolve_device
+from fermat_tpu_torch.accel.cluster import (DENSE_MAX_TRIANGLES, ClusterView, build_clusters,
+                                            cluster_view)
 from fermat_tpu_torch.core.camera import Camera
 from fermat_tpu_torch.core.math import Vec3
 from fermat_tpu_torch.scene.lights import MeshLightsView
@@ -47,6 +52,7 @@ class SceneView(NamedTuple):
     lights: MeshLightsView
     camera: Camera
     env: Tensor  # (3,) constant environment radiance (0 = none)
+    clusters: Optional[ClusterView] = None  # scenes over DENSE_MAX_TRIANGLES
 
     @property
     def device(self) -> torch.device:
@@ -70,6 +76,8 @@ class SceneView(NamedTuple):
             lights=MeshLightsView.build(_host_arrays(mesh), dev),
             camera=camera.to(dev),
             env=torch.tensor(env_radiance, dtype=torch.float32, device=dev),
+            clusters=(build_clusters(mesh) if mesh.n_triangles > DENSE_MAX_TRIANGLES
+                      else None),
         )
 
     @staticmethod
@@ -77,8 +85,12 @@ class SceneView(NamedTuple):
         """The port's view from the leaves of a fermat_tpu SceneView, keyed by
         field path ("mesh.p0.x", "lights.cdf", "camera.eye.x", "env", ...).
 
-        Leaves this slice does not read (the BVH, the cluster table, the VPL
-        set of nee="vpl") are ignored; a texture
+        A scene over 4096 triangles takes its cluster table from the
+        "clusters.*" leaves (tri and the six box rows) when they are there
+        and builds it with accel/cluster.build_clusters otherwise; smaller
+        scenes carry none. Leaves this slice does not read (the BVH, the VPL
+        set of nee="vpl", the cluster table of a small scene) are ignored; a
+        texture
         atlas with real texels, environment maps, analytic/point/directional
         lights and shadow sets raise NotImplementedError.
         """
@@ -91,10 +103,12 @@ class SceneView(NamedTuple):
         if np.shape(arrays.get("textures.texels", np.zeros((1, 4))))[0] > 1:
             raise NotImplementedError("textures are a later slice")
 
-        def t(key):
+        def host(key):
             if key not in arrays:
                 raise KeyError(f"SceneView.from_numpy: missing leaf {key!r}")
-            return torch.from_numpy(np.array(arrays[key])).to(dev)
+            return np.array(arrays[key])
+
+        t = lambda key: torch.from_numpy(host(key)).to(dev)
 
         v3 = lambda p: Vec3(t(p + ".x"), t(p + ".y"), t(p + ".z"))
         mt = "mesh.materials."
@@ -113,9 +127,19 @@ class SceneView(NamedTuple):
             material_id=t("mesh.material_id"), lod_base=t("mesh.lod_base"),
             materials=materials,
         )
-        lights = MeshLightsView(cdf=t("lights.cdf"), pdf_area=t("lights.pdf_area"),
-                                has_lights=t("lights.has_lights"), rows=t("lights.rows"))
+        lights = MeshLightsView.from_arrays(
+            *(host(f"lights.{k}") for k in ("cdf", "pdf_area", "has_lights", "rows")), dev)
         camera = Camera(v3("camera.eye"), v3("camera.aim"), v3("camera.up"),
                         t("camera.fov"))
-        return SceneView(mesh=mesh, lights=lights, camera=camera, env=t("env"))
+        clusters = None
+        if mesh.n_triangles > DENSE_MAX_TRIANGLES:
+            if "clusters.tri" in arrays:
+                boxes = np.concatenate([host(f"clusters.{k}").reshape(1, -1)
+                                        for k in ("lo_x", "lo_y", "lo_z", "hi_x", "hi_y",
+                                                  "hi_z")])
+                clusters = cluster_view(host("clusters.tri"), boxes, mesh)
+            else:
+                clusters = build_clusters(mesh)
+        return SceneView(mesh=mesh, lights=lights, camera=camera, env=t("env"),
+                         clusters=clusters)
 

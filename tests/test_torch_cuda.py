@@ -5,9 +5,10 @@ imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-With --fmad=false the tracer and gather kernels round like their plain
-versions, so those comparisons are exact (bit-equal floats, equal hit ids
-and flags). The megakernels (K3a/K3b) are held to their plain versions with
+With --fmad=false the tracer, gather and CDF-pick kernels round like their
+plain versions, so those comparisons are exact (bit-equal floats, equal hit
+ids and flags); the frontier kernels (K5a/K5b) visit clusters in another
+order than their plain versions and still give the same answer. The megakernels (K3a/K3b) are held to their plain versions with
 the image tolerances of tests/test_torch_pt.py and equal `rays`: a path is
 a long chain of transcendental calls and data-dependent branches, so one
 ulp anywhere may move a lobe pick on a few pixels.
@@ -22,11 +23,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from fermat_tpu_torch.core.math import Vec3  # noqa: E402
 from fermat_tpu_torch.integrators import pt as tpt  # noqa: E402
+from fermat_tpu_torch.accel.cluster import build_clusters  # noqa: E402
+from fermat_tpu_torch.ops import cdf_gather  # noqa: E402
+from fermat_tpu_torch.ops import frontier_trace as ft  # noqa: E402
 from fermat_tpu_torch.ops import gather as gather_mod  # noqa: E402
 from fermat_tpu_torch.ops import pt_mega  # noqa: E402
 from fermat_tpu_torch.ops import trace as trace_mod  # noqa: E402
-from fermat_tpu_torch.scene.procedural import (cornell_box, cornell_camera,  # noqa: E402
-                                               glass_cornell_box, random_soup)
+from fermat_tpu_torch.scene.procedural import (big_room, cornell_box,  # noqa: E402
+                                               cornell_camera, glass_cornell_box,
+                                               random_soup)
 from fermat_tpu_torch.scene.view import SceneView  # noqa: E402
 
 
@@ -93,6 +98,71 @@ def test_wrappers_count_launches_and_reject_bad_input(dev):
     assert gather_mod.GATHER.launches == before + 1
     with pytest.raises(TypeError):
         gather_mod.gather_rows(table, torch.zeros(5, dtype=torch.int64, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["big_room400", "soup4096"])
+def test_frontier_kernels_match_plain_on_card(dev, scene):
+    mesh = (big_room(400) if scene == "big_room400" else random_soup(4096)).device_view(dev)
+    cl = build_clusters(mesh)
+    lo = torch.tensor([-8.0, 0.0, -8.0] if scene == "big_room400" else [-5.0] * 3, device=dev)
+    hi = torch.tensor([8.0, 8.0, 8.0] if scene == "big_room400" else [5.0] * 3, device=dev)
+    o, d, active, tmax = _rays(65536, 0.0, 1.0, dev, seed=2)
+    o = Vec3(*(lo[k] + (hi[k] - lo[k]) * c for k, c in enumerate(o)))
+    tmax = tmax * 4.0
+    n = o.x.shape[0]
+    for t0, t1 in ((1e-4, 3.0e38), (0.0, tmax)):
+        hit = ft.trace_closest_frontier(cl, o, d, t0, t1, active, with_uv=False)
+        t_ref, tri_ref = ft._closest_plain(cl, o, d, trace_mod._lanes(t0, n, dev),
+                                           trace_mod._lanes(t1, n, dev), active)
+        occ = ft.trace_any_frontier(cl, o, d, t0, t1, active)
+        occ_ref = ft._any_plain(cl, o, d, trace_mod._lanes(t0, n, dev),
+                                trace_mod._lanes(t1, n, dev), active)
+        torch.cuda.synchronize()
+        assert torch.equal(hit.tri, tri_ref) and torch.equal(_bits(hit.t), _bits(t_ref))
+        assert torch.equal(occ, occ_ref)
+        assert (hit.tri >= 0).any() and occ.any() and not occ.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,cols", [(2, 23), (544, 23), (5000, 7)])
+def test_cdf_pick_kernel_matches_plain_on_card(dev, n_rows, cols):
+    g = torch.Generator(device=dev).manual_seed(n_rows)
+    w = torch.rand(n_rows, generator=g, device=dev) + 1e-3
+    cdf = (torch.cumsum(w, 0) / w.sum()).contiguous()
+    rows = torch.randn(n_rows, cols, generator=g, device=dev)
+    u = torch.rand(100_003, generator=g, device=dev)
+    u[:n_rows] = cdf  # exact boundaries
+    u[n_rows:n_rows + 4] = torch.tensor([float("nan"), 1.0, 1.5, -0.25], device=dev)
+    out = cdf_gather.cdf_pick_rows(rows, cdf, u)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(cdf_gather._pick_plain(rows, cdf, u)))
+    assert torch.equal(out[n_rows], rows[0])  # NaN picks row 0
+
+
+@pytest.mark.cuda
+def test_frontier_and_cdf_wrappers_count_launches_and_reject_bad_input(dev):
+    cl = build_clusters(random_soup(300).device_view(dev))
+    o, d, active, _ = _rays(64, -1.0, 1.0, dev, seed=3)
+    before = (ft.CLOSEST.launches, ft.ANY.launches, cdf_gather.PICK.launches)
+    ft.trace_closest_frontier(cl, o, d, 1e-4, 3.0e38, active)
+    ft.trace_any_frontier(cl, o, d, 1e-4, 3.0e38, active)
+    cdf_gather.cdf_pick_rows(torch.zeros(2, 3, device=dev), torch.tensor([0.5, 1.0], device=dev),
+                             torch.rand(10, device=dev))
+    assert (ft.CLOSEST.launches, ft.ANY.launches, cdf_gather.PICK.launches) == tuple(
+        b + 1 for b in before)
+    with pytest.raises(ValueError):  # an active mask on the CPU
+        ft.trace_closest_frontier(cl, o, d, 1e-4, 3.0e38, active.cpu())
+    with pytest.raises(TypeError):  # float64 rays
+        ft.trace_any_frontier(cl, Vec3(*(c.double() for c in o)), d, 1e-4, 3.0e38, active)
+    with pytest.raises(ValueError):  # a cdf that does not match the rows
+        cdf_gather.cdf_pick_rows(torch.zeros(3, 3, device=dev), torch.ones(2, device=dev),
+                                 torch.rand(10, device=dev))
+    with pytest.raises(TypeError):
+        cdf_gather.cdf_pick_rows(torch.zeros(2, 3, device=dev), torch.ones(2, device=dev),
+                                 torch.rand(10, device=dev, dtype=torch.float64))
+    assert (ft.CLOSEST.launches, ft.ANY.launches, cdf_gather.PICK.launches) == tuple(
+        b + 1 for b in before)
 
 
 def _image_ok(got, want) -> bool:

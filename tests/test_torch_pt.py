@@ -143,9 +143,15 @@ def test_port_imports_neither_jax_nor_fermat_tpu():
         "for m in pkgutil.walk_packages(fermat_tpu_torch.__path__, 'fermat_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from fermat_tpu_torch.render.context import RenderingContext\n"
-        "from fermat_tpu_torch.scene.procedural import cornell_box, cornell_camera\n"
+        "from fermat_tpu_torch.scene.procedural import (big_room, big_room_camera,\n"
+        "                                               cornell_box, cornell_camera)\n"
         "ctx = RenderingContext.create(cornell_box(), cornell_camera(), 8, 8, device='cpu')\n"
         "ctx.render(1)\n"
+        "big = RenderingContext.create(big_room(400), big_room_camera(), 8, 8, device='cpu',\n"
+        "                              narrow=1, max_path_length=2)\n"
+        "big.render(1)\n"
+        "big.render_batch(1)\n"
+        "assert big.view.clusters is not None and big.view.lights.compact is not None\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m == 'fermat_tpu' or m.startswith('fermat_tpu.')]\n"
         "assert not bad, bad\n"
@@ -166,7 +172,7 @@ def test_cuda_request_without_a_card_raises():
 
 @pytest.mark.parametrize("option", [
     {"renderer": "bpt"}, {"tracer": "bvh"}, {"sampler": "bluenoise"}, {"nee": "vpl"},
-    {"glossy_model": "ltc"}, {"queue_compaction": True}, {"narrow": True},
+    {"glossy_model": "ltc"}, {"queue_compaction": True}, {"tracer": "cluster"},
     {"dir_lights": [object()]}, {"env_map": np.ones((4, 8, 3), np.float32)},
 ])
 def test_options_outside_the_slice_raise(option):
@@ -177,9 +183,13 @@ def test_options_outside_the_slice_raise(option):
 
 
 def test_scene_over_4096_triangles_raises():
+    """Over 4096 triangles the pass needs the view's cluster table (the
+    frontier tracer); without one it raises, as the BVH walk that JAX falls
+    back to is not ported."""
     view = SceneView.build(tproc.random_soup(4097), tproc.cornell_camera(), "cpu")
+    assert view.clusters is not None
     with pytest.raises(NotImplementedError):
-        tpt.render_pass(view, tpt.PTOptions(), 4, 4, 0)
+        tpt.render_pass(view._replace(clusters=None), tpt.PTOptions(), 4, 4, 0)
 
 
 def write_golden() -> None:

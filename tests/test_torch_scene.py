@@ -23,6 +23,8 @@ def jax_view_arrays(view) -> dict:
 
 
 def port_view_arrays(obj, prefix="") -> dict:
+    if obj is None:  # optional parts a small scene does not carry (clusters)
+        return {}
     if isinstance(obj, torch.Tensor):
         return {prefix: obj.cpu().numpy()}
     out = {}
