@@ -6,7 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, one line each, in order (any failure raises and exits non-zero; no
 result is printed then):
   1. device   — a CUDA card must be present; prints its name and power limit;
-  2. build    — compiles the port's CUDA sources (fermat_tpu_torch/ops/csrc)
+  2. build    — compiles the port's CUDA sources (fermat_tpu_torch/ops/csrc:
+                trace, gather, mega, frontier, cdf_gather, cluster, binned)
                 for sm_90a, one nvcc per source, all started together;
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 trace_closest / trace_any on 262,144 random rays against the
@@ -28,7 +29,10 @@ result is printed then):
                 random_soup(4096) and on 256x256 camera rays of big_room;
                 cdf_pick_rows (K4) on big_room's emissive subset and on a
                 544-row table, NaN and out-of-range u included; all
-                bit-equal;
+                bit-equal; on the same rays the cluster tracer (K6a/K6b)
+                and the binned tracer (K7a/K7b, also at u_steps=1,
+                block=64) bit-equal to the shared plain versions (t, tri,
+                u, v; occlusion) and to K5's (t, tri) and occlusion;
   4. main     — progressive PT through RenderingContext on cuda: glossy
                 CornellBox, 512x512, max_path_length=6; best of 3 batches of
                 8 passes after a warm-up pass; ms/pass and Mrays/s (closest +
@@ -48,6 +52,14 @@ result is printed then):
                 pass; ms/pass, Mrays/s, launch counts (6 of each of K5a,
                 K5b and K4 per monolithic pass; no K1 or K3), the narrowing
                 widths, one pass of each under torch.profiler;
+  4e. tracers — the same big_room pass through RenderingContext with
+                tracer="cluster" and tracer="binned" (render_batch): ms/pass,
+                Mrays/s, launches (6 K6a + 6 K6b a pass, or 6 K7a and 6 K7b
+                launch groups with their rounds; no K5), one profiled pass
+                each; then one 1600x896 pass with each tracer and one with
+                the plain versions forced in their place, all three
+                bit-equal (every channel, first hits, rays), and the
+                frontier pass beside them within the golden tolerances;
   5. parity   — one 512x512 pass with the kernels and one with the plain
                 versions forced in their place: equal `rays`, equal images;
                 then the golden configuration (tests/golden/
@@ -66,7 +78,10 @@ result is printed then):
                 within the tolerances of tests/test_torch_bigroom.py, and one
                 400x224 big_room pass with the kernels and one with the
                 plain versions forced in their place: equal `rays`, equal
-                first hits, close images;
+                first hits, close images; the JAX goldens of the cluster
+                and binned passes (tests/golden/
+                torch_port_bigroom_cluster_24.npz) on the card with each
+                tracer, within the same tolerances;
   6. timing   — every launch of one main-path pass is replayed alone: device
                 time of the kernel, of its plain version and (gather only) of
                 `index_select`, beside the bound from the bytes and
@@ -83,7 +98,14 @@ result is printed then):
                 line's max_abs_err for K4/K5 is from these comparisons);
                 K5's bound counts 46 flops for every real triangle of every
                 cluster a ray must enter (see phase 6's code), K4's is its
-                bytes.
+                bytes; each plain version runs once a launch, under the
+                profiler. K6 and K7 at the inputs of one phase 4e pass,
+                checked bit-equal to the frontier pass's (the tracers
+                compute one function), so every launch is held to the plain
+                answer that K5 was held to, and the bound is K5's; K7's
+                time is the device time of one launch group (one wrapper
+                call: every round's scan, sort and test), split into scan,
+                sort, test and the rest, with its rounds and wall time.
 Then the card's nvidia-smi line, one JSON line {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.
 """
@@ -121,8 +143,12 @@ def check(cond, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A phase line, stamped with the seconds since the script started."""
+    print(f"[+{time.perf_counter() - _T0:.1f} s] {msg}", flush=True)
 
 
 def peaks_for(name: str):
@@ -185,6 +211,51 @@ def image_close(got, want) -> tuple:
     gm, wm = got.mean(axis=0), want.mean(axis=0)
     mean_rel = float(np.max(np.abs(gm - wm) / np.maximum(np.abs(wm), 1e-7)))
     return near >= 0.99 and mean_rel <= 1e-3, float(near), mean_rel
+
+
+def profiled(fn):
+    """(fn(), device ms of that one call, timer): one call under
+    torch.profiler, CUDA events where it sees no device activity. For the
+    plain versions at the big_room pass's size (0.3-0.7 s of device time
+    each), where a warm-up call would double the cost."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    end.record()
+    end.synchronize()
+    us = sum(e.self_device_time_total for e in prof.events() if _on_device(e))
+    if us > 0:
+        return out, us / 1e3, "profiler"
+    return out, start.elapsed_time(end), "events"
+
+
+def device_split(fn, reps: int = 3) -> dict:
+    """Device time per call of the binned tracer by kernel family, from
+    torch.profiler: its scan and test kernels, the sort (cub radix or
+    bitonic kernels), and the rest (gathers, nonzero, the state's setup)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {"scan": 0.0, "sort": 0.0, "test": 0.0, "other": 0.0}
+    for e in prof.events():
+        if _on_device(e):
+            n = e.name.lower()
+            k = ("scan" if "scan_kernel" in n else "test" if "test_kernel" in n
+                 else "sort" if "sort" in n else "other")
+            split[k] += e.self_device_time_total
+    return {k: v / 1e3 / reps for k, v in split.items()}
 
 
 def profile_one_pass(ctx, narrow: bool = False):
@@ -256,7 +327,9 @@ def main() -> int:
     from fermat_tpu_torch.core.rng import TiledSequence
     from fermat_tpu_torch.integrators import pt
     from fermat_tpu_torch.ops import _cuda
+    from fermat_tpu_torch.ops import binned_trace as bt
     from fermat_tpu_torch.ops import cdf_gather
+    from fermat_tpu_torch.ops import cluster_trace as ct
     from fermat_tpu_torch.ops import frontier_trace as ft
     from fermat_tpu_torch.ops import gather as gather_mod
     from fermat_tpu_torch.ops import pt_mega
@@ -274,11 +347,18 @@ def main() -> int:
     mega = {"mega_forward": pt_mega.FORWARD, "mega_grad": pt_mega.GRAD}
     large = {"trace_closest_frontier": ft.CLOSEST, "trace_any_frontier": ft.ANY,
              "cdf_pick_rows": cdf_gather.PICK}
-    kernels = {**dense, **mega, **large}
+    tracers = {"trace_closest_cluster": ct.CLOSEST, "trace_any_cluster": ct.ANY,
+               "trace_closest_binned": bt.CLOSEST, "trace_any_binned": bt.ANY}
+    kernels = {**dense, **mega, **large, **tracers}
+    # the binned tracer's scan: a helper kernel, counted, not a row of its own
+    helpers = {"binned_scan_closest": bt.SCAN_CLOSEST, "binned_scan_any": bt.SCAN_ANY}
 
     def reset_counts():
-        for k in kernels.values():
+        for k in (*kernels.values(), *helpers.values()):
             k.launches = 0
+
+    def counts():
+        return {n: k.launches for n, k in {**kernels, **helpers}.items()}
 
     # ---- 1. device ----
     dev = torch.device("cuda", 0)
@@ -292,7 +372,7 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    built = _cuda.build(sorted({k.source for k in kernels.values()}))
+    built = _cuda.build(sorted({k.source for k in (*kernels.values(), *helpers.values())}))
     log(f"[2 build] {time.perf_counter() - t0:.1f} s wall: "
         + ", ".join(f"{s} {r.seconds:.1f} s" for s, r in built.items()))
     for r in built.values():
@@ -442,20 +522,39 @@ def main() -> int:
             active = torch.rand(n, generator=gen, device=dev) < 0.8
             tmax = torch.rand(n, generator=gen, device=dev) * float((hi_t - lo_t).norm())
             hit = ft.trace_closest_frontier(cl, o, d, 1e-4, 3.0e38, active, with_uv=False)
-            t_ref, tri_ref = ft._closest_plain(cl, o, d, lanes(1e-4, n), lanes(3.0e38, n), active)
+            ref = ft._closest_uv_plain(cl, o, d, lanes(1e-4, n), lanes(3.0e38, n), active)
             occ = ft.trace_any_frontier(cl, o, d, 0.0, tmax, active)
             occ_ref = ft._any_plain(cl, o, d, lanes(0.0, n), tmax, active)
             torch.cuda.synchronize()
-            check(torch.equal(hit.tri, tri_ref), f"K5a {scene} {rays}: tri differs from plain")
-            check(torch.equal(bits(hit.t), bits(t_ref)), f"K5a {scene} {rays}: t not bit-equal")
+            check(torch.equal(hit.tri, ref.tri), f"K5a {scene} {rays}: tri differs from plain")
+            check(torch.equal(bits(hit.t), bits(ref.t)), f"K5a {scene} {rays}: t not bit-equal")
             check(torch.equal(occ, occ_ref), f"K5b {scene} {rays}: occ differs from plain")
+            # K6 and K7 on the same rays: bit-equal to the plain versions
+            # (u, v included) and so to K5
+            for label, f_c, f_a, consts in (
+                    ("K6", ct.trace_closest_cluster, ct.trace_any_cluster, []),
+                    ("K7", bt.trace_closest_binned, bt.trace_any_binned, []),
+                    ("K7 u_steps=1 block=64", bt.trace_closest_binned, bt.trace_any_binned,
+                     [(bt, "BLOCK", 64), (bt, "U_STEPS", 1)])):
+                with patched(consts):
+                    h6 = f_c(cl, o, d, 1e-4, 3.0e38, active)
+                    o6 = f_a(cl, o, d, 0.0, tmax, active)
+                    torch.cuda.synchronize()
+                check(torch.equal(h6.tri, ref.tri) and torch.equal(h6.tri, hit.tri),
+                      f"{label} {scene} {rays}: tri differs from plain or K5")
+                for a, b, what in ((h6.t, ref.t, "t"), (h6.u, ref.u, "u"), (h6.v, ref.v, "v")):
+                    check(torch.equal(bits(a), bits(b)), f"{label} {scene} {rays}: {what} not "
+                                                         "bit-equal to plain")
+                check(torch.equal(o6, occ_ref) and torch.equal(o6, occ),
+                      f"{label} {scene} {rays}: occ differs from plain or K5")
             hits = float((hit.tri >= 0).float().mean())
             check(0.05 < hits and bool(occ.any()) and not bool(occ.all()),
                   f"{scene} {rays}: degenerate test rays (hit fraction {hits})")
             log(f"[3c large] {scene} ({cl.rows.shape[0]} clusters), {n} {rays} rays "
                 f"({float(active.float().mean()):.2f} active): trace_closest_frontier tri equal, "
                 f"t bit-equal (hit {hits:.3f}); trace_any_frontier equal (occluded "
-                f"{float(occ.float().mean()):.3f})")
+                f"{float(occ.float().mean()):.3f}); K6a/K6b, K7a/K7b and K7 at u_steps=1, "
+                f"block=64 bit-equal to the plain versions (t, tri, u, v; occ) and to K5")
     w = torch.rand(544, generator=gen, device=dev) + 1e-3
     for label, rows, cdf in (("big_room emissive subset", *bview.lights.compact),
                              ("544 rows", torch.randn(544, 23, generator=gen, device=dev),
@@ -485,7 +584,7 @@ def main() -> int:
     check(float(hdr.mean()) > 0.01, f"image is black (mean {hdr.mean()})")
     for n in dense:
         check(launches[n] > 0, f"kernel {n} was never launched on the main path")
-    check(all(launches[n] == 0 for n in (*mega, *large)),
+    check(all(launches[n] == 0 for n in (*mega, *large, *tracers)),
           f"the dense CornellBox path launched another kernel: {launches}")
     mrays = best_rays / best / 1e6
     ms_pass = best / PASSES * 1e3
@@ -582,7 +681,7 @@ def main() -> int:
         check(np.isfinite(b_hdr).all() and b_hdr.shape == (BIG_H, BIG_W, 3),
               f"big_room {mode}: image not finite")
         check(float(b_hdr.mean()) > 0.001, f"big_room {mode}: image is black ({b_hdr.mean()})")
-        check(all(b_launches[n] == 0 for n in ("trace_closest", "trace_any", *mega)),
+        check(all(b_launches[n] == 0 for n in ("trace_closest", "trace_any", *mega, *tracers)),
               f"big_room {mode} launched a kernel of another path: {b_launches}")
         for n in large:
             check(b_launches[n] > 0, f"kernel {n} was never launched on the big_room path")
@@ -606,6 +705,113 @@ def main() -> int:
             + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
     bctx.renderer_options.pop("narrow")
     bctx.restart()
+
+    # ---- 4e. tracer="cluster" and tracer="binned" on big_room ----
+    groups = {"closest": 0, "any": 0}
+
+    def grouped(kind, fn):
+        def wrapper(*args, **kw):
+            groups[kind] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    tctx = {}
+    for tracer in ("cluster", "binned"):
+        c4 = RenderingContext.create(room, big_room_camera(), BIG_W, BIG_H, renderer="pt",
+                                     max_path_length=MPL, tracer=tracer)
+        check(c4.view.clusters is not None, f"tracer={tracer}: the view has no cluster table")
+        c4.render(1)  # warm-up (first-use costs)
+        reset_counts()
+        groups.update(closest=0, any=0)
+        with patched([(pt, f"trace_closest_{tracer}",
+                       grouped("closest", getattr(pt, f"trace_closest_{tracer}"))),
+                      (pt, f"trace_any_{tracer}", grouped("any", getattr(pt, f"trace_any_{tracer}")))]):
+            e_best, e_rays = best_batches(c4, BIG_PASSES)
+        e_launches = counts()
+        e_hdr = c4.hdr_image()
+        check(np.isfinite(e_hdr).all() and e_hdr.shape == (BIG_H, BIG_W, 3),
+              f"big_room tracer={tracer}: image not finite")
+        check(float(e_hdr.mean()) > 0.001, f"big_room tracer={tracer}: image is black")
+        mine = [n for n in tracers if n.endswith(tracer)]
+        others = [n for n in (*dense, *mega, *tracers) if n not in mine and n != "gather_rows"]
+        check(all(e_launches[n] == 0 for n in (*others, "trace_closest_frontier",
+                                                "trace_any_frontier")),
+              f"big_room tracer={tracer} launched a kernel of another path: {e_launches}")
+        check(groups["closest"] == per_bounce and groups["any"] == per_bounce,
+              f"tracer={tracer}: {groups} tracer calls over {n_big} passes of {MPL} bounces")
+        check(e_launches["cdf_pick_rows"] == per_bounce, f"tracer={tracer}: K4 {e_launches}")
+        if tracer == "cluster":
+            check(all(e_launches[n] == per_bounce for n in mine),
+                  f"tracer=cluster: {e_launches} over {n_big} passes of {MPL} bounces")
+        else:
+            check(all(e_launches[n] > 0 for n in (*mine, *helpers)),
+                  f"tracer=binned: a kernel was never launched: {e_launches}")
+        e_ms = e_best / BIG_PASSES * 1e3
+        n_kern, busy_ms, top = profile_one_pass(c4)
+        rounds = {k: e_launches[f"trace_{k}_binned"] / per_bounce for k in ("closest", "any")}
+        big[tracer] = dict(ms=e_ms, mrays=e_rays / e_best / 1e6, rays=e_rays / BIG_PASSES,
+                           launches=e_launches, groups=dict(groups), kernels=n_kern,
+                           busy_ms=busy_ms, idle=1 - busy_ms / e_ms, rounds=rounds)
+        log(f"[4e tracers] big_room({BIG_BOXES}) {BIG_W}x{BIG_H} mpl={MPL} tracer={tracer}: "
+            f"{e_ms:.2f} ms/pass, {e_rays / e_best / 1e6:.3f} Mrays/s ({e_rays / BIG_PASSES:.0f} "
+            f"rays/pass; best of {REPS} x {BIG_PASSES} passes) on {smi}; image mean "
+            f"{e_hdr.mean():.4f}; launches over {n_big} passes: "
+            f"{ {n: e_launches[n] for n in (*mine, *large, *helpers)} }; tracer calls "
+            f"(launch groups) {groups}"
+            + (f"; rounds per launch group: closest {rounds['closest']:.1f}, any "
+               f"{rounds['any']:.1f}" if tracer == "binned" else ""))
+        log(f"[4e tracers] tracer={tracer}: one pass under torch.profiler: {n_kern} device "
+            f"kernels, device busy {busy_ms:.2f} ms of the {e_ms:.2f} ms pass (idle share "
+            f"{1 - busy_ms / e_ms:.3f}); top by device time: "
+            + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
+        tctx[tracer] = c4
+
+    # one full-width pass with each tracer and one with the plain versions
+    # forced in their place: bit-equal; the frontier pass beside them
+    def plain_closest_uv(cl, o, d, tmin, tmax, active=None, **_):
+        n = o.x.shape[0]
+        return ft._closest_uv_plain(cl, o, d, lanes(tmin, n), lanes(tmax, n), active)
+
+    def plain_any(cl, o, d, tmin, tmax, active=None, **_):
+        n = o.x.shape[0]
+        return ft._any_plain(cl, o, d, lanes(tmin, n), lanes(tmax, n), active)
+
+    copts = pt.PTOptions(**tctx["cluster"].renderer_options)
+    cview = tctx["cluster"].view
+    t0 = time.perf_counter()
+    out_c = pt.render_pass(cview, copts, BIG_W, BIG_H, 1000, 0)
+    out_b = pt.render_pass(cview, copts._replace(tracer="binned"), BIG_W, BIG_H, 1000, 0)
+    before = counts()
+    with patched([(pt, "trace_closest_cluster", plain_closest_uv),
+                  (pt, "trace_any_cluster", plain_any),
+                  (pt, "cdf_pick_rows", cdf_gather._pick_plain),
+                  (mesh_mod, "gather_rows", gather_mod._gather_plain),
+                  (lights_mod, "gather_rows", gather_mod._gather_plain)]):
+        out_p = pt.render_pass(cview, copts, BIG_W, BIG_H, 1000, 0)
+    torch.cuda.synchronize()
+    check(before == counts(), "the forced plain cluster pass launched a kernel")
+    chans = ("composited", "direct", "diffuse", "specular", "diffuse_albedo", "specular_albedo",
+             "normal", "position")
+    for label, other in (("binned", out_b), ("forced plain", out_p)):
+        for c in chans:
+            check(torch.equal(bits(getattr(out_c, c).stack()), bits(getattr(other, c).stack())),
+                  f"cluster vs {label} pass: {c} not bit-equal")
+        check(torch.equal(out_c.tri, other.tri) and torch.equal(bits(out_c.depth), bits(other.depth))
+              and float(out_c.rays) == float(other.rays), f"cluster vs {label} pass: hits differ")
+    out_f = pt.render_pass(cview, copts._replace(tracer="frontier"), BIG_W, BIG_H, 1000, 0)
+    report = []
+    for c in ("composited", "direct", "diffuse", "specular"):
+        ok, near, mean_rel = image_close(getattr(out_c, c).stack().cpu().numpy(),
+                                         getattr(out_f, c).stack().cpu().numpy())
+        check(ok, f"cluster vs frontier pass: {c} outside the golden tolerance")
+        report.append(f"{c} {near:.4f}/{mean_rel:.1e}")
+    f_tri = float((out_c.tri == out_f.tri).float().mean())
+    log(f"[4e tracers] {BIG_W}x{BIG_H} pass (instance 1000) with tracer=cluster, tracer=binned "
+        f"and the plain versions forced: bit-equal (every channel, G-buffer, first hits, rays "
+        f"{float(out_c.rays):.0f}); against the frontier pass: rays {float(out_f.rays):.0f}, "
+        f"first hits equal {f_tri:.5f}, pixels close/mean rel " + ", ".join(report)
+        + f" ({time.perf_counter() - t0:.1f} s for the four passes)")
+    del out_c, out_b, out_p, out_f
 
     # ---- 5. parity on the card ----
     opts = pt.PTOptions(**ctx.renderer_options)
@@ -755,6 +961,32 @@ def main() -> int:
         f"mpl={int(gb['max_path_length'])} (JAX render_pass, tracer='frontier', CPU) on the "
         f"card: rays {gb_rays:.0f} vs {float(gb['rays']):.0f}; first-hit triangle equal "
         f"{tri_eq:.4f}; pixels close/mean rel: " + ", ".join(report))
+    gc = np.load(ROOT / "tests" / "golden" / "torch_port_bigroom_cluster_24.npz")
+    check(int(gc["n_boxes"]) == int(gb["n_boxes"]) and int(gc["res"]) == gbres,
+          "the cluster/binned golden is not of the big_room golden's view")
+    for tracer in ("cluster", "binned"):
+        before = counts()
+        gcout = pt.render_pass(gbview, gbopts._replace(tracer=tracer), gbres, gbres,
+                               int(gc["instance"]), int(gc["seed"]))
+        mine = [n for n in tracers if n.endswith(tracer)]
+        check(all(kernels[n].launches > before[n] for n in mine)
+              and ft.CLOSEST.launches == before["trace_closest_frontier"],
+              f"the golden big_room pass with tracer={tracer} did not launch its kernels only")
+        gc_rays, want = float(gcout.rays), float(gc[f"{tracer}.rays"])
+        check(abs(gc_rays - want) <= 0.005 * want,
+              f"big_room {tracer} golden: rays {gc_rays} vs JAX {want}")
+        report = []
+        for c in ("composited", "direct", "diffuse", "specular"):
+            ok, near, mean_rel = image_close(getattr(gcout, c).stack().cpu().numpy(),
+                                             gc[f"{tracer}.{c}"].reshape(-1, 3))
+            check(ok, f"big_room {tracer} golden {c}: {near:.4f} close, mean rel {mean_rel:.2e}")
+            report.append(f"{c} {near:.4f}/{mean_rel:.1e}")
+        tri_eq = float((gcout.tri.cpu().numpy() == gc[f"{tracer}.tri"].ravel()).mean())
+        check(tri_eq >= 0.99, f"big_room {tracer} golden: first-hit triangle equal on {tri_eq}")
+        log(f"[5c large] big_room({int(gc['n_boxes'])}) golden {gbres}x{gbres} (JAX render_pass, "
+            f"tracer='{tracer}', CPU) on the card with tracer={tracer}: rays {gc_rays:.0f} vs "
+            f"{want:.0f}; first-hit triangle equal {tri_eq:.4f}; pixels close/mean rel: "
+            + ", ".join(report))
 
     def plain_closest_frontier(cl, o, d, tmin, tmax, active=None, with_uv=True):
         n = o.x.shape[0]
@@ -978,6 +1210,9 @@ def main() -> int:
 
     table_bytes = 4 * (cl_room.rows.numel() + cl_room.count.numel() + cl_room.node_box.numel()
                        + cl_room.node_ref.numel() + 6 * cl_room.lo_x.shape[1])
+    # per launch of K5: the plain answer, its time and the bound, which K6
+    # and K7 reuse below on the same rays
+    k5_plain = {"trace_closest_frontier": [], "trace_any_frontier": []}
     for kname in large:
         kern = large[kname]
         ms = plain_ms = bound = by_bytes = by_ops = err = 0.0
@@ -991,6 +1226,7 @@ def main() -> int:
                 f_k = lambda: cdf_gather.cdf_pick_rows(rows_t, cdf_t, u_t)
                 f_p = lambda: cdf_gather._pick_plain(rows_t, cdf_t, u_t)
                 got, want = f_k(), f_p()
+                p_ms = device_ms(f_p, reps=1)[0]
                 torch.cuda.synchronize()
                 check(torch.equal(bits(got), bits(want)),
                       "cdf_pick_rows at the big_room pass's inputs: not bit-equal to plain")
@@ -1004,7 +1240,7 @@ def main() -> int:
                     f_k = lambda: ft.trace_closest_frontier(cl, o, d, tmin, tmax, active,
                                                             with_uv=False)
                     f_p = lambda: ft._closest_plain(cl, o, d, tmin_l, tmax_l, active)
-                    t_fin, tri_fin = f_p()
+                    (t_fin, tri_fin), p_ms, _ = profiled(f_p)
                     hit = f_k()
                     torch.cuda.synchronize()
                     check(torch.equal(hit.tri, tri_fin) and torch.equal(bits(hit.t), bits(t_fin)),
@@ -1016,7 +1252,8 @@ def main() -> int:
                 else:
                     f_k = lambda: ft.trace_any_frontier(cl, o, d, tmin, tmax, active)
                     f_p = lambda: ft._any_plain(cl, o, d, tmin_l, tmax_l, active)
-                    occ_p, occ_k = f_p(), f_k()
+                    occ_p, p_ms, _ = profiled(f_p)
+                    occ_k = f_k()
                     torch.cuda.synchronize()
                     check(torch.equal(occ_k, occ_p),
                           "trace_any_frontier at the big_room pass's inputs: occ differs "
@@ -1028,10 +1265,14 @@ def main() -> int:
                 n_tests += need
                 ops = need * FLOPS_PER_TEST
                 shapes.add(f"{n} rays x {int((cl.count > 0).sum())} clusters")
+                k5_plain[kname].append(dict(
+                    want=(t_fin, tri_fin) if kname == "trace_closest_frontier" else occ_p,
+                    plain_ms=p_ms, need=need, ent=ent, b_bytes=byt / bw * 1e3,
+                    b_ops=ops / fp32 * 1e3))
             m, tm = device_ms(f_k, reps=5)
             ms += m
             timers.add(tm)
-            plain_ms += device_ms(f_p, reps=1)[0]
+            plain_ms += p_ms
             b_bytes, b_ops = byt / bw * 1e3, ops / fp32 * 1e3
             bound += max(b_bytes, b_ops)
             by_bytes += b_bytes
@@ -1063,6 +1304,146 @@ def main() -> int:
                f"needed per launch" if visits else "")
             + f") over the {nc} launches of one big_room pass, each equal to its plain "
             f"version (max abs err {err:.3g}); {sorted(shapes)}")
+
+    # K6 and K7 at the inputs of one phase 4e pass (tracer="cluster", the
+    # instance above; the binned pass traces the same rays, its images being
+    # bit-equal). Their active rays are checked bit-equal to the frontier
+    # pass's recorded above (the three tracers compute one function, and the
+    # kernels' u, v equal the row fetch's), so every launch of each tracer
+    # is held to the plain answer K5 was held to there, and so to K5, and
+    # the bound is that launch's: equal for K5, K6 and K7. The plain time
+    # of K6a/K7a adds the winner's u, v (_recompute_uv) to K5a's
+    tcalls = {"closest": [], "any": []}
+
+    def trecorder(kind, fn):
+        def wrapper(*args, **kw):
+            tcalls[kind].append(args)
+            return fn(*args, **kw)
+        return wrapper
+
+    with patched([(pt, "trace_closest_cluster", trecorder("closest", pt.trace_closest_cluster)),
+                  (pt, "trace_any_cluster", trecorder("any", pt.trace_any_cluster))]):
+        pt.render_pass(cview, copts, BIG_W, BIG_H, 2000, 0)
+    torch.cuda.synchronize()
+
+    def same_rays(args, args5) -> bool:
+        """Equal active masks, and equal rays (o, d, tmin, tmax) on the
+        active lanes. An inactive lane is never traced, and the routes
+        leave different values there: on a miss the frontier route takes
+        u, v from the ray, K6/K7 return 0, and the dead lane's next origin
+        follows."""
+        act, act5 = args[5], args5[5]
+        if not torch.equal(act, act5):
+            return False
+        for x, y in zip(args[1:5], args5[1:5]):
+            for p, q in zip(*((list(v) if isinstance(v, Vec3) else [v]) for v in (x, y))):
+                if isinstance(p, torch.Tensor):
+                    if not torch.equal(bits(p[act]), bits(q[act])):
+                        return False
+                elif p != q:
+                    return False
+        return True
+
+    acc = {n: dict(ms=0.0, plain_ms=0.0, bound=0.0, by_bytes=0.0, by_ops=0.0, err=0.0,
+                   timers=set(), wall_ms=0.0, rounds=0, split=dict(scan=0.0, sort=0.0, test=0.0,
+                                                                    other=0.0))
+           for n in tracers}
+    fns = {"cluster": (ct.trace_closest_cluster, ct.trace_any_cluster),
+           "binned": (bt.trace_closest_binned, bt.trace_any_binned)}
+    t_visits = {"closest": 0.0, "any": 0.0}
+    t_tests = {"closest": 0.0, "any": 0.0}
+    for kind in ("closest", "any"):
+        k5_name = f"trace_{kind}_frontier"
+        check(len(tcalls[kind]) == len(lcalls[k5_name]) == MPL,
+              f"{kind}: {len(tcalls[kind])} cluster-tracer calls in one pass of {MPL} bounces")
+        for args, args5, k5 in zip(tcalls[kind], lcalls[k5_name], k5_plain[k5_name]):
+            check(same_rays(args, args5),
+                  f"{kind}: the cluster pass's active rays differ from the frontier pass's")
+            cl, o, d, tmin, tmax, active = args
+            if kind == "closest":
+                (u_p, v_p), uv_ms, _ = profiled(lambda: ft._recompute_uv(cl, o, d, k5["want"][1]))
+                want = Hit(t=k5["want"][0], tri=k5["want"][1], u=u_p, v=v_p)
+                plain_ms = k5["plain_ms"] + uv_ms
+            else:
+                want, plain_ms = k5["want"], k5["plain_ms"]
+            t_visits[kind] += k5["ent"]
+            t_tests[kind] += k5["need"]
+            for tracer in ("cluster", "binned"):
+                tname = f"trace_{kind}_{tracer}"
+                f_k = (lambda fn=fns[tracer][kind == "any"]:
+                       fn(cl, o, d, tmin, tmax, active))
+                launches0 = tracers[tname].launches
+                got = f_k()
+                torch.cuda.synchronize()
+                a = acc[tname]
+                if kind == "closest":
+                    for x, y, what in ((got.t, want.t, "t"), (got.u, want.u, "u"),
+                                       (got.v, want.v, "v")):
+                        check(torch.equal(bits(x), bits(y)),
+                              f"{tname} at the cluster pass's inputs: {what} not bit-equal")
+                        a["err"] = max(a["err"], float((x - y).abs().max()))
+                    check(torch.equal(got.tri, want.tri),
+                          f"{tname} at the cluster pass's inputs: tri differs from plain and K5")
+                else:
+                    check(torch.equal(got, want),
+                          f"{tname} at the cluster pass's inputs: occ differs from plain and K5")
+                    a["err"] = max(a["err"], float((got != want).sum()))
+                a["rounds"] += tracers[tname].launches - launches0
+                if tracer == "cluster":
+                    m, tm = device_ms(f_k, reps=5)
+                else:
+                    sp = device_split(f_k)
+                    m, tm = sum(sp.values()), "profiler"
+                    for k in sp:
+                        a["split"][k] += sp[k]
+                    torch.cuda.synchronize()
+                    w0 = time.perf_counter()
+                    f_k()
+                    torch.cuda.synchronize()
+                    a["wall_ms"] += (time.perf_counter() - w0) * 1e3
+                a["ms"] += m
+                a["timers"].add(tm)
+                a["plain_ms"] += plain_ms
+                a["bound"] += max(k5["b_bytes"], k5["b_ops"])
+                a["by_bytes"] += k5["b_bytes"]
+                a["by_ops"] += k5["b_ops"]
+    for tname, kern in tracers.items():
+        a = acc[tname]
+        kind, tracer = tname.split("_")[1], tname.split("_")[2]
+        nc = len(tcalls[kind])
+        max_err[tname] = a["err"]
+        row = {
+            "name": tname, "route": "cuda",
+            "source": f"fermat_tpu_torch/ops/csrc/{kern.source}",
+            "replaces": kern.replaces,
+            "launches": big[tracer]["launches"][tname],
+            "launches_per_pass": big[tracer]["launches"][tname] / n_big,
+            "max_abs_err": a["err"], "max_abs_err_vs_plain": a["err"],
+            "ms": a["ms"] / nc, "plain_ms": a["plain_ms"] / nc, "bound_ms": a["bound"] / nc,
+            "bound_by": "bytes" if a["by_bytes"] >= a["by_ops"] else "operations",
+            "library_ms": None,
+            "us_per_launch": a["ms"] / nc * 1e3,
+            "timer": "+".join(sorted(a["timers"])),
+            "shapes": [f"{tcalls[kind][0][1].x.shape[0]} rays x "
+                       f"{int((cview.clusters.count > 0).sum())} clusters"],
+            "clusters_needed_per_launch": t_visits[kind] / nc,
+            "tests_needed_per_launch": t_tests[kind] / nc,
+        }
+        if tracer == "binned":  # one launch group = one wrapper call, all its rounds
+            row.update(launch_groups_per_pass=big[tracer]["groups"][kind] / n_big,
+                       rounds_per_launch_group=a["rounds"] / nc,
+                       wall_ms_per_launch_group=a["wall_ms"] / nc,
+                       **{f"{k}_ms": v / nc for k, v in a["split"].items()})
+        rows.append(row)
+        log(f"[6 timing] {tname}: {a['ms'] / nc * 1e3:.1f} us/"
+            + ("launch group" if tracer == "binned" else "launch")
+            + f" (plain {a['plain_ms'] / nc * 1e3:.1f} us, bound {a['bound'] / nc * 1e3:.2f} us by "
+            f"{row['bound_by']}, K5's on the same rays) over the {nc} calls of one cluster "
+            f"pass, each equal to its plain version and to K5 (max abs err {a['err']:.3g})"
+            + (f"; {a['rounds'] / nc:.1f} rounds a group; per group scan "
+               f"{a['split']['scan'] / nc:.2f} ms, sort {a['split']['sort'] / nc:.2f} ms, test "
+               f"{a['split']['test'] / nc:.2f} ms, other {a['split']['other'] / nc:.2f} ms; wall "
+               f"{a['wall_ms'] / nc:.1f} ms" if tracer == "binned" else ""))
 
     log("[summary] big_room " + "; ".join(
         f"{m}: {v['ms']:.2f} ms/pass, {v['mrays']:.3f} Mrays/s, {v['kernels']} device kernels, "

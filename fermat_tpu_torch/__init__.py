@@ -13,11 +13,13 @@ Ported so far: progressive path tracing through RenderingContext, on scenes
 of at most 4096 triangles with the dense tracer (ops/trace.py) and on larger
 ones with the cluster-table frontier tracer (ops/frontier_trace.py) and the
 fused light pick (ops/cdf_gather.py), monolithic or through the narrowing
-driver (render option narrow=1); every table fetch goes through the row
-gather (ops/gather.py). With tracer="mega", on scenes within the
-megakernel's caps (128 triangles, 32 materials, 32 emitters), a pass is one
-launch of the whole-pass megakernel, and the replay-gradient train step is
-another (ops/pt_mega.py). All eight kernels are hand-written CUDA.
+driver (render option narrow=1); tracer="cluster" (ops/cluster_trace.py)
+and tracer="binned" (ops/binned_trace.py) trace the same function over the
+same table at any size. Every table fetch goes through the row gather
+(ops/gather.py). With tracer="mega", on scenes within the megakernel's caps
+(128 triangles, 32 materials, 32 emitters), a pass is one launch of the
+whole-pass megakernel, and the replay-gradient train step is another
+(ops/pt_mega.py). All twelve kernels are hand-written CUDA.
 """
 from __future__ import annotations
 

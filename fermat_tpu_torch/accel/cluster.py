@@ -10,12 +10,13 @@ boxes as (1, Cp) rows with Cp rounded up to 128 and inverted (+big, -big)
 padding boxes. For the same mesh these are bit-equal to the JAX package's.
 The table stays on the host; the device holds the row copy below.
 
-The frontier kernel (ops/frontier_trace.py) reads three more things built
-here, which the JAX package does not have: the triangles of each cluster as
-(C_pad, 128, 12) rows (one 48-byte row per triangle), the number of real
-triangles per cluster, and a top-level BVH over the real clusters' boxes
-(accel/bvh.build_bvh with one cluster per leaf). The Pallas kernel needs no
-such tree: it slab-tests every ray block against every cluster box.
+The port's tracers read three more things built here, which the JAX
+package does not have: the triangles of each cluster as (C_pad, 128, 12)
+rows (one 48-byte row per triangle) and the number of real triangles per
+cluster (all of K5-K7), and a top-level BVH over the real clusters' boxes
+(accel/bvh.build_bvh with one cluster per leaf; the frontier kernel,
+ops/frontier_trace.py, alone). The Pallas kernel needs no such tree: it
+slab-tests every ray block against every cluster box.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from fermat_tpu_torch.core.math import Vec3
 
 Tensor = torch.Tensor
 
-DENSE_MAX_TRIANGLES = 4096  # above it a scene view carries a cluster table
+DENSE_MAX_TRIANGLES = 4096  # tracer="auto" traces larger scenes over the cluster table
 CLUSTER = 128  # triangles per cluster
 GROUP = 8  # clusters per group (pads the cluster count)
 SAH_MERGE = 1.4  # union-area gate of the DFS merge

@@ -13,9 +13,11 @@ Scenes of at most 4096 triangles trace with the dense tracer (K1a/K1b) and
 sample lights from the full light table. Larger scenes trace over the
 cluster table with the frontier tracer (K5a/K5b), take the barycentrics
 from the shade-row fetch (MeshView.shade_fetch_ray), and, above 2048
-triangles, pick lights from the emissive subset with K4. tracer="mega"
-runs the whole pass as one kernel launch (ops/pt_mega.py). `NarrowPass`
-runs the same bounces with live lanes compacted between them.
+triangles, pick lights from the emissive subset with K4. tracer="cluster"
+(K6a/K6b) and tracer="binned" (K7a/K7b) trace the same function over the
+same table at any size and return the barycentrics themselves.
+tracer="mega" runs the whole pass as one kernel launch (ops/pt_mega.py).
+`NarrowPass` runs the same bounces with live lanes compacted between them.
 
 Runs under torch.no_grad(): autograd through the pass (the `.detach()`
 counterparts of pt.py:227-255) belongs to the differentiable slice.
@@ -34,7 +36,9 @@ from fermat_tpu_torch.core.math import (Vec3, dot, orthonormal_basis, select, to
 from fermat_tpu_torch.core.rng import M32, TiledSequence
 from fermat_tpu_torch.core.sampling import power_heuristic, square_to_uniform_triangle
 from fermat_tpu_torch.ops import pt_mega
+from fermat_tpu_torch.ops.binned_trace import trace_any_binned, trace_closest_binned
 from fermat_tpu_torch.ops.cdf_gather import cdf_pick_rows
+from fermat_tpu_torch.ops.cluster_trace import trace_any_cluster, trace_closest_cluster
 from fermat_tpu_torch.ops.frontier_trace import trace_any_frontier, trace_closest_frontier
 from fermat_tpu_torch.ops.trace import trace_any, trace_closest
 from fermat_tpu_torch.scene.view import DENSE_MAX_TRIANGLES, SceneView
@@ -76,6 +80,9 @@ class PTOptions(NamedTuple):
     debug_nee_cheap_eval: bool = False
 
 
+_CLUSTER_TRACERS = ("frontier", "cluster", "binned")  # they need the view's cluster table
+
+
 def _trace_mode(n_triangles: int, opts: PTOptions, has_clusters: bool) -> str:
     """Which tracer serves the pass (pt.py:214-224). tracer="mega" runs the
     whole pass in the megakernel; tracer="auto" takes the dense tracer up to
@@ -84,20 +91,22 @@ def _trace_mode(n_triangles: int, opts: PTOptions, has_clusters: bool) -> str:
     TPU and to its BVH walk elsewhere; the port has no BVH walk yet, so it
     takes the frontier function on every device (the wrappers launch the
     CUDA kernels on a CUDA view and run the plain versions on a CPU view).
-    tracer="frontier" asks for it at any size; both need the view's cluster
-    table, which SceneView builds above 4096 triangles."""
+    tracer="frontier", "cluster" and "binned" ask for one of the three
+    cluster-table tracers at any size; they need the view's cluster table,
+    which SceneView.build makes at every size, as in JAX."""
     mode = opts.tracer
     if mode == "auto":
         mode = "dense" if n_triangles <= DENSE_MAX_TRIANGLES else "frontier"
     if mode in ("dense", "mega"):
         return mode
-    if mode != "frontier":
+    if mode not in _CLUSTER_TRACERS:
         raise NotImplementedError(
-            f"tracer={opts.tracer!r}: only 'auto', 'frontier' and 'mega' are ported")
+            f"tracer={opts.tracer!r}: only 'auto', 'frontier', 'cluster', 'binned' and "
+            "'mega' are ported")
     if not has_clusters:
         raise NotImplementedError(
-            f"{n_triangles} triangles and no cluster table: the frontier tracer needs "
-            "one (SceneView builds it above 4096 triangles); the BVH walk is not ported")
+            f"{n_triangles} triangles and no cluster table: tracer {mode!r} needs one; "
+            "the BVH walk is not ported")
     return mode
 
 
@@ -109,12 +118,21 @@ class _Tracers(NamedTuple):
 
 def _pick_tracers(view: SceneView, opts: PTOptions) -> _Tracers:
     """The pass's closest and shadow tracers (pt.py:304-354). The module's
-    tracer names are looked up at call time, so a caller can swap them."""
-    if _trace_mode(view.mesh.n_triangles, opts, view.clusters is not None) == "frontier":
-        cl = view.clusters
+    tracer names are looked up at call time, so a caller can swap them. The
+    cluster and binned tracers return the winner's u, v from the kernel, as
+    in JAX (pt.py:311-325 sets no uv_from_ray)."""
+    mode = _trace_mode(view.mesh.n_triangles, opts, view.clusters is not None)
+    cl = view.clusters
+    if mode == "frontier":
         return _Tracers(
             lambda o, d, t0, t1, a: trace_closest_frontier(cl, o, d, t0, t1, a, with_uv=False),
             lambda o, d, t0, t1, a: trace_any_frontier(cl, o, d, t0, t1, a), True)
+    if mode == "cluster":
+        return _Tracers(lambda o, d, t0, t1, a: trace_closest_cluster(cl, o, d, t0, t1, a),
+                        lambda o, d, t0, t1, a: trace_any_cluster(cl, o, d, t0, t1, a), False)
+    if mode == "binned":
+        return _Tracers(lambda o, d, t0, t1, a: trace_closest_binned(cl, o, d, t0, t1, a),
+                        lambda o, d, t0, t1, a: trace_any_binned(cl, o, d, t0, t1, a), False)
     tris = view.mesh.tri_soup()
     return _Tracers(lambda o, d, t0, t1, a: trace_closest(tris, o, d, t0, t1, a),
                     lambda o, d, t0, t1, a: trace_any(tris, o, d, t0, t1, a), False)

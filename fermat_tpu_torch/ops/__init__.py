@@ -7,6 +7,11 @@
   * cdf_gather.py — K4, fused CDF pick and row fetch (replaces
     ops/pallas_cdf_gather.py)
   * frontier_trace.py — K5a/K5b, closest / any hit over the cluster table
-    (replaces ops/pallas_frontier_trace.py)
+    (replaces ops/pallas_frontier_trace.py); the plain versions of the
+    function K5-K7 share
+  * cluster_trace.py — K6a/K6b, the same function visited near to far per
+    block of rays (replaces ops/pallas_cluster_trace.py)
+  * binned_trace.py — K7a/K7b, the same function as rounds of per-ray
+    visits binned by cluster (replaces ops/pallas_binned_trace.py)
   * _cuda.py  — builds csrc/*.cu with nvcc on first use and binds them (ctypes)
 """

@@ -5,7 +5,8 @@ with a plain C interface and called through ctypes: pointers come from
 `tensor.data_ptr()`, the stream from `torch.cuda.current_stream()`. Nothing
 is compiled when a module is imported; the first launch builds the library
 into `fermat_tpu_torch/_build/` (listed in .gitignore), keyed by a hash of
-the source and the flags, so a fresh checkout builds from its own sources.
+the source, the csrc/ headers it includes and the flags, so a fresh checkout
+builds from its own sources.
 
 Every C entry point returns the `cudaGetLastError()` seen after its launch;
 a non-zero code raises. A failed build raises with the compiler output.
@@ -21,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -53,9 +55,15 @@ def nvcc_path() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.M)
+
+
 def _lib_path(source: str) -> Path:
+    """The library's path, keyed by the source, the headers of csrc/ it
+    includes and the flags: editing a shared header rebuilds its users."""
     src = (CSRC / source).read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join((CSRC / h.decode()).read_bytes() for h in _LOCAL_INCLUDE.findall(src))
+    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{key}.so"
 
 

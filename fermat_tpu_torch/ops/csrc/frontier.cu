@@ -23,9 +23,10 @@
 // children's boxes exactly, and every step of the slab arithmetic is
 // monotone in the box bounds, so a node's E' is never above a child's: the
 // walk enters every cluster the plain version enters, and the answer does
-// not depend on the visit order. The arithmetic is written in the operation
-// order of the plain PyTorch version and built with --fmad=false, so the
-// two agree bit for bit on the card.
+// not depend on the visit order. The arithmetic (cluster_common.cuh, shared
+// with K6 and K7) is written in the operation order of the plain PyTorch
+// version and built with --fmad=false, so the two agree bit for bit on the
+// card.
 //
 // Bound on H100: FP32 operations, ~46 per ray-triangle test (128 per
 // entered cluster), over the clusters a ray must enter before its hit;
@@ -33,45 +34,12 @@
 // the table. Design: the box tests of the tree are cheap next to a leaf's
 // 128 triangle tests; a ray leaves its walk as soon as the stack holds no
 // node nearer than its best hit (closest) or at its first hit (occlusion).
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cluster_common.cuh"
 
 namespace {
 
 constexpr int kBlock = 128;
 constexpr int kStack = 64;  // accel/cluster.py caps the tree depth at 60
-constexpr float kEpsDet = 1e-12f;
-constexpr float kSlackMul = 1.0f - 0.0009765625f;  // 1 - 2^-10, exact
-constexpr float kSlackAdd = 0.000244140625f;       // 2^-12
-constexpr int kIntMax = 0x7fffffff;
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-  float ix, iy, iz;  // guarded reciprocal directions
-  float tmin, tmax;
-};
-
-__device__ __forceinline__ float inv_dir(float c) {
-  return fabsf(c) > 1e-20f ? 1.0f / c : (c >= 0.0f ? 1e20f : -1e20f);
-}
-
-// Slab entry into box (lo, hi), operation order of frontier_trace.py
-// cluster_entries; false when the ray misses it within [tmin, tmax].
-__device__ __forceinline__ bool slab(const Ray& r, float lox, float loy, float loz,
-                                     float hix, float hiy, float hiz, float* e) {
-  const float t0x = (lox - r.ox) * r.ix;
-  const float t1x = (hix - r.ox) * r.ix;
-  const float t0y = (loy - r.oy) * r.iy;
-  const float t1y = (hiy - r.oy) * r.iy;
-  const float t0z = (loz - r.oz) * r.iz;
-  const float t1z = (hiz - r.oz) * r.iz;
-  const float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fmaxf(fminf(t0z, t1z), r.tmin));
-  const float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                          fminf(fmaxf(t0z, t1z), r.tmax));
-  *e = near * kSlackMul - kSlackAdd;
-  return near <= far && lox <= hix;
-}
 
 __device__ __forceinline__ bool node_entry(const Ray& r, const float* __restrict__ box,
                                            int node, float* e) {
@@ -87,33 +55,6 @@ __device__ __forceinline__ bool cluster_entry(const Ray& r, const float* __restr
               __ldg(boxes + 5 * cp + c), e);
 }
 
-// Moller-Trumbore, operation order of fermat_tpu_torch/ops/trace.py:mt_test;
-// true for a hit with tmin < t < tmax.
-__device__ __forceinline__ bool hit_test(const Ray& r, float4 a, float4 b, float4 c,
-                                         float* t) {
-  const float p0x = a.x, p0y = a.y, p0z = a.z;
-  const float e1x = a.w, e1y = b.x, e1z = b.y;
-  const float e2x = b.z, e2y = b.w, e2z = c.x;
-  const float pvx = r.dy * e2z - r.dz * e2y;
-  const float pvy = r.dz * e2x - r.dx * e2z;
-  const float pvz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  const bool det_ok = fabsf(det) > kEpsDet;
-  const float inv_det = det_ok ? 1.0f / det : 0.0f;
-  const float tvx = r.ox - p0x;
-  const float tvy = r.oy - p0y;
-  const float tvz = r.oz - p0z;
-  const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-  const float qvx = tvy * e1z - tvz * e1y;
-  const float qvy = tvz * e1x - tvx * e1z;
-  const float qvz = tvx * e1y - tvy * e1x;
-  const float vv = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv_det;
-  const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-  *t = tt;
-  return det_ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > r.tmin &&
-         tt < r.tmax;
-}
-
 struct Scene {
   const float* node_box;  // (n_nodes, 6)
   const int* node_ref;    // inner: right child; leaf: ~cluster
@@ -122,27 +63,6 @@ struct Scene {
   const float4* rows;  // (C_pad, 128, 3) float4: p0 e1 e2 id 0 0
   const int* count;    // (C_pad,)
 };
-
-struct RayPtrs {
-  const float *ox, *oy, *oz, *dx, *dy, *dz, *tmin, *tmax;
-  const uint8_t* active;
-};
-
-__device__ __forceinline__ Ray load_ray(const RayPtrs& p, int i) {
-  Ray r;
-  r.ox = p.ox[i];
-  r.oy = p.oy[i];
-  r.oz = p.oz[i];
-  r.dx = p.dx[i];
-  r.dy = p.dy[i];
-  r.dz = p.dz[i];
-  r.ix = inv_dir(r.dx);
-  r.iy = inv_dir(r.dy);
-  r.iz = inv_dir(r.dz);
-  r.tmin = p.tmin[i];
-  r.tmax = p.tmax[i];
-  return r;
-}
 
 // Walks the tree; for each entered cluster calls leaf(c, e') and stops when
 // it returns true. `limit` is read before each entry (the best t so far).
@@ -204,14 +124,14 @@ closest_kernel(RayPtrs ray, Scene s, int n, float* __restrict__ t_out,
   float t_best = r.tmax;
   int id_best = kIntMax;
   walk(r, s, t_best, [&](int c, float ec) {
-    const float4* row = s.rows + static_cast<size_t>(c) * 128 * 3;
+    const float4* row = s.rows + static_cast<size_t>(c) * kCluster * kRowFloat4;
     const int cnt = __ldg(s.count + c);
     for (int j = 0; j < cnt; ++j) {
       const float4 a = __ldg(row + 3 * j);
       const float4 b = __ldg(row + 3 * j + 1);
       const float4 cc = __ldg(row + 3 * j + 2);
-      float t;
-      if (hit_test(r, a, b, cc, &t) && t >= ec) {
+      float t, u, v;
+      if (hit_test(r, a, b, cc, &t, &u, &v) && t >= ec) {
         const int id = static_cast<int>(cc.y);
         if (t < t_best || (t == t_best && id < id_best)) {
           t_best = t;
@@ -235,15 +155,15 @@ any_kernel(RayPtrs ray, Scene s, int n, uint8_t* __restrict__ occ_out) {
     return;
   }
   const Ray r = load_ray(ray, i);
-  const float no_limit = __int_as_float(0x7f800000);  // +inf: enter every box
+  const float no_limit = inf();  // enter every box
   bool occ = false;
   walk(r, s, no_limit, [&](int c, float) {
-    const float4* row = s.rows + static_cast<size_t>(c) * 128 * 3;
+    const float4* row = s.rows + static_cast<size_t>(c) * kCluster * kRowFloat4;
     const int cnt = __ldg(s.count + c);
     for (int j = 0; j < cnt; ++j) {
-      float t;
+      float t, u, v;
       if (hit_test(r, __ldg(row + 3 * j), __ldg(row + 3 * j + 1), __ldg(row + 3 * j + 2),
-                   &t)) {
+                   &t, &u, &v)) {
         occ = true;
         return true;
       }

@@ -35,6 +35,11 @@ Divergences from the Pallas kernels, each deliberate:
     per-block `visits` output: both belong to the TPU's ray blocks; and no
     VMEM gate on the cluster count (`_check_cp`, :141): there is no E
     matrix here.
+
+The cluster tracer (K6, ops/cluster_trace.py) and the binned tracer (K7,
+ops/binned_trace.py) compute this function too, and also return the
+winner's Moller-Trumbore u, v; their plain versions are the ones here
+(`_closest_uv_plain`, `_any_plain`), and so are the checks of their inputs.
 """
 from __future__ import annotations
 
@@ -177,7 +182,11 @@ def _any_plain(cl: ClusterView, o: Vec3, d: Vec3, tmin: Tensor, tmax: Tensor,
 
 def _recompute_uv(cl: ClusterView, o: Vec3, d: Vec3, tri: Tensor):
     """Barycentrics of the winning triangle from the original soup
-    (pallas_frontier_trace.py:_recompute_uv, :417-455)."""
+    (pallas_frontier_trace.py:_recompute_uv, :417-455). ray_barycentrics
+    has trace.mt_test's operation order, and a winner passed its
+    |det| > 1e-12 test, so these are also the u, v that the cluster and
+    binned kernels compute for it (pallas_cluster_trace.py:235-242), bit
+    for bit; 0 on a miss."""
     i = torch.clamp_min(tri, 0).long()
     g = lambda v: Vec3(v.x[i], v.y[i], v.z[i])
     u, v = ray_barycentrics(o, d, g(cl.p0), g(cl.e1), g(cl.e2))
@@ -185,29 +194,55 @@ def _recompute_uv(cl: ClusterView, o: Vec3, d: Vec3, tri: Tensor):
     return torch.where(ok, u, 0.0), torch.where(ok, v, 0.0)
 
 
-def _kernel_args(cl: ClusterView, o: Vec3, d: Vec3, tmin, tmax, active):
-    """Checked launch inputs as contiguous tensors, held by the caller until
-    the launch is enqueued."""
+def _closest_uv_plain(cl: ClusterView, o: Vec3, d: Vec3, tmin: Tensor, tmax: Tensor,
+                      active: Tensor) -> Hit:
+    """Plain version of the cluster and binned closest-hit kernels (K6a,
+    K7a): K5a's function and the winner's MT u, v."""
+    t, tri = _closest_plain(cl, o, d, tmin, tmax, active)
+    u, v = _recompute_uv(cl, o, d, tri)
+    return Hit(t=t, tri=tri, u=u, v=v)
+
+
+def _ray_args(o: Vec3, d: Vec3, tmin: Tensor, tmax: Tensor, active: Tensor) -> list:
+    """Checked ray inputs (ox .. dz, tmin, tmax, active) as contiguous
+    tensors. The caller holds them until the launch is enqueued: a copy
+    freed earlier could be handed to the outputs' torch.empty."""
     dev = o.x.device
     rays = [c.contiguous() for c in (*o, *d)]
     for name, t in zip(("ox", "oy", "oz", "dx", "dy", "dz"), rays):
         check_cuda_tensor(t, name, torch.float32, 1, dev)
     check_cuda_tensor(active, "active", torch.bool, 1, dev)
+    return [*rays, tmin, tmax, active]
+
+
+def _table_args(cl: ClusterView, dev, tree: bool = False) -> Tensor:
+    """Checks the cluster table a kernel reads (the top-level tree too when
+    `tree`); returns the (6, Cp) boxes as one contiguous tensor."""
     boxes = cl.boxes().contiguous()
-    check_cuda_tensor(cl.node_box, "node_box", torch.float32, 2, dev)
-    check_cuda_tensor(cl.node_ref, "node_ref", torch.int32, 1, dev)
     check_cuda_tensor(boxes, "boxes", torch.float32, 2, dev)
     check_cuda_tensor(cl.rows, "rows", torch.float32, 3, dev)
     check_cuda_tensor(cl.count, "count", torch.int32, 1, dev)
     c_pad = cl.rows.shape[0]
-    if (cl.node_box.shape[1] != 6 or cl.node_ref.shape[0] != cl.node_box.shape[0]
-            or tuple(cl.rows.shape[1:]) != (128, 12) or cl.count.shape[0] != c_pad
+    if (tuple(cl.rows.shape[1:]) != (128, 12) or cl.count.shape[0] != c_pad
             or boxes.shape[0] != 6 or boxes.shape[1] < c_pad):
-        raise ValueError("malformed ClusterView: node_box (n, 6), node_ref (n,), rows "
-                         "(C_pad, 128, 12), count (C_pad,) and boxes (6, Cp >= C_pad)")
+        raise ValueError("malformed ClusterView: rows (C_pad, 128, 12), count (C_pad,) and "
+                         "boxes (6, Cp >= C_pad)")
+    if tree:
+        check_cuda_tensor(cl.node_box, "node_box", torch.float32, 2, dev)
+        check_cuda_tensor(cl.node_ref, "node_ref", torch.int32, 1, dev)
+        if cl.node_box.shape[1] != 6 or cl.node_ref.shape[0] != cl.node_box.shape[0]:
+            raise ValueError("malformed ClusterView: node_box (n, 6), node_ref (n,)")
     if cl.rows.data_ptr() % 16:
         raise ValueError("ClusterView.rows must be 16-byte aligned (read as float4)")
-    return [*rays, tmin, tmax, active, cl.node_box, cl.node_ref, boxes], boxes.shape[1]
+    return boxes
+
+
+def _kernel_args(cl: ClusterView, o: Vec3, d: Vec3, tmin, tmax, active):
+    """K5's checked launch inputs, held by the caller until the launch is
+    enqueued, and the box stride Cp."""
+    boxes = _table_args(cl, o.x.device, tree=True)
+    return [*_ray_args(o, d, tmin, tmax, active), cl.node_box, cl.node_ref, boxes], \
+        boxes.shape[1]
 
 
 def trace_closest_frontier(clusters: ClusterView, o: Vec3, d: Vec3, tmin, tmax,

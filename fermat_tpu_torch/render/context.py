@@ -2,10 +2,12 @@
 registry (fermat_tpu/render/context.py).
 
 The context runs on "cuda" unless the caller passes device="cpu"; with
-device="cuda" and no GPU it raises. The registry holds "pt" only. The
-renderer option narrow=1 makes render() run each pass through the narrowing
-driver (integrators/pt.NarrowPass, context.py:316-372); render_batch keeps
-the monolithic pass, as in JAX.
+device="cuda" and no GPU it raises. The registry holds "pt" only; its
+options are PTOptions' fields (tracer="frontier", "cluster", "binned" or
+"mega" picks the tracer of both drivers). The renderer option narrow=1 makes
+render() run each pass through the narrowing driver (integrators/pt.
+NarrowPass, context.py:316-372); render_batch keeps the monolithic pass, as
+in JAX.
 """
 from __future__ import annotations
 

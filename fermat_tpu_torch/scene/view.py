@@ -3,11 +3,12 @@
 
 The view holds the triangle soup, the mesh-light tables (with the emissive
 subset of scenes over 2048 triangles), the camera, a constant environment
-radiance and, for scenes over 4096 triangles, the cluster table of the
-large-scene tracer (accel/cluster.py); smaller scenes go to the dense tracer
-and carry none. There is no triangle BVH. Textures, environment maps,
-analytic, point and directional lights, and shadow sets raise
-NotImplementedError.
+radiance and the cluster table of the cluster-table tracers
+(accel/cluster.py), which `build` makes at every size, as the JAX package
+does (view.py:115-117): tracer="auto" takes the dense tracer up to 4096
+triangles, and "frontier", "cluster" and "binned" serve any scene. There is
+no triangle BVH. Textures, environment maps, analytic, point and
+directional lights, and shadow sets raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ class SceneView(NamedTuple):
     lights: MeshLightsView
     camera: Camera
     env: Tensor  # (3,) constant environment radiance (0 = none)
-    clusters: Optional[ClusterView] = None  # scenes over DENSE_MAX_TRIANGLES
+    clusters: Optional[ClusterView] = None  # every built view; from_numpy: large ones
 
     @property
     def device(self) -> torch.device:
@@ -76,8 +77,7 @@ class SceneView(NamedTuple):
             lights=MeshLightsView.build(_host_arrays(mesh), dev),
             camera=camera.to(dev),
             env=torch.tensor(env_radiance, dtype=torch.float32, device=dev),
-            clusters=(build_clusters(mesh) if mesh.n_triangles > DENSE_MAX_TRIANGLES
-                      else None),
+            clusters=build_clusters(mesh),
         )
 
     @staticmethod
@@ -88,11 +88,12 @@ class SceneView(NamedTuple):
         A scene over 4096 triangles takes its cluster table from the
         "clusters.*" leaves (tri and the six box rows) when they are there
         and builds it with accel/cluster.build_clusters otherwise; smaller
-        scenes carry none. Leaves this slice does not read (the BVH, the VPL
-        set of nee="vpl", the cluster table of a small scene) are ignored; a
-        texture
-        atlas with real texels, environment maps, analytic/point/directional
-        lights and shadow sets raise NotImplementedError.
+        scenes carry none, so that such a view holds exactly the JAX view's
+        leaves (`build` makes the table at every size). Leaves this slice
+        does not read (the BVH, the VPL set of nee="vpl", the cluster table
+        of a small scene) are ignored; a texture atlas with real texels,
+        environment maps, analytic/point/directional lights and shadow sets
+        raise NotImplementedError.
         """
         dev = resolve_device(device)
         for k, a in arrays.items():

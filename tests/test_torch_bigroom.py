@@ -166,12 +166,14 @@ def test_context_narrow_option():
 @pytest.mark.parametrize("n_tris,tracer,has_clusters,mode", [
     (36, "auto", False, "dense"), (4097, "auto", True, "frontier"),
     (36, "frontier", True, "frontier"), (36, "mega", False, "mega"),
+    (36, "cluster", True, "cluster"), (4097, "binned", True, "binned"),
 ])
 def test_trace_mode_routes(n_tris, tracer, has_clusters, mode):
     assert tpt._trace_mode(n_tris, tpt.PTOptions(tracer=tracer), has_clusters) == mode
 
 
-@pytest.mark.parametrize("n_tris,tracer", [(4097, "auto"), (36, "frontier"), (36, "binned")])
+@pytest.mark.parametrize("n_tris,tracer", [(4097, "auto"), (36, "frontier"), (36, "binned"),
+                                           (36, "cluster")])
 def test_trace_mode_refuses(n_tris, tracer):
     with pytest.raises(NotImplementedError):
         tpt._trace_mode(n_tris, tpt.PTOptions(tracer=tracer), False)

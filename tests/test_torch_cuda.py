@@ -8,7 +8,8 @@ imports no JAX, so it also runs on a machine without it:
 With --fmad=false the tracer, gather and CDF-pick kernels round like their
 plain versions, so those comparisons are exact (bit-equal floats, equal hit
 ids and flags); the frontier kernels (K5a/K5b) visit clusters in another
-order than their plain versions and still give the same answer. The megakernels (K3a/K3b) are held to their plain versions with
+order than their plain versions and still give the same answer, and so do
+the cluster (K6a/K6b) and binned (K7a/K7b) kernels, u and v included. The megakernels (K3a/K3b) are held to their plain versions with
 the image tolerances of tests/test_torch_pt.py and equal `rays`: a path is
 a long chain of transcendental calls and data-dependent branches, so one
 ulp anywhere may move a lobe pick on a few pixels.
@@ -24,7 +25,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from fermat_tpu_torch.core.math import Vec3  # noqa: E402
 from fermat_tpu_torch.integrators import pt as tpt  # noqa: E402
 from fermat_tpu_torch.accel.cluster import build_clusters  # noqa: E402
+from fermat_tpu_torch.ops import binned_trace as bt  # noqa: E402
 from fermat_tpu_torch.ops import cdf_gather  # noqa: E402
+from fermat_tpu_torch.ops import cluster_trace as ct  # noqa: E402
 from fermat_tpu_torch.ops import frontier_trace as ft  # noqa: E402
 from fermat_tpu_torch.ops import gather as gather_mod  # noqa: E402
 from fermat_tpu_torch.ops import pt_mega  # noqa: E402
@@ -163,6 +166,75 @@ def test_frontier_and_cdf_wrappers_count_launches_and_reject_bad_input(dev):
                                  torch.rand(10, device=dev, dtype=torch.float64))
     assert (ft.CLOSEST.launches, ft.ANY.launches, cdf_gather.PICK.launches) == tuple(
         b + 1 for b in before)
+
+
+# the third entry: binned_trace constants set for the case (retries forced)
+_K6_K7 = {"cluster": (ct.trace_closest_cluster, ct.trace_any_cluster, {}),
+          "binned": (bt.trace_closest_binned, bt.trace_any_binned, {}),
+          "binned_u1_b64": (bt.trace_closest_binned, bt.trace_any_binned,
+                            dict(BLOCK=64, U_STEPS=1))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracer", list(_K6_K7))
+@pytest.mark.parametrize("scene", ["big_room400", "soup4096"])
+def test_cluster_and_binned_kernels_match_plain_on_card(dev, scene, tracer, monkeypatch):
+    """K6/K7 against the shared plain versions (t, tri, u, v bit-equal,
+    occlusion equal) and against K5 on the same rays; 8192 rays, so that
+    the cluster tracer co-sorts them (n >= 4 blocks)."""
+    closest, anyhit, consts = _K6_K7[tracer]
+    for name, value in consts.items():
+        monkeypatch.setattr(bt, name, value)
+    mesh = (big_room(400) if scene == "big_room400" else random_soup(4096)).device_view(dev)
+    cl = build_clusters(mesh)
+    lo = torch.tensor([-8.0, 0.0, -8.0] if scene == "big_room400" else [-5.0] * 3, device=dev)
+    hi = torch.tensor([8.0, 8.0, 8.0] if scene == "big_room400" else [5.0] * 3, device=dev)
+    o, d, active, tmax = _rays(8192, 0.0, 1.0, dev, seed=4)
+    o = Vec3(*(lo[k] + (hi[k] - lo[k]) * c for k, c in enumerate(o)))
+    n = o.x.shape[0]
+    for t0, t1 in ((1e-4, 3.0e38), (0.0, tmax * 4.0), (1e-4, float("inf"))):
+        lanes = trace_mod._lanes(t0, n, dev), trace_mod._lanes(t1, n, dev)
+        hit = closest(cl, o, d, t0, t1, active)
+        ref = ft._closest_uv_plain(cl, o, d, *lanes, active)
+        occ = anyhit(cl, o, d, t0, t1, active)
+        occ_ref = ft._any_plain(cl, o, d, *lanes, active)
+        k5 = ft.trace_closest_frontier(cl, o, d, t0, t1, active, with_uv=False)
+        torch.cuda.synchronize()
+        assert torch.equal(hit.tri, ref.tri)
+        for a, b in ((hit.t, ref.t), (hit.u, ref.u), (hit.v, ref.v)):
+            assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(occ, occ_ref)
+        assert torch.equal(k5.tri, hit.tri) and torch.equal(_bits(k5.t), _bits(hit.t))
+        assert (hit.tri >= 0).any() and occ.any() and not occ.all()
+
+
+@pytest.mark.cuda
+def test_cluster_and_binned_wrappers_count_launches_and_reject_bad_input(dev):
+    cl = build_clusters(random_soup(300).device_view(dev))
+    o, d, active, _ = _rays(64, -1.0, 1.0, dev, seed=3)
+    kernels = (ct.CLOSEST, ct.ANY, bt.CLOSEST, bt.ANY, bt.SCAN_CLOSEST, bt.SCAN_ANY)
+    before = [k.launches for k in kernels]
+    ct.trace_closest_cluster(cl, o, d, 1e-4, 3.0e38, active)
+    ct.trace_any_cluster(cl, o, d, 1e-4, 3.0e38, active)
+    bt.trace_closest_binned(cl, o, d, 1e-4, 3.0e38, active)
+    bt.trace_any_binned(cl, o, d, 1e-4, 3.0e38, active)
+    after = [k.launches for k in kernels]
+    assert after[:2] == [b + 1 for b in before[:2]]
+    assert all(a > b for a, b in zip(after[2:], before[2:]))  # one launch a round
+    with pytest.raises(ValueError):  # an active mask on the CPU
+        ct.trace_closest_cluster(cl, o, d, 1e-4, 3.0e38, active.cpu())
+    with pytest.raises(TypeError):  # float64 rays
+        bt.trace_any_binned(cl, Vec3(*(c.double() for c in o)), d, 1e-4, 3.0e38, active)
+    # more clusters than the E' row of shared memory holds at block 512
+    c_pad = 60_000
+    wide = lambda: torch.zeros(1, c_pad, device=dev)
+    big = cl._replace(rows=torch.empty(c_pad, 128, 12, device=dev),
+                      count=torch.zeros(c_pad, dtype=torch.int32, device=dev),
+                      lo_x=wide(), lo_y=wide(), lo_z=wide(), hi_x=wide(), hi_y=wide(),
+                      hi_z=wide())
+    with pytest.raises(NotImplementedError):
+        ct.trace_closest_cluster(big, o, d, 1e-4, 3.0e38, active)
+    assert [k.launches for k in kernels] == after
 
 
 def _image_ok(got, want) -> bool:

@@ -172,7 +172,7 @@ def test_cuda_request_without_a_card_raises():
 
 @pytest.mark.parametrize("option", [
     {"renderer": "bpt"}, {"tracer": "bvh"}, {"sampler": "bluenoise"}, {"nee": "vpl"},
-    {"glossy_model": "ltc"}, {"queue_compaction": True}, {"tracer": "cluster"},
+    {"glossy_model": "ltc"}, {"queue_compaction": True}, {"tracer": "brute"},
     {"dir_lights": [object()]}, {"env_map": np.ones((4, 8, 3), np.float32)},
 ])
 def test_options_outside_the_slice_raise(option):

@@ -23,10 +23,12 @@ def jax_view_arrays(view) -> dict:
 
 
 def port_view_arrays(obj, prefix="") -> dict:
-    if obj is None:  # optional parts a small scene does not carry (clusters)
+    if obj is None:  # optional parts a view may not carry (clusters, lights.compact)
         return {}
     if isinstance(obj, torch.Tensor):
         return {prefix: obj.cpu().numpy()}
+    if isinstance(obj, np.ndarray):  # the cluster table's host copy (ClusterView.tri)
+        return {prefix: obj}
     out = {}
     for name in obj._fields:
         out.update(port_view_arrays(getattr(obj, name), f"{prefix}.{name}" if prefix else name))
