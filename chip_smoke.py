@@ -7,13 +7,18 @@ Phases, one line each, in order (any failure raises and exits non-zero; no
 result is printed then):
   1. device   — a CUDA card must be present; prints its name and power limit;
   2. build    — compiles the port's CUDA sources (fermat_tpu_torch/ops/csrc:
-                trace, gather, mega, frontier, cdf_gather, cluster, binned)
-                for sm_90a, one nvcc per source, all started together;
+                trace, gather, mega, frontier, cdf_gather, cluster, binned,
+                sub) for sm_90a, one nvcc per source, all started together;
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 trace_closest / trace_any on 262,144 random rays against the
                 CornellBox and random_soup(4096), gather_rows on (36, 52),
                 (36, 23) and (4096, 52) tables with out-of-range indices;
                 all bit-equal (the kernels are built with --fmad=false);
+                K2's backward (gather_rows_bwd, K2b) at the AD path's two
+                shapes, (36, 52) x 262,144 lanes (its deterministic shared-
+                memory mode; two launches give the same bits) and
+                (99,636, 52) x 1,433,600 lanes (its atomic mode), within
+                ops/gather.py's BWD_RTOL of its plain version;
   3b. mega    — the megakernels against their plain versions on the card at
                 128x128, 6 bounces: K3a (mega_forward) with the scene's lobes,
                 all four lobes, all four with clearcoat, and all four with
@@ -32,7 +37,10 @@ result is printed then):
                 bit-equal; on the same rays the cluster tracer (K6a/K6b)
                 and the binned tracer (K7a/K7b, also at u_steps=1,
                 block=64) bit-equal to the shared plain versions (t, tri,
-                u, v; occlusion) and to K5's (t, tri) and occlusion;
+                u, v; occlusion) and to K5's (t, tri) and occlusion; and
+                the subcluster tracer (K8a/K8b) over the 32-triangle
+                subcluster table of each scene bit-equal to its plain
+                versions and to K5's on the same rays;
   4. main     — progressive PT through RenderingContext on cuda: glossy
                 CornellBox, 512x512, max_path_length=6; best of 3 batches of
                 8 passes after a warm-up pass; ms/pass and Mrays/s (closest +
@@ -60,6 +68,17 @@ result is printed then):
                 the plain versions forced in their place, all three
                 bit-equal (every channel, first hits, rays), and the
                 frontier pass beside them within the golden tolerances;
+  4f. AD     — the differentiable pass (render_pass under
+                torch.autograd, K2b its shade fetch's backward) as
+                bench.py:152-163 builds its train step: an MSE against a
+                zero target, d loss / d materials.diffuse (a leaf (M, 3)
+                tensor). The 512x512 6-bounce CornellBox dense pass, its
+                gradient held within 1e-3 of max|g| of K3b's on the same
+                instance and adjoint; then big_room(8300) at 1600x896, 6
+                bounces, tracer="frontier": a warm-up step, best of 2 timed
+                steps, one profiled step; ms/step, train Mrays/s (forward
+                rays / step wall time), peak device memory
+                (max_memory_allocated), idle share, launches per step;
   5. parity   — one 512x512 pass with the kernels and one with the plain
                 versions forced in their place: equal `rays`, equal images;
                 then the golden configuration (tests/golden/
@@ -106,6 +125,19 @@ result is printed then):
                 time is the device time of one launch group (one wrapper
                 call: every round's scan, sort and test), split into scan,
                 sort, test and the rest, with its rounds and wall time.
+                K2b at every launch of the two 4f steps (the CornellBox's
+                in the kernels line, big_room's beside it), its plain
+                version and index_add_ into fresh zeros (what index_select's
+                autograd runs) timed too, each launch held to its plain
+                version; bound: its bytes (idx and the cotangent in,
+                d_table out). K8a/K8b driven through trace_closest_sub /
+                trace_any_sub at the rays of every K5 launch of the big_room
+                pass above (K8 is not routed by render_pass; its entry
+                points are its path), each launch held bit-equal to K5's
+                plain answer there, and timed; K8's own plain version at
+                the first launch of each kind (bounce 0), held bit-equal
+                and timed there; bound: 46 flops a test over K8's own
+                leaves, with K5's bound on the same rays beside it.
 Then the card's nvidia-smi line, one JSON line {"kernels": [...]}, and last
 {"ok": true, "device": {...}}.
 """
@@ -319,7 +351,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from fermat_tpu_torch.accel.cluster import build_clusters
+    from fermat_tpu_torch.accel.cluster import build_clusters, build_subclusters
     from fermat_tpu_torch.accel.traverse import Hit
     from fermat_tpu_torch.bsdf.composite import scene_lobes
     from fermat_tpu_torch.core.camera import generate_camera_rays
@@ -333,6 +365,7 @@ def main() -> int:
     from fermat_tpu_torch.ops import frontier_trace as ft
     from fermat_tpu_torch.ops import gather as gather_mod
     from fermat_tpu_torch.ops import pt_mega
+    from fermat_tpu_torch.ops import sub_trace as st
     from fermat_tpu_torch.ops import trace as trace_mod
     from fermat_tpu_torch.render.context import RenderingContext
     from fermat_tpu_torch.scene import lights as lights_mod
@@ -349,7 +382,9 @@ def main() -> int:
              "cdf_pick_rows": cdf_gather.PICK}
     tracers = {"trace_closest_cluster": ct.CLOSEST, "trace_any_cluster": ct.ANY,
                "trace_closest_binned": bt.CLOSEST, "trace_any_binned": bt.ANY}
-    kernels = {**dense, **mega, **large, **tracers}
+    ad = {"gather_rows_bwd": gather_mod.GATHER_BWD}
+    subk = {"trace_closest_sub": st.CLOSEST, "trace_any_sub": st.ANY}
+    kernels = {**dense, **mega, **large, **tracers, **ad, **subk}
     # the binned tracer's scan: a helper kernel, counted, not a row of its own
     helpers = {"binned_scan_closest": bt.SCAN_CLOSEST, "binned_scan_any": bt.SCAN_ANY}
 
@@ -432,6 +467,27 @@ def main() -> int:
         max_err["gather_rows"] = max(max_err["gather_rows"], float((out - ref).abs().max()))
         log(f"[3 kernels] gather_rows ({rows}, {cols}) x {N_RAYS} indices "
             f"({float(((idx < 0) | (idx >= rows)).float().mean()):.3f} out of range): bit-equal")
+    # K2b at the AD path's two shapes: the CornellBox's shade table (the
+    # shared-memory mode) and big_room's (the atomic mode)
+    for rows, cols, n in ((36, 52, N_RAYS), (99_636, 52, BIG_W * BIG_H)):
+        idx = torch.randint(-4, rows + 4, (n,), generator=gen, device=dev, dtype=torch.int32)
+        g = torch.randn(n, cols, generator=gen, device=dev)
+        out = gather_mod.gather_rows_bwd(g, idx, rows)
+        again = gather_mod.gather_rows_bwd(g, idx, rows)
+        ref = gather_mod._gather_bwd_plain(g, idx, rows)
+        scale = gather_mod._gather_bwd_plain(g.abs(), idx, rows)
+        torch.cuda.synchronize()
+        rel = float(((out - ref).abs() / scale.clamp_min(1e-30)).max())
+        check(rel <= gather_mod.BWD_RTOL, f"gather_rows_bwd ({rows}, {cols}): {rel:.3g} of sum|g|"
+                                          f" from plain, over BWD_RTOL {gather_mod.BWD_RTOL}")
+        shared = gather_mod.bwd_slices(rows, cols) > 0
+        same = torch.equal(bits(out), bits(again))
+        check(same or not shared, f"gather_rows_bwd ({rows}, {cols}): the shared-memory mode "
+                                  "gave other bits on a second launch")
+        log(f"[3 kernels] gather_rows_bwd ({rows}, {cols}) x {n} lanes "
+            f"({'shared-memory' if shared else 'atomic'} mode): max |K2b - plain| "
+            f"{float((out - ref).abs().max()):.3g} = {rel:.3g} of sum|g| (tolerance "
+            f"{gather_mod.BWD_RTOL:g}); two launches bit-equal: {same}")
 
     # ---- 3b. megakernels vs plain on the card ----
     # the CornellBox has no transmissive or coated material, so its three
@@ -502,7 +558,15 @@ def main() -> int:
         f"{bview.lights.compact[0].shape[0]} emissive rows; view built in "
         f"{time.perf_counter() - t0:.1f} s")
     soup_storage = random_soup(4096)
-    soup_cl = build_clusters(soup_storage.device_view(dev))
+    soup_mesh = soup_storage.device_view(dev)
+    soup_cl = build_clusters(soup_mesh)
+    t0 = time.perf_counter()
+    sub_room = build_subclusters(bview.mesh)
+    log(f"[3c large] big_room({BIG_BOXES}) subcluster table: {sub_room.n_subclusters} "
+        f"subclusters of at most 32 triangles ({float(sub_room.count.float().mean()):.1f} on "
+        f"average, {sub_room.lo_x.shape[1]} box columns), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    subs_of = {"big_room": sub_room, "soup4096": build_subclusters(soup_mesh)}
     pix = torch.arange(256 * 256, device=dev)
     jx, jy = TiledSequence.create(0, 0).sample_2d(pix, 0)
     cam_o, cam_d, _ = generate_camera_rays(bview.camera, 256, 256, jx, jy, pix)
@@ -547,6 +611,21 @@ def main() -> int:
                                                          "bit-equal to plain")
                 check(torch.equal(o6, occ_ref) and torch.equal(o6, occ),
                       f"{label} {scene} {rays}: occ differs from plain or K5")
+            # K8 over the subcluster table: bit-equal to its plain versions
+            # (K5's over that table) and to K5
+            subs = subs_of[scene]
+            h8 = st.trace_closest_sub(subs, o, d, 1e-4, 3.0e38, active)
+            o8 = st.trace_any_sub(subs, o, d, 0.0, tmax, active)
+            r8 = ft._closest_uv_plain(subs, o, d, lanes(1e-4, n), lanes(3.0e38, n), active)
+            p8 = ft._any_plain(subs, o, d, lanes(0.0, n), tmax, active)
+            torch.cuda.synchronize()
+            check(torch.equal(h8.tri, r8.tri) and torch.equal(h8.tri, ref.tri),
+                  f"K8a {scene} {rays}: tri differs from plain or K5")
+            for a, b, what in ((h8.t, r8.t, "t"), (h8.u, r8.u, "u"), (h8.v, r8.v, "v"),
+                               (h8.t, ref.t, "t vs K5")):
+                check(torch.equal(bits(a), bits(b)), f"K8a {scene} {rays}: {what} not bit-equal")
+            check(torch.equal(o8, p8) and torch.equal(o8, occ_ref),
+                  f"K8b {scene} {rays}: occ differs from plain or K5")
             hits = float((hit.tri >= 0).float().mean())
             check(0.05 < hits and bool(occ.any()) and not bool(occ.all()),
                   f"{scene} {rays}: degenerate test rays (hit fraction {hits})")
@@ -554,7 +633,9 @@ def main() -> int:
                 f"({float(active.float().mean()):.2f} active): trace_closest_frontier tri equal, "
                 f"t bit-equal (hit {hits:.3f}); trace_any_frontier equal (occluded "
                 f"{float(occ.float().mean()):.3f}); K6a/K6b, K7a/K7b and K7 at u_steps=1, "
-                f"block=64 bit-equal to the plain versions (t, tri, u, v; occ) and to K5")
+                f"block=64 bit-equal to the plain versions (t, tri, u, v; occ) and to K5; "
+                f"K8a/K8b over {subs_of[scene].n_subclusters} subclusters bit-equal to their "
+                f"plain versions and to K5")
     w = torch.rand(544, generator=gen, device=dev) + 1e-3
     for label, rows, cdf in (("big_room emissive subset", *bview.lights.compact),
                              ("544 rows", torch.randn(544, 23, generator=gen, device=dev),
@@ -584,7 +665,7 @@ def main() -> int:
     check(float(hdr.mean()) > 0.01, f"image is black (mean {hdr.mean()})")
     for n in dense:
         check(launches[n] > 0, f"kernel {n} was never launched on the main path")
-    check(all(launches[n] == 0 for n in (*mega, *large, *tracers)),
+    check(all(launches[n] == 0 for n in (*mega, *large, *tracers, *ad, *subk)),
           f"the dense CornellBox path launched another kernel: {launches}")
     mrays = best_rays / best / 1e6
     ms_pass = best / PASSES * 1e3
@@ -681,7 +762,8 @@ def main() -> int:
         check(np.isfinite(b_hdr).all() and b_hdr.shape == (BIG_H, BIG_W, 3),
               f"big_room {mode}: image not finite")
         check(float(b_hdr.mean()) > 0.001, f"big_room {mode}: image is black ({b_hdr.mean()})")
-        check(all(b_launches[n] == 0 for n in ("trace_closest", "trace_any", *mega, *tracers)),
+        check(all(b_launches[n] == 0 for n in ("trace_closest", "trace_any", *mega, *tracers,
+                                               *ad, *subk)),
               f"big_room {mode} launched a kernel of another path: {b_launches}")
         for n in large:
             check(b_launches[n] > 0, f"kernel {n} was never launched on the big_room path")
@@ -733,7 +815,8 @@ def main() -> int:
               f"big_room tracer={tracer}: image not finite")
         check(float(e_hdr.mean()) > 0.001, f"big_room tracer={tracer}: image is black")
         mine = [n for n in tracers if n.endswith(tracer)]
-        others = [n for n in (*dense, *mega, *tracers) if n not in mine and n != "gather_rows"]
+        others = [n for n in (*dense, *mega, *tracers, *ad, *subk)
+                  if n not in mine and n != "gather_rows"]
         check(all(e_launches[n] == 0 for n in (*others, "trace_closest_frontier",
                                                 "trace_any_frontier")),
               f"big_room tracer={tracer} launched a kernel of another path: {e_launches}")
@@ -812,6 +895,121 @@ def main() -> int:
         f"first hits equal {f_tri:.5f}, pixels close/mean rel " + ", ".join(report)
         + f" ({time.perf_counter() - t0:.1f} s for the four passes)")
     del out_c, out_b, out_p, out_f
+
+    # ---- 4f. the differentiable pass: AD train steps (bench.py:152-163) ----
+    bwd_calls = {"cornell": [], "big_room": []}
+
+    def bwd_recorder(key):
+        def wrapper(g, idx, rows):
+            bwd_calls[key].append((g, idx, rows))
+            return gather_rows_bwd(g, idx, rows)
+        return wrapper
+
+    gather_rows_bwd = gather_mod.gather_rows_bwd
+
+    def ad_step(view, opts, res_x, res_y, inst):
+        """One AD train step: (loss, forward rays, d loss / d diffuse (M, 3),
+        the adjoint d loss / d composited). The diffuse albedos are a leaf
+        (M, 3) tensor; loss = MSE against a zero target."""
+        leaf = view.mesh.materials.diffuse.stack().detach().clone().requires_grad_(True)
+        mats = view.mesh.materials._replace(diffuse=Vec3(leaf[:, 0], leaf[:, 1], leaf[:, 2]))
+        out = pt.render_pass(view._replace(mesh=view.mesh._replace(materials=mats)), opts,
+                             res_x, res_y, inst, 0)
+        img = out.composited.stack()
+        loss = torch.mean(img ** 2)
+        loss.backward()
+        return loss.detach(), out.rays, leaf.grad, (2.0 * img / img.numel()).detach()
+
+    def timed_steps(view, opts, res_x, res_y, steps, first_inst):
+        """Best wall time of `steps` synced AD steps, its forward rays, the
+        last step's (instance, gradient, adjoint), the peak device memory."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        best, rays, last = float("inf"), 0.0, None
+        for k in range(steps):
+            t0 = time.perf_counter()
+            _, rays_v, grad, adj = ad_step(view, opts, res_x, res_y, first_inst + k)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if dt < best:
+                best, rays = dt, float(rays_v)
+            last = (first_inst + k, grad, adj)
+        return best, rays, last, torch.cuda.max_memory_allocated(dev)
+
+    adr = {}
+    a_opts = pt.PTOptions(**ctx.renderer_options)
+    ad_step(ctx.view, a_opts, RES, RES, 1)  # warm-up
+    reset_counts()
+    a_best, a_rays, (a_inst, a_grad, a_adj), a_peak = timed_steps(ctx.view, a_opts, RES, RES,
+                                                                  1, 2)
+    a_launches = counts()
+    check(a_launches["gather_rows_bwd"] > 0 and all(a_launches[n] > 0 for n in dense),
+          f"the CornellBox AD step did not launch K1, K2 and K2b: {a_launches}")
+    check(all(a_launches[n] == 0 for n in (*mega, *large, *tracers, *subk)),
+          f"the CornellBox AD step launched a kernel of another path: {a_launches}")
+    g3 = pt_mega.render_grad_diffuse_mega(ctx.view, a_opts, RES, RES, a_inst, a_adj, 0)
+    torch.cuda.synchronize()
+    a_scale, a_err = float(g3.abs().max()), float((a_grad - g3).abs().max())
+    check(bool(torch.isfinite(a_grad).all()) and a_scale > 0.0 and a_err <= 1e-3 * a_scale,
+          f"CornellBox AD gradient vs K3b: max err {a_err} vs max|g| {a_scale}")
+    with patched([(gather_mod, "gather_rows_bwd", bwd_recorder("cornell"))]):
+        ad_step(ctx.view, a_opts, RES, RES, a_inst)  # K2b's inputs for phase 6
+    adr["cornell"] = dict(ms=a_best * 1e3, mrays=a_rays / a_best / 1e6, peak=a_peak,
+                          launches=a_launches)
+    log(f"[4f AD] CornellBox glossy {RES}x{RES} mpl={MPL} dense pass under autograd, MSE vs 0, "
+        f"d/d diffuse (M, 3): {a_best * 1e3:.2f} ms/step, train {a_rays / a_best / 1e6:.3f} "
+        f"Mrays/s ({a_rays:.0f} forward rays), peak memory {a_peak / 2 ** 30:.2f} GiB, on "
+        f"{smi}; gradient vs K3b on the same instance ({a_inst}) and adjoint: max |g - K3b| "
+        f"{a_err:.3g} = {a_err / a_scale:.2e} of max|g| {a_scale:.4g}; launches in the step: "
+        f"{ {n: c for n, c in a_launches.items() if c} }")
+    del g3
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ad_step(bview, bopts, BIG_W, BIG_H, 1)  # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reset_counts()
+    b_best, b_rays, (_, b_grad, _), b_peak = timed_steps(bview, bopts, BIG_W, BIG_H, 2, 2)
+    b_launches = counts()
+    check(b_launches["gather_rows_bwd"] > 0 and b_launches["gather_rows"] > 0
+          and all(b_launches[n] > 0 for n in large),
+          f"the big_room AD step did not launch K2, K2b, K4 and K5: {b_launches}")
+    check(all(b_launches[n] == 0 for n in ("trace_closest", "trace_any", *mega, *tracers,
+                                           *subk)),
+          f"the big_room AD step launched a kernel of another path: {b_launches}")
+    check(bool(torch.isfinite(b_grad).all()) and float(b_grad.abs().max()) > 0.0,
+          "big_room AD gradient is not finite or is zero")
+    from torch.profiler import ProfilerActivity, profile
+    with patched([(gather_mod, "gather_rows_bwd", bwd_recorder("big_room"))]):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ad_step(bview, bopts, BIG_W, BIG_H, 4)
+            torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if _on_device(e):
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.self_device_time_total, c + 1)
+    b_busy = sum(t for t, _ in by_name.values()) / 1e3
+    b_kern = sum(c for _, c in by_name.values())
+    b_top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    b_ms = b_best * 1e3
+    adr["big_room"] = dict(ms=b_ms, mrays=b_rays / b_best / 1e6, peak=b_peak,
+                           launches=b_launches, busy_ms=b_busy, kernels=b_kern,
+                           idle=1 - b_busy / b_ms)
+    per_step = {n: c / 2 for n, c in b_launches.items() if c}
+    log(f"[4f AD] big_room({BIG_BOXES}) {BIG_W}x{BIG_H} mpl={MPL} frontier pass under "
+        f"autograd, MSE vs 0, d/d diffuse ({b_grad.shape[0]}, 3): {b_ms:.2f} ms/step (best of "
+        f"2; warm-up step {warm_s * 1e3:.0f} ms), train {b_rays / b_best / 1e6:.3f} Mrays/s "
+        f"({b_rays:.0f} forward rays), peak memory {b_peak / 2 ** 30:.2f} GiB, on {smi}; "
+        f"launches per step: {per_step} (K2b {per_step.get('gather_rows_bwd', 0):g}); "
+        f"max|g| {float(b_grad.abs().max()):.4g}")
+    log(f"[4f AD] big_room: one step under torch.profiler: {b_kern} device kernels, device busy "
+        f"{b_busy:.2f} ms of the {b_ms:.2f} ms step (idle share {1 - b_busy / b_ms:.3f}); top "
+        "by device time: " + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}"
+                                        for n, (t, c) in b_top))
+    del b_grad, prof
+    torch.cuda.empty_cache()
 
     # ---- 5. parity on the card ----
     opts = pt.PTOptions(**ctx.renderer_options)
@@ -1445,9 +1643,182 @@ def main() -> int:
                f"{a['split']['test'] / nc:.2f} ms, other {a['split']['other'] / nc:.2f} ms; wall "
                f"{a['wall_ms'] / nc:.1f} ms" if tracer == "binned" else ""))
 
+    # K2b at the inputs of the 4f steps (the recorded step of each scene):
+    # each launch held to its plain version within BWD_RTOL, then timed with
+    # the plain version and index_add_ into fresh zeros (the backward of
+    # index_select); bound: bytes (idx and the cotangent in, d_table out)
+    def bwd_timing(key):
+        a = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0, rel=0.0)
+        shapes, timers = set(), set()
+        for g, idx, rows in bwd_calls[key]:
+            n, k = g.shape
+            idx64 = idx.long()
+            f_k = lambda: gather_mod.gather_rows_bwd(g, idx, rows)
+            f_p = lambda: gather_mod._gather_bwd_plain(g, idx, rows)
+            f_l = lambda: torch.zeros((rows, k), device=dev).index_add_(0, idx64, g)
+            got, want = f_k(), f_p()
+            scale = gather_mod._gather_bwd_plain(g.abs(), idx, rows)
+            torch.cuda.synchronize()
+            rel = float(((got - want).abs() / scale.clamp_min(1e-30)).max())
+            check(rel <= gather_mod.BWD_RTOL,
+                  f"gather_rows_bwd at the {key} AD step's inputs: {rel:.3g} of sum|g| from plain")
+            a["err"] = max(a["err"], float((got - want).abs().max()))
+            a["rel"] = max(a["rel"], rel)
+            m, tm = device_ms(f_k)
+            a["ms"] += m
+            timers.add(tm)
+            a["plain_ms"] += device_ms(f_p, reps=5)[0]
+            a["library_ms"] += device_ms(f_l)[0]
+            a["bound_ms"] += (4 * n + 4 * n * k + 4 * rows * k) / bw * 1e3
+            shapes.add(f"cotangent {n}x{k} into {rows} rows "
+                       f"({'shared-memory' if gather_mod.bwd_slices(rows, k) else 'atomic'} mode)")
+        nc = len(bwd_calls[key])
+        check(nc > 0, f"gather_rows_bwd: no launch captured in the {key} AD step")
+        out = {k: (v / nc if k.endswith("ms") else v) for k, v in a.items()}
+        out.update(n=nc, timer="+".join(sorted(timers)), shapes=sorted(shapes))
+        log(f"[6 timing] gather_rows_bwd at the {key} AD step: {out['ms'] * 1e3:.1f} us/launch "
+            f"(plain {out['plain_ms'] * 1e3:.1f} us, index_add_ {out['library_ms'] * 1e3:.1f} us, "
+            f"bound {out['bound_ms'] * 1e3:.2f} us by bytes) over its {nc} launches, each within "
+            f"BWD_RTOL of its plain version (max abs err {a['err']:.3g}, {a['rel']:.3g} of "
+            f"sum|g|); {sorted(shapes)}")
+        return out
+
+    bwd_c, bwd_b = bwd_timing("cornell"), bwd_timing("big_room")
+    del bwd_calls
+    max_err["gather_rows_bwd"] = bwd_c["err"]
+    kern = ad["gather_rows_bwd"]
+    rows.append({
+        "name": "gather_rows_bwd", "route": "cuda",
+        "source": f"fermat_tpu_torch/ops/csrc/{kern.source}",
+        "replaces": kern.replaces,
+        "launches": adr["cornell"]["launches"]["gather_rows_bwd"],
+        "launches_per_step": adr["cornell"]["launches"]["gather_rows_bwd"],
+        "max_abs_err": bwd_c["err"], "max_abs_err_vs_plain": bwd_c["err"],
+        "max_err_over_sum_abs_g": bwd_c["rel"], "tolerance_over_sum_abs_g": gather_mod.BWD_RTOL,
+        "ms": bwd_c["ms"], "plain_ms": bwd_c["plain_ms"], "bound_ms": bwd_c["bound_ms"],
+        "bound_by": "bytes", "library_ms": bwd_c["library_ms"],
+        "us_per_launch": bwd_c["ms"] * 1e3, "timer": bwd_c["timer"], "shapes": bwd_c["shapes"],
+        "at_big_room": {
+            "launches": adr["big_room"]["launches"]["gather_rows_bwd"],
+            "launches_per_step": adr["big_room"]["launches"]["gather_rows_bwd"] / 2,
+            **{k: bwd_b[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "shapes")},
+            "max_abs_err": bwd_b["err"], "max_err_over_sum_abs_g": bwd_b["rel"]},
+    })
+
+    # K8 through its entry points at the rays of every K5 launch of the
+    # monolithic big_room pass recorded above: the subcluster tracer is not
+    # routed by render_pass, so this is its path. Every launch is held
+    # bit-equal to the plain answer K5 was held to (the same function) and
+    # timed; the bound counts 46 flops a test over K8's own leaves, K5's
+    # beside it. K8's own plain version (K5's over the subcluster table)
+    # runs at the first launch of each kind only (bounce 0, every lane
+    # active), with 4x larger chunks than its default: at every launch it
+    # took 640 s of host loop under the profiler. plain_ms is that launch's,
+    # beside K8's time and bound at the same launch
+    reset_counts()
+    sub_out = {"closest": [], "any": []}
+    for kind in ("closest", "any"):
+        for cl, o, d, tmin, tmax, active in lcalls[f"trace_{kind}_frontier"]:
+            f = st.trace_closest_sub if kind == "closest" else st.trace_any_sub
+            sub_out[kind].append(f(sub_room, o, d, tmin, tmax, active))
+    torch.cuda.synchronize()
+    sub_launches = counts()
+    check(all(sub_launches[n] == MPL for n in subk),
+          f"K8 at the big_room pass's rays: {sub_launches} launches for {MPL} bounces")
+    sub_table = 4 * (sub_room.rows.numel() + sub_room.count.numel() + 6 * sub_room.lo_x.shape[1])
+    for kind in ("closest", "any"):
+        kname = f"trace_{kind}_sub"
+        a = dict(ms=0.0, bound=0.0, by_bytes=0.0, by_ops=0.0, k5=0.0, err=0.0, need=0.0,
+                 ent=0.0)
+        timers = set()
+        t0 = time.perf_counter()
+        for k, (args, k5, got) in enumerate(zip(lcalls[f"trace_{kind}_frontier"],
+                                                k5_plain[f"trace_{kind}_frontier"],
+                                                sub_out[kind])):
+            _, o, d, tmin, tmax, active = args
+            n = o.x.shape[0]
+            tmin_l, tmax_l = lanes(tmin, n), lanes(tmax, n)
+            if kind == "closest":
+                f_k = lambda: st.trace_closest_sub(sub_room, o, d, tmin, tmax, active)
+                f_p = lambda: ft._closest_plain(sub_room, o, d, tmin_l, tmax_l, active)
+                t5, tri5 = k5["want"]
+                check(torch.equal(got.tri, tri5) and torch.equal(bits(got.t), bits(t5)),
+                      "trace_closest_sub at the big_room pass's rays: differs from K5's answer")
+                need, ent = needed_tests(sub_room, o, d, tmin_l, tmax_l, active, t5)
+                byt = n * (33 + 8) + sub_table
+            else:
+                f_k = lambda: st.trace_any_sub(sub_room, o, d, tmin, tmax, active)
+                f_p = lambda: ft._any_plain(sub_room, o, d, tmin_l, tmax_l, active)
+                check(torch.equal(got, k5["want"]),
+                      "trace_any_sub at the big_room pass's rays: differs from K5's answer")
+                need, ent = needed_tests(sub_room, o, d, tmin_l, tmax_l, active, None, k5["want"])
+                byt = n * (33 + 1) + sub_table
+            if k == 0:  # K8's own plain version at the first launch
+                with patched([(ft, "_CHUNK_ELEMS", 4 * ft._CHUNK_ELEMS)]):
+                    want, p_ms, _ = profiled(f_p)
+                torch.cuda.synchronize()
+                if kind == "closest":
+                    same = torch.equal(got.tri, want[1]) and torch.equal(bits(got.t),
+                                                                         bits(want[0]))
+                    a["err"] = max(a["err"], float((got.t - want[0]).abs().max()))
+                else:
+                    same = torch.equal(got, want)
+                    a["err"] = max(a["err"], float((got != want).sum()))
+                check(same, f"{kname} at the big_room pass's rays: differs from its plain")
+                del want
+            m, tm = device_ms(f_k, reps=5)
+            a["ms"] += m
+            timers.add(tm)
+            b_bytes, b_ops = byt / bw * 1e3, need * FLOPS_PER_TEST / fp32 * 1e3
+            if k == 0:
+                first = dict(ms=m, plain_ms=p_ms, bound_ms=max(b_bytes, b_ops),
+                             k5_bound_ms=max(k5["b_bytes"], k5["b_ops"]))
+            a["bound"] += max(b_bytes, b_ops)
+            a["by_bytes"] += b_bytes
+            a["by_ops"] += b_ops
+            a["k5"] += max(k5["b_bytes"], k5["b_ops"])
+            a["need"] += need
+            a["ent"] += ent
+        nc = len(sub_out[kind])
+        max_err[kname] = a["err"]
+        kern = subk[kname]
+        row = {
+            "name": kname, "route": "cuda",
+            "source": f"fermat_tpu_torch/ops/csrc/{kern.source}",
+            "replaces": kern.replaces,
+            "launches": sub_launches[kname],
+            "launches_per_pass_of_rays": sub_launches[kname],
+            "max_abs_err": a["err"], "max_abs_err_vs_plain": a["err"],
+            "ms": a["ms"] / nc, "plain_ms": first["plain_ms"], "bound_ms": a["bound"] / nc,
+            "bound_by": "bytes" if a["by_bytes"] >= a["by_ops"] else "operations",
+            "library_ms": None,
+            "us_per_launch": a["ms"] / nc * 1e3,
+            "timer": "+".join(sorted(timers)),
+            "shapes": [f"{lcalls[f'trace_{kind}_frontier'][0][1].x.shape[0]} rays x "
+                       f"{sub_room.n_subclusters} subclusters"],
+            "plain_ms_at": "the first launch (bounce 0)",
+            "at_first_launch": first,
+            "k5_bound_ms_same_rays": a["k5"] / nc,
+            "subclusters_needed_per_launch": a["ent"] / nc,
+            "tests_needed_per_launch": a["need"] / nc,
+        }
+        rows.append(row)
+        log(f"[6 timing] {kname}: {a['ms'] / nc * 1e3:.1f} us/launch (bound "
+            f"{a['bound'] / nc * 1e3:.2f} us by {row['bound_by']} over K8's leaves: "
+            f"{a['ent'] / nc:.0f} subcluster entries and {a['need'] / nc:.0f} ray-triangle tests "
+            f"needed per launch; K5's bound on the same rays {a['k5'] / nc * 1e3:.2f} us) over "
+            f"the {nc} K5 launches' rays of one big_room pass, each equal to K5's answer; at the "
+            f"first launch {first['ms'] * 1e3:.1f} us, plain {first['plain_ms'] * 1e3:.1f} us, "
+            f"bound {first['bound_ms'] * 1e3:.2f} us (K5's {first['k5_bound_ms'] * 1e3:.2f} us), "
+            f"equal to K8's plain version (max abs err {a['err']:.3g}); "
+            f"{time.perf_counter() - t0:.1f} s for the phase")
+
     log("[summary] big_room " + "; ".join(
         f"{m}: {v['ms']:.2f} ms/pass, {v['mrays']:.3f} Mrays/s, {v['kernels']} device kernels, "
-        f"idle {v['idle']:.3f}" for m, v in big.items()))
+        f"idle {v['idle']:.3f}" for m, v in big.items())
+        + f"; AD step (frontier): {adr['big_room']['ms']:.2f} ms/step, "
+          f"{adr['big_room']['mrays']:.3f} train Mrays/s, peak {adr['big_room']['peak'] / 2 ** 30:.2f}"
+          f" GiB, idle {adr['big_room']['idle']:.3f}")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

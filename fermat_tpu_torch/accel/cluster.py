@@ -10,6 +10,14 @@ boxes as (1, Cp) rows with Cp rounded up to 128 and inverted (+big, -big)
 padding boxes. For the same mesh these are bit-equal to the JAX package's.
 The table stays on the host; the device holds the row copy below.
 
+`build_subclusters` makes the table of the subcluster tracer (K8,
+ops/sub_trace.py) the same way at 32 triangles a leaf
+(cluster.py:77-182): binned-SAH leaves of at most 32, no group padding,
+per-subcluster boxes as (1, Cs) rows with Cs rounded up to 128, bit-equal
+to the JAX package's leaves, slot order and boxes. The JAX package stores
+every subcluster's tile at four lane phases ((Ns * 4, 16, 128)) because a
+Mosaic lane tile is 128 wide; the port stores each once, as rows.
+
 The port's tracers read three more things built here, which the JAX
 package does not have: the triangles of each cluster as (C_pad, 128, 12)
 rows (one 48-byte row per triangle) and the number of real triangles per
@@ -32,6 +40,7 @@ Tensor = torch.Tensor
 
 DENSE_MAX_TRIANGLES = 4096  # tracer="auto" traces larger scenes over the cluster table
 CLUSTER = 128  # triangles per cluster
+SUB = 32  # triangles per subcluster
 GROUP = 8  # clusters per group (pads the cluster count)
 SAH_MERGE = 1.4  # union-area gate of the DFS merge
 MAX_DEPTH = 60  # the kernel's per-thread stack holds MAX_DEPTH + 2 entries
@@ -56,6 +65,35 @@ class ClusterView(NamedTuple):
 
     def boxes(self) -> Tensor:
         """(6, Cp) lo xyz, hi xyz rows."""
+        return torch.cat([self.lo_x, self.lo_y, self.lo_z, self.hi_x, self.hi_y, self.hi_z])
+
+
+class SubclusterView(NamedTuple):
+    """The subcluster table (cluster.py:77-113): per-subcluster boxes, the
+    triangles of each subcluster as (Ns, 32, 12) rows (p0 e1 e2 xyz,
+    original id, 0, 0; padding slots zero with id -1), the number of real
+    triangles per subcluster, and the original-order soup. The field names
+    are ClusterView's, so the plain versions of ops/frontier_trace.py read
+    either table."""
+
+    lo_x: Tensor  # (1, Cs) per-subcluster boxes; padding boxes inverted
+    lo_y: Tensor
+    lo_z: Tensor
+    hi_x: Tensor
+    hi_y: Tensor
+    hi_z: Tensor
+    rows: Tensor  # (Ns, 32, 12) f32
+    count: Tensor  # (Ns,) int32 real triangles per subcluster (a prefix)
+    p0: Vec3
+    e1: Vec3
+    e2: Vec3
+
+    @property
+    def n_subclusters(self) -> int:
+        return self.rows.shape[0]
+
+    def boxes(self) -> Tensor:
+        """(6, Cs) lo xyz, hi xyz rows."""
         return torch.cat([self.lo_x, self.lo_y, self.lo_z, self.hi_x, self.hi_y, self.hi_z])
 
 
@@ -152,31 +190,20 @@ def _top_level(c_lo: np.ndarray, c_hi: np.ndarray):
     return np.concatenate([bvh.lo, bvh.hi], axis=1).astype(np.float32), ref
 
 
-def build_clusters(mesh_view, method: str = "sah") -> ClusterView:
-    """Partition the mesh's triangles into clusters (cluster.py:243-371).
-
-    method: "sah" (binned-SAH leaves + greedy DFS merge; the JAX package's
-    default), "median" (longest-axis median split) or "morton" (128
-    consecutive triangles of the morton order)."""
+def _soup(mesh_view):
+    """(p0, e1, e2, centroids) of the mesh as (T, 3) float32 host arrays."""
     h = lambda t: t.detach().cpu().numpy()
     v3 = lambda v: np.stack([h(v.x), h(v.y), h(v.z)], axis=1)
     p0, e1, e2 = v3(mesh_view.p0), v3(mesh_view.e1), v3(mesh_view.e2)
-    v1 = p0 + e1
-    v2 = p0 + e2
-    cent = (p0 + v1 + v2) / 3.0
-    if method == "sah":
-        leaves = _sah_leaves(p0, e1, e2, cent)
-    elif method == "median":
-        leaves = _median_leaves(cent)
-    elif method == "morton":
-        leaves = _morton_leaves(cent)
-    else:
-        raise ValueError(f"cluster method {method!r}")
+    return p0, e1, e2, (p0 + (p0 + e1) + (p0 + e2)) / 3.0
 
-    n_clusters = len(leaves)
-    c_pad = -(-n_clusters // GROUP) * GROUP
-    tp = c_pad * CLUSTER
-    slot = np.full((c_pad, CLUSTER), -1, np.int64)
+
+def _pack(leaves: list, n_rows: int, width: int, p0, e1, e2):
+    """The leaves in slots of `width`, n_rows rows (the rows past the leaves
+    empty): the ten component rows p0xyz e1xyz e2xyz id, each flat
+    (n_rows * width,), and the (n_rows, 3) lo / hi boxes over each row's
+    real triangles (+big / -big where it has none)."""
+    slot = np.full((n_rows, width), -1, np.int64)
     for i, leaf in enumerate(leaves):
         slot[i, : leaf.size] = leaf
     flat = slot.reshape(-1)
@@ -190,9 +217,6 @@ def build_clusters(mesh_view, method: str = "sah") -> ClusterView:
              comp(e1[:, 0]), comp(e1[:, 1]), comp(e1[:, 2]),
              comp(e2[:, 0]), comp(e2[:, 1]), comp(e2[:, 2]),
              np.where(valid, flat, -1).astype(np.float32)]
-    comps = comps + [np.zeros(tp, np.float32)] * 6
-    tri = np.stack([c.reshape(c_pad, CLUSTER) for c in comps], axis=1)
-
     p0p = np.stack(comps[0:3], 1)
     e1p = np.stack(comps[3:6], 1)
     e2p = np.stack(comps[6:9], 1)
@@ -200,13 +224,60 @@ def build_clusters(mesh_view, method: str = "sah") -> ClusterView:
     v2p = p0p + e2p
     mins = np.where(valid[:, None], np.minimum(np.minimum(p0p, v1p), v2p), _BIG)
     maxs = np.where(valid[:, None], np.maximum(np.maximum(p0p, v1p), v2p), -_BIG)
-    c_lo = mins.reshape(c_pad, CLUSTER, 3).min(axis=1)
-    c_hi = maxs.reshape(c_pad, CLUSTER, 3).max(axis=1)
-    cp = -(-c_pad // 128) * 128
-    c_lo = np.concatenate([c_lo, np.full((cp - c_pad, 3), _BIG, np.float32)])
-    c_hi = np.concatenate([c_hi, np.full((cp - c_pad, 3), -_BIG, np.float32)])
-    boxes = np.concatenate([c_lo, c_hi], axis=1).T.astype(np.float32)
-    return cluster_view(tri, boxes, mesh_view)
+    return (comps, mins.reshape(n_rows, width, 3).min(axis=1),
+            maxs.reshape(n_rows, width, 3).max(axis=1))
+
+
+def _box_rows(c_lo: np.ndarray, c_hi: np.ndarray) -> np.ndarray:
+    """(6, C rounded up to 128) lo xyz, hi xyz rows, inverted padding."""
+    n = c_lo.shape[0]
+    cp = -(-n // 128) * 128
+    c_lo = np.concatenate([c_lo, np.full((cp - n, 3), _BIG, np.float32)])
+    c_hi = np.concatenate([c_hi, np.full((cp - n, 3), -_BIG, np.float32)])
+    return np.concatenate([c_lo, c_hi], axis=1).T.astype(np.float32)
+
+
+def build_subclusters(mesh_view) -> SubclusterView:
+    """The subcluster table of the mesh (cluster.py:116-182): SAH leaves of
+    at most 32 triangles, on the mesh view's device."""
+    p0, e1, e2, cent = _soup(mesh_view)
+    leaves = _sah_leaves(p0, e1, e2, cent, max_size=SUB)
+    ns = len(leaves)
+    comps, c_lo, c_hi = _pack(leaves, ns, SUB, p0, e1, e2)
+    zero = np.zeros_like(comps[0])
+    rows = np.stack(comps + [zero, zero], axis=1).reshape(ns, SUB, 12)
+    boxes = _box_rows(c_lo, c_hi)
+    dev = mesh_view.p0.x.device
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    row = lambda k: t(boxes[k].reshape(1, -1))
+    return SubclusterView(
+        lo_x=row(0), lo_y=row(1), lo_z=row(2), hi_x=row(3), hi_y=row(4), hi_z=row(5),
+        rows=t(rows), count=t((rows[:, :, 9] >= 0.0).sum(axis=1).astype(np.int32)),
+        p0=mesh_view.p0, e1=mesh_view.e1, e2=mesh_view.e2,
+    )
+
+
+def build_clusters(mesh_view, method: str = "sah") -> ClusterView:
+    """Partition the mesh's triangles into clusters (cluster.py:243-371).
+
+    method: "sah" (binned-SAH leaves + greedy DFS merge; the JAX package's
+    default), "median" (longest-axis median split) or "morton" (128
+    consecutive triangles of the morton order)."""
+    p0, e1, e2, cent = _soup(mesh_view)
+    if method == "sah":
+        leaves = _sah_leaves(p0, e1, e2, cent)
+    elif method == "median":
+        leaves = _median_leaves(cent)
+    elif method == "morton":
+        leaves = _morton_leaves(cent)
+    else:
+        raise ValueError(f"cluster method {method!r}")
+
+    c_pad = -(-len(leaves) // GROUP) * GROUP
+    comps, c_lo, c_hi = _pack(leaves, c_pad, CLUSTER, p0, e1, e2)
+    comps = comps + [np.zeros(c_pad * CLUSTER, np.float32)] * 6
+    tri = np.stack([c.reshape(c_pad, CLUSTER) for c in comps], axis=1)
+    return cluster_view(tri, _box_rows(c_lo, c_hi), mesh_view)
 
 
 def cluster_view(tri: np.ndarray, boxes: np.ndarray, mesh_view) -> ClusterView:

@@ -314,9 +314,13 @@ def sample(p: BsdfParams, wi: Vec3, u0, u1, u2, lobes=ALL_LOBES,
         wo = Vec3(torch.where(is_cc, -wi.x, wo.x), torch.where(is_cc, -wi.y, wo.y),
                   torch.where(is_cc, wi.z, wo.z))
 
+    # detached sampling (composite.py:425-427): the sampled direction and the
+    # mixture pdf are constants of the estimator, gradients flow through f
+    wo = Vec3(wo.x.detach(), wo.y.detach(), wo.z.detach())
     fv, mix_pdf = f_and_pdf(p, wi, wo, lobes, clearcoat, glossy, e_fn)
     # glossy-trans TIR lanes have pdf 0
     mix_pdf = torch.where(is_gt & (pdf_gt_s <= 0.0), 0.0, mix_pdf)
+    mix_pdf = mix_pdf.detach()  # composite.py:432
     valid = mix_pdf > 1e-12
     inv_pdf = torch.where(valid, 1.0 / torch.where(valid, mix_pdf, 1.0), 0.0)
     cos_o = torch.abs(wo.z)

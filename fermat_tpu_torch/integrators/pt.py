@@ -19,8 +19,19 @@ same table at any size and return the barycentrics themselves.
 tracer="mega" runs the whole pass as one kernel launch (ops/pt_mega.py).
 `NarrowPass` runs the same bounces with live lanes compacted between them.
 
-Runs under torch.no_grad(): autograd through the pass (the `.detach()`
-counterparts of pt.py:227-255) belongs to the differentiable slice.
+`render_pass` follows the caller's grad mode. Under torch.enable_grad(),
+with material tensors of the view that require grad (`materials.diffuse`,
+`materials.roughness`, ... as leaf tensors, see SceneView.from_numpy), the
+image is differentiable in them through torch.autograd: the detached
+estimator of the JAX package (GRADIENTS.md), with a `.detach()` at each of
+its stop_gradient sites. Geometry, ray directions, hit distances, sampling
+pdfs, MIS weights and the Russian-roulette probability carry no gradient;
+the tracers run on detached inputs. The shade fetch's backward is K2's
+(ops/gather.py). RenderingContext, NarrowPass and render_pass_narrow run
+under torch.no_grad(); tracer="mega" raises when a material tensor
+requires grad (its gradient is ops/pt_mega.render_grad_diffuse_mega), and
+so does an emissive tensor that requires grad (NEE samples a light table
+built on the host).
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
+from fermat_tpu_torch.accel.traverse import Hit
 from fermat_tpu_torch.bsdf.composite import GLOSSY_REFL, BsdfParams, f_split
 from fermat_tpu_torch.bsdf.composite import sample as bsdf_sample
 from fermat_tpu_torch.core.camera import generate_camera_rays
@@ -116,11 +128,31 @@ class _Tracers(NamedTuple):
     uv_from_ray: bool  # closest returns no barycentrics (shade_fetch_ray)
 
 
+def _detach_args(o: Vec3, d: Vec3, tmin, tmax, active):
+    """The tracer boundary's inputs detached (pt.py:227-244, _detach_rays
+    and _detach_args): traversal carries no gradient."""
+    dt = lambda a: a.detach() if isinstance(a, Tensor) else a
+    return (Vec3(*(c.detach() for c in o)), Vec3(*(c.detach() for c in d)), dt(tmin),
+            dt(tmax), dt(active))
+
+
+def _detach_hit(h: Hit) -> Hit:
+    """The tracer's hit detached on the way out (pt.py:247-255, _detach_hit)."""
+    return Hit(t=h.t.detach(), tri=h.tri, u=h.u.detach(), v=h.v.detach())
+
+
 def _pick_tracers(view: SceneView, opts: PTOptions) -> _Tracers:
-    """The pass's closest and shadow tracers (pt.py:304-354). The module's
-    tracer names are looked up at call time, so a caller can swap them. The
-    cluster and binned tracers return the winner's u, v from the kernel, as
-    in JAX (pt.py:311-325 sets no uv_from_ray)."""
+    """The pass's closest and shadow tracers (pt.py:304-354), with detached
+    inputs and hits. The module's tracer names are looked up at call time,
+    so a caller can swap them. The cluster and binned tracers return the
+    winner's u, v from the kernel, as in JAX (pt.py:311-325 sets no
+    uv_from_ray)."""
+    closest, anyhit, uv_from_ray = _raw_tracers(view, opts)
+    return _Tracers(lambda *a: _detach_hit(closest(*_detach_args(*a))),
+                    lambda *a: anyhit(*_detach_args(*a)), uv_from_ray)
+
+
+def _raw_tracers(view: SceneView, opts: PTOptions) -> _Tracers:
     mode = _trace_mode(view.mesh.n_triangles, opts, view.clusters is not None)
     cl = view.clusters
     if mode == "frontier":
@@ -144,7 +176,7 @@ def _sample_lights_compact(compact: Tuple[Tensor, Tensor], ul0: Tensor, ul1: Ten
     the row fetch are one K4 call; the same triangle as a pick over all rows.
     Returns (pos, n, Le, pdf_area)."""
     rows, cdf = compact
-    r = cdf_pick_rows(rows, cdf, ul2)
+    r = cdf_pick_rows(rows, cdf, ul2.detach()).detach()  # pt.py:195-196
     b0, b1 = square_to_uniform_triangle(ul0, ul1)
     vec = lambda ci: Vec3(r[:, ci], r[:, ci + 1], r[:, ci + 2])
     p0, e1, e2, nrm, le = vec(0), vec(3), vec(6), vec(9), vec(12)
@@ -295,7 +327,9 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
             cos_l = torch.abs(dot(gn, wi))
             pdf_sa = pdf_area * dist2 / torch.clamp_min(cos_l, 1e-8)
             nee_mask = opts.direct_lighting_nee if is_direct else opts.indirect_lighting_nee
-            w_mis = power_heuristic(c.prev_pdf, pdf_sa) if nee_mask else torch.ones_like(pdf_sa)
+            # pt.py:761
+            w_mis = (power_heuristic(c.prev_pdf, pdf_sa).detach() if nee_mask
+                     else torch.ones_like(pdf_sa))
             show_mask = opts.direct_lighting_bsdf if is_direct else opts.indirect_lighting_bsdf
             w_mis = w_mis * float(show_mask)
         contrib = Vec3(c.thr.x * le.x * w_mis, c.thr.y * le.y * w_mis, c.thr.z * le.z * w_mis)
@@ -318,9 +352,11 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
         wo_loc = to_local(wo, t_b, b_b, sn_f)
         fd, fg, bsdf_pdf = f_split(params, wi_loc, wo_loc, opts.lobes, opts.clearcoat,
                                    opts.glossy_model)
-        pdf_sa = lpdf_a * dist2 / torch.clamp_min(torch.abs(cos_l), 1e-8)
+        pdf_sa = (lpdf_a * dist2 / torch.clamp_min(torch.abs(cos_l), 1e-8)).detach()  # pt.py:841
         bsdf_on = opts.direct_lighting_bsdf if first else opts.indirect_lighting_bsdf
-        w_mis = power_heuristic(pdf_sa, bsdf_pdf) if bsdf_on else torch.ones_like(pdf_sa)
+        # pt.py:846
+        w_mis = (power_heuristic(pdf_sa, bsdf_pdf).detach() if bsdf_on
+                 else torch.ones_like(pdf_sa))
         cos_s = torch.abs(wo_loc.z)
         able = (valid & view.lights.has_lights & (cos_l > 1e-6) & (pdf_sa > 1e-12)
                 & ((fd.x + fd.y + fd.z + fg.x + fg.y + fg.z) > 0.0))
@@ -354,7 +390,7 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
     if opts.rr and not first and b >= opts.rr_start_bounce:
         u_rr = seq.sample_1d(c.pix_u, (base_dim + 6) & M32)
         q = torch.clamp(torch.maximum(torch.maximum(new_thr.x, new_thr.y), new_thr.z),
-                        0.05, 1.0)
+                        0.05, 1.0).detach()  # pt.py:1108
         new_alive = new_alive & (u_rr < q)
         inv_q = 1.0 / q
         new_thr = Vec3(new_thr.x * inv_q, new_thr.y * inv_q, new_thr.z * inv_q)
@@ -428,7 +464,6 @@ def _first_bounce(view: SceneView, opts: PTOptions, st: _PassState, res_x: int,
     return _bounce(0, c, view, opts, *st)
 
 
-@torch.no_grad()
 def render_pass(view: SceneView, opts: PTOptions, res_x: int, res_y: int,
                 instance: int, seed: int = 0,
                 tables: "pt_mega.MegaTables | None" = None):
@@ -440,10 +475,23 @@ def render_pass(view: SceneView, opts: PTOptions, res_x: int, res_y: int,
     then one _bounce per segment on the compacted carry), in place of the
     JAX version's segment hooks (pt.py:484-501)."""
     if _trace_mode(view.mesh.n_triangles, opts, view.clusters is not None) == "mega":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for f in view.mesh.materials
+                for t in (f if isinstance(f, Vec3) else (f,))):
+            raise NotImplementedError(
+                "tracer='mega' is not differentiable through autograd (nor is JAX's Pallas "
+                "megakernel); its gradient is ops/pt_mega.render_grad_diffuse_mega")
         return pt_mega.render_pass_mega(view, opts, res_x, res_y, instance, seed, tables)
     if tables is not None:
         raise ValueError(f"tables are the megakernel's; tracer={opts.tracer!r} takes none")
     _check_options(opts)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in view.mesh.materials.emissive):
+        # the light table that NEE samples is built on the host from the
+        # emissive values (scene/lights.py), so only the emissive-hit half of
+        # the gradient would reach them
+        raise NotImplementedError(
+            "gradients with respect to materials.emissive need the light table built on "
+            "the device from the materials; not ported")
     st = _pass_state(view, opts, instance, seed)
     c = _first_bounce(view, opts, st, res_x, res_y)
     for b in range(1, opts.max_path_length):

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
-  * gather.py — K2, row gather (replaces ops/gather.py:_pallas_onehot_gather)
+  * gather.py — K2, row gather (replaces ops/gather.py:_pallas_onehot_gather),
+    and its backward K2b (replaces the custom VJP _pog_bwd)
   * trace.py  — K1a/K1b, dense closest / any hit (replaces ops/pallas_trace.py)
   * pt_mega.py — K3a/K3b, the whole-pass PT megakernel and its replay
     gradient (replaces ops/pallas_pt_mega.py)
@@ -13,5 +14,7 @@
     block of rays (replaces ops/pallas_cluster_trace.py)
   * binned_trace.py — K7a/K7b, the same function as rounds of per-ray
     visits binned by cluster (replaces ops/pallas_binned_trace.py)
+  * sub_trace.py — K8a/K8b, the same function over 32-triangle leaves,
+    four staged together per step (replaces ops/pallas_sub_trace.py)
   * _cuda.py  — builds csrc/*.cu with nvcc on first use and binds them (ctypes)
 """

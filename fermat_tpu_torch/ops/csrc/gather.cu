@@ -13,6 +13,26 @@
 // block in shared memory when it fits in 48 KB (the path's 36x52 table is
 // 7.5 KB), otherwise read through the read-only cache. An index outside
 // [0, R) yields a zero row, as the padded one-hot does (gather.py:56-72).
+//
+// K2b: its backward, d_table[r, :] = sum of g[n, :] over the lanes n with
+// idx[n] == r (lanes outside [0, R) add nothing). Replaces
+// fermat_tpu/ops/gather.py:_pog_bwd (:84, the custom VJP of the Pallas
+// gather), an XLA matmul of the transposed (N, Rp) one-hot by the
+// cotangent. Here it is a scatter-add. Bound on H100: bytes (idx 4 B and the
+// cotangent 4*K B per lane in, d_table once out). Two modes, chosen by the
+// wrapper (ops/gather.py bwd_slices):
+//   * shared (at most 128 rows, whose partials fit in shared memory; the
+//     CornellBox's 36 x 52): a CTA takes kBwdChunk consecutive lanes; thread (j, k) owns
+//     column k of a private (R, K) partial for lane slice j (lanes j, j + S,
+//     ...), so every add lands in a shared word no other thread writes, in
+//     lane order; the S partials are summed in slice order into a (CTAs, R,
+//     K) buffer, and a second launch sums that over the CTAs in CTA order.
+//     Every sum has a fixed order: deterministic, the same bits every run.
+//     Many lanes land on few rows, and no add waits for another thread's;
+//   * atomic (larger tables; big_room's 99,636 x 52): d_table zeroed, one
+//     global atomicAdd per non-zero cotangent element. The order of the adds
+//     changes from run to run: not deterministic, within float rounding of
+//     the plain version (tolerance in chip_smoke.py phase 3).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,6 +66,92 @@ gather_rows_kernel(const float* __restrict__ table, const int* __restrict__ idx,
   }
 }
 
+
+constexpr int kBwdChunk = 512;  // lanes per CTA (ops/gather.py BWD_CHUNK)
+constexpr int kBwdSmem = 96 * 1024;  // ops/gather.py BWD_SMEM
+constexpr int kUnroll = 8;
+
+// Shared mode, pass 1: the CTA's (R, K) partial of its kBwdChunk lanes into
+// part_out[blockIdx.x]. Threads j * cols + k for j < slices; the rest idle.
+__global__ void gather_bwd_partial_kernel(const float* __restrict__ g,
+                                          const int* __restrict__ idx, int rows, int cols,
+                                          int n, int slices, float* __restrict__ part_out) {
+  extern __shared__ float part[];  // (slices, rows, cols)
+  const int rk = rows * cols;
+  for (int e = threadIdx.x; e < slices * rk; e += blockDim.x) part[e] = 0.0f;
+  __syncthreads();
+  const int j = threadIdx.x / cols;
+  const int k = threadIdx.x - j * cols;
+  if (j < slices) {
+    float* mine = part + j * rk + k;
+    const int lo = blockIdx.x * kBwdChunk;
+    const int hi = min(n, lo + kBwdChunk);
+    // lanes lo + j, lo + j + S, ...: loads of kUnroll lanes in flight, then
+    // their adds in lane order
+    for (int base = lo + j; base < hi; base += kUnroll * slices) {
+      int r[kUnroll];
+      float v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int ln = base + u * slices;
+        r[u] = ln < hi ? __ldg(idx + ln) : -1;
+        v[u] = (r[u] >= 0 && r[u] < rows) ? __ldg(g + static_cast<size_t>(ln) * cols + k)
+                                          : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (r[u] >= 0 && r[u] < rows) mine[r[u] * cols] += v[u];
+      }
+    }
+  }
+  __syncthreads();
+  float* dst = part_out + static_cast<size_t>(blockIdx.x) * rk;
+  for (int e = threadIdx.x; e < rk; e += blockDim.x) {
+    float acc = part[e];
+    for (int s2 = 1; s2 < slices; ++s2) acc += part[s2 * rk + e];
+    dst[e] = acc;
+  }
+}
+
+// Shared mode, pass 2: out[e] = sum over c of part[c, e], c in order. A CTA
+// of 256 threads takes 32 elements; thread (q, el) sums c = q, q + 8, ...,
+// and the 8 sums are added in q order.
+__global__ void gather_bwd_sum_kernel(const float* __restrict__ part, int ctas, int rk,
+                                      float* __restrict__ out) {
+  __shared__ float red[8][32];
+  const int el = threadIdx.x & 31;
+  const int q = threadIdx.x >> 5;
+  const int e = blockIdx.x * 32 + el;
+  float acc = 0.0f;
+  if (e < rk) {
+#pragma unroll 8
+    for (int c = q; c < ctas; c += 8) acc += part[static_cast<size_t>(c) * rk + e];
+  }
+  red[q][el] = acc;
+  __syncthreads();
+  if (q == 0 && e < rk) {
+    float s2 = red[0][el];
+#pragma unroll
+    for (int w = 1; w < 8; ++w) s2 += red[w][el];
+    out[e] = s2;
+  }
+}
+
+// Atomic mode: one atomicAdd per non-zero cotangent element of an in-range
+// lane (adding a zero leaves the sum's value as it is).
+__global__ void __launch_bounds__(kBlock)
+gather_bwd_atomic_kernel(const float* __restrict__ g, const int* __restrict__ idx, int rows,
+                         int cols, int total, float* __restrict__ out) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
+    const int ln = e / cols;
+    const int k = e - ln * cols;
+    const int r = __ldg(idx + ln);
+    const float v = __ldg(g + e);
+    if (r >= 0 && r < rows && v != 0.0f) atomicAdd(out + static_cast<size_t>(r) * cols + k, v);
+  }
+}
+
 }  // namespace
 
 extern "C" const char* fermat_error_string(int code) {
@@ -70,5 +176,42 @@ extern "C" int fermat_gather_rows(const float* table, const int* idx, int rows,
     gather_rows_kernel<false><<<blocks, kBlock, 0, stream>>>(
         table, idx, rows, cols, total, out);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g (n, cols) f32 cotangent, idx (n,) i32 -> out (rows, cols) f32 d_table.
+// slices > 0: the shared mode with that many lane slices a CTA, part a
+// (ceil(n / kBwdChunk), rows, cols) scratch buffer; slices == 0: the atomic
+// mode (part unused). n * cols and rows * cols < 2^31.
+extern "C" int fermat_gather_rows_bwd(const float* g, const int* idx, int rows, int cols,
+                                      int n, float* part, float* out, int slices, int device,
+                                      cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rk = rows * cols;
+  if (rk == 0) return 0;
+  if (slices == 0 || n == 0) {
+    err = cudaMemsetAsync(out, 0, static_cast<size_t>(rk) * sizeof(float), stream);
+    if (err != cudaSuccess || n == 0) return static_cast<int>(err);
+    const int total = n * cols;
+    int blocks = (total + kBlock - 1) / kBlock;
+    if (blocks > 132 * 16) blocks = 132 * 16;
+    gather_bwd_atomic_kernel<<<blocks, kBlock, 0, stream>>>(g, idx, rows, cols, total, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int threads = ((slices * cols + 31) / 32) * 32;
+  const size_t smem = static_cast<size_t>(slices) * rk * sizeof(float);
+  if (threads > 1024 || smem > static_cast<size_t>(kBwdSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(gather_bwd_partial_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ctas = (n + kBwdChunk - 1) / kBwdChunk;
+  gather_bwd_partial_kernel<<<ctas, threads, smem, stream>>>(g, idx, rows, cols, n, slices,
+                                                              part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gather_bwd_sum_kernel<<<(rk + 31) / 32, 256, 0, stream>>>(part, ctas, rk, out);
   return static_cast<int>(cudaGetLastError());
 }

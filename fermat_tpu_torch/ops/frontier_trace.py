@@ -40,6 +40,11 @@ The cluster tracer (K6, ops/cluster_trace.py) and the binned tracer (K7,
 ops/binned_trace.py) compute this function too, and also return the
 winner's Moller-Trumbore u, v; their plain versions are the ones here
 (`_closest_uv_plain`, `_any_plain`), and so are the checks of their inputs.
+The plain versions take any leaf table with ClusterView's fields (boxes,
+rows (C, W, 12) of any leaf width W, count, the soup): the subcluster
+tracer (K8, ops/sub_trace.py) computes the same function over the
+32-triangle leaves of accel/cluster.build_subclusters, and its plain
+versions are these, over that table.
 """
 from __future__ import annotations
 
@@ -118,7 +123,7 @@ def _visits(cl: ClusterView, o: Vec3, d: Vec3, tmin: Tensor, tmax: Tensor, activ
 
 
 def _tile(cl: ClusterView, c: Tensor):
-    """The 128 triangles of clusters c: (p0x .. e2z as (m, 128)), ids (m, 128)."""
+    """The W triangle slots of leaves c: (p0x .. e2z as (m, W)), ids (m, W)."""
     rows = cl.rows[c]
     return [rows[..., k] for k in range(9)], rows[..., 9].to(torch.int32)
 
@@ -215,18 +220,19 @@ def _ray_args(o: Vec3, d: Vec3, tmin: Tensor, tmax: Tensor, active: Tensor) -> l
     return [*rays, tmin, tmax, active]
 
 
-def _table_args(cl: ClusterView, dev, tree: bool = False) -> Tensor:
-    """Checks the cluster table a kernel reads (the top-level tree too when
-    `tree`); returns the (6, Cp) boxes as one contiguous tensor."""
+def _table_args(cl: ClusterView, dev, tree: bool = False, width: int = 128) -> Tensor:
+    """Checks the leaf table a kernel reads (`width` triangle slots a leaf;
+    the top-level tree too when `tree`); returns the (6, Cp) boxes as one
+    contiguous tensor."""
     boxes = cl.boxes().contiguous()
     check_cuda_tensor(boxes, "boxes", torch.float32, 2, dev)
     check_cuda_tensor(cl.rows, "rows", torch.float32, 3, dev)
     check_cuda_tensor(cl.count, "count", torch.int32, 1, dev)
     c_pad = cl.rows.shape[0]
-    if (tuple(cl.rows.shape[1:]) != (128, 12) or cl.count.shape[0] != c_pad
+    if (tuple(cl.rows.shape[1:]) != (width, 12) or cl.count.shape[0] != c_pad
             or boxes.shape[0] != 6 or boxes.shape[1] < c_pad):
-        raise ValueError("malformed ClusterView: rows (C_pad, 128, 12), count (C_pad,) and "
-                         "boxes (6, Cp >= C_pad)")
+        raise ValueError(f"malformed {type(cl).__name__}: rows (C, {width}, 12), count (C,) "
+                         "and boxes (6, Cp >= C)")
     if tree:
         check_cuda_tensor(cl.node_box, "node_box", torch.float32, 2, dev)
         check_cuda_tensor(cl.node_ref, "node_ref", torch.int32, 1, dev)

@@ -1,9 +1,14 @@
-"""K2 — row gather `table[idx]` (fermat_tpu/ops/gather.py:50-116).
+"""K2 — row gather `table[idx]` and its backward (fermat_tpu/ops/gather.py:50-116).
 
-On a CUDA tensor `gather_rows` launches the hand-written kernel in
-csrc/gather.cu; on a CPU tensor it runs `_gather_plain`. Forward only: the
-custom VJP of the JAX version (`_pog_bwd`, gather.py:84) belongs to the
-differentiable slice.
+`gather_rows` is a torch.autograd.Function. Forward: on a CUDA tensor it
+launches the hand-written kernel in csrc/gather.cu, on a CPU tensor it runs
+`_gather_plain`. Backward (the custom VJP `_pog_bwd`, gather.py:84-103):
+d_table[r, :] is the sum of the cotangent rows g[n, :] over the lanes n with
+idx[n] == r; lanes whose index lies outside [0, R) add nothing (their
+forward row is zero), and idx gets no gradient. On a CUDA tensor the
+backward launches `fermat_gather_rows_bwd` (csrc/gather.cu), on a CPU
+tensor it runs `_gather_bwd_plain`; a CUDA cotangent never takes the plain
+backward.
 """
 from __future__ import annotations
 
@@ -18,6 +23,23 @@ GATHER = CudaKernel(
     [P, P, I, I, I, P],
     replaces="fermat_tpu/ops/gather.py:50 (_pallas_onehot_gather, kernel _onehot_kernel :41)",
 )
+GATHER_BWD = CudaKernel(
+    "gather_rows_bwd", "gather.cu", "fermat_gather_rows_bwd",
+    [P, P, I, I, I, P, P, I],
+    replaces="fermat_tpu/ops/gather.py:84 (_pog_bwd, the custom VJP of "
+             "_pallas_onehot_gather_diff :78; an XLA transposed one-hot matmul)",
+)
+
+# csrc/gather.cu: lanes per CTA of the shared-memory backward, and the most
+# shared memory its per-CTA partials may take
+BWD_CHUNK = 512
+BWD_SMEM = 96 * 1024
+# K2b against its plain version: both sum each d_table element in float32,
+# in orders that differ (the plain version's index_add_ is atomic on a
+# card), so per element |K2b - plain| <= BWD_RTOL * (sum of |g| over the
+# lanes summed): ~1,700 float32 roundings, room for the sqrt(m) growth of
+# the rounding of a sum of m ~ 10^5 terms
+BWD_RTOL = 1e-4
 
 
 def _gather_plain(table: Tensor, idx: Tensor) -> Tensor:
@@ -28,8 +50,32 @@ def _gather_plain(table: Tensor, idx: Tensor) -> Tensor:
     return torch.where(ok[:, None], rows, 0.0)
 
 
-def gather_rows(table: Tensor, idx: Tensor) -> Tensor:
-    """(R, K) float32 rows by (N,) int32 indices -> (N, K), exact."""
+def _gather_bwd_plain(g: Tensor, idx: Tensor, rows: int) -> Tensor:
+    """Plain PyTorch version of the backward: (N, K) cotangent -> (R, K)
+    d(table), the in-range lanes' rows summed by index."""
+    ok = (idx >= 0) & (idx < rows)
+    out = torch.zeros((rows, g.shape[1]), dtype=g.dtype, device=g.device)
+    return out.index_add_(0, idx[ok].long(), g[ok])
+
+
+def bwd_slices(rows: int, cols: int) -> int:
+    """Lane slices a CTA of the shared-memory backward keeps a private
+    (R, K) partial for (the `slices` argument of csrc/gather.cu); 0
+    selects the global atomic mode. The shared mode writes one (R, K)
+    partial per BWD_CHUNK lanes, ceil(N / BWD_CHUNK) * R * K floats of
+    scratch that its second launch reads back: R / BWD_CHUNK of the
+    cotangent's bytes. It is taken only up to R = BWD_CHUNK / 4 rows (the
+    scratch at most a quarter of the cotangent) and while the partials fit
+    in shared memory; the atomic mode serves every larger table."""
+    if rows > BWD_CHUNK // 4:
+        return 0
+    s = max(1, min(8, 256 // max(cols, 1)))
+    while s > 0 and s * rows * cols * 4 > BWD_SMEM:
+        s //= 2
+    return s if cols <= 1024 else 0
+
+
+def _gather_fwd(table: Tensor, idx: Tensor) -> Tensor:
     if table.device.type == "cpu":
         return _gather_plain(table, idx)
     dev = table.device
@@ -42,3 +88,44 @@ def gather_rows(table: Tensor, idx: Tensor) -> Tensor:
     out = torch.empty((n, k), dtype=torch.float32, device=dev)
     GATHER.launch(dev, table.data_ptr(), idx.data_ptr(), r, k, n, out.data_ptr())
     return out
+
+
+def gather_rows_bwd(g: Tensor, idx: Tensor, rows: int) -> Tensor:
+    """d(table) (rows, K) from the (N, K) cotangent of gather_rows."""
+    if g.device.type == "cpu":
+        return _gather_bwd_plain(g, idx, rows)
+    dev = g.device
+    g = g.contiguous()
+    check_cuda_tensor(g, "g", torch.float32, 2, dev)
+    check_cuda_tensor(idx, "idx", torch.int32, 1, dev)
+    n, k = g.shape
+    if n * k >= 2 ** 31 or rows * k >= 2 ** 31:
+        raise ValueError(f"gather_rows_bwd: {n} x {k} cotangent or {rows} x {k} table exceeds "
+                         "the kernel's int32 range")
+    s = bwd_slices(rows, k)
+    # the shared-memory mode's per-CTA partials; the atomic mode needs none
+    scratch = torch.empty(-(-n // BWD_CHUNK) * rows * k if s else 1, dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((rows, k), dtype=torch.float32, device=dev)
+    GATHER_BWD.launch(dev, g.data_ptr(), idx.data_ptr(), rows, k, n, scratch.data_ptr(),
+                      out.data_ptr(), s)
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table: Tensor, idx: Tensor) -> Tensor:
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return _gather_fwd(table, idx)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        (idx,) = ctx.saved_tensors
+        return gather_rows_bwd(g, idx, ctx.rows), None
+
+
+def gather_rows(table: Tensor, idx: Tensor) -> Tensor:
+    """(R, K) float32 rows by (N,) int32 indices -> (N, K), exact;
+    differentiable in `table`."""
+    return _GatherRows.apply(table, idx)

@@ -87,6 +87,7 @@ class RenderingContext:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @torch.no_grad()
     def _one_pass(self, batch: bool = False) -> None:
         res_x, res_y = self.res_x, self.res_y
         if self._pass is None:

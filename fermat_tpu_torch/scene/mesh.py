@@ -207,21 +207,31 @@ class MeshView(NamedTuple):
     def shade_fetch(self, tri: Tensor, u: Tensor, v: Tensor, table: Tensor) -> ShadeHit:
         """One-fetch differential geometry + material lanes at a hit
         (mesh.py:324-370); `table` is shade_rows(), built once per pass."""
-        return _shade(gather_rows(table, tri), u, v)
+        return _shade(_detach_geometry(gather_rows(table, tri)), u, v)
 
     def shade_fetch_ray(self, tri: Tensor, o: Vec3, d: Vec3, table: Tensor) -> ShadeHit:
         """shade_fetch with (u, v) derived from the ray and the fetched row's
         own p0/e1/e2 (Moller-Trumbore barycentrics, mesh.py:372-430), for
         closest tracers that return no barycentrics. inv_det is taken
         wherever det != 0, as there (no 1e-12 gate)."""
-        r = gather_rows(table, tri)
+        r = _detach_geometry(gather_rows(table, tri))
         vec = lambda c: Vec3(r[:, c], r[:, c + 1], r[:, c + 2])
         u, v = ray_barycentrics(o, d, vec(0), vec(3), vec(6))
-        return _shade(r, u, v)
+        return _shade(r, u.detach(), v.detach())  # mesh.py:404-405
 
     def triangle_areas(self) -> Tensor:
         c = cross(self.e1, self.e2)
         return 0.5 * torch.sqrt(torch.clamp_min(c.x * c.x + c.y * c.y + c.z * c.z, 0.0))
+
+
+def _detach_geometry(r: Tensor) -> Tensor:
+    """Fetched shade rows with the 29 geometry columns detached
+    (mesh.py:343 and :384): the table joins them with the material
+    columns, and hit geometry must carry no gradient into the next
+    bounce's rays. Rows that need no gradient pass through as they are."""
+    if not r.requires_grad:
+        return r
+    return torch.cat([r[:, :29].detach(), r[:, 29:]], dim=1)
 
 
 def _shade(r: Tensor, u: Tensor, v: Tensor) -> ShadeHit:

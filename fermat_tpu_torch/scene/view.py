@@ -94,6 +94,15 @@ class SceneView(NamedTuple):
         of a small scene) are ignored; a texture atlas with real texels,
         environment maps, analytic/point/directional lights and shadow sets
         raise NotImplementedError.
+
+        The view's tensors are plain copies of the arrays, none requiring
+        grad. To differentiate a pass in material fields, replace them by
+        leaf tensors, e.g. for the (M, 3) diffuse albedos:
+            d = view.mesh.materials.diffuse.stack().clone().requires_grad_()
+            mats = view.mesh.materials._replace(diffuse=Vec3(d[:, 0], d[:, 1], d[:, 2]))
+            view = view._replace(mesh=view.mesh._replace(materials=mats))
+        (roughness, an (M,) tensor, likewise); render_pass under
+        torch.enable_grad() then gives d.grad by backward().
         """
         dev = resolve_device(device)
         for k, a in arrays.items():

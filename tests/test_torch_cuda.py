@@ -9,7 +9,9 @@ With --fmad=false the tracer, gather and CDF-pick kernels round like their
 plain versions, so those comparisons are exact (bit-equal floats, equal hit
 ids and flags); the frontier kernels (K5a/K5b) visit clusters in another
 order than their plain versions and still give the same answer, and so do
-the cluster (K6a/K6b) and binned (K7a/K7b) kernels, u and v included. The megakernels (K3a/K3b) are held to their plain versions with
+the cluster (K6a/K6b), binned (K7a/K7b) and subcluster (K8a/K8b) kernels,
+u and v included. K2's backward (K2b) sums in another order than its plain
+version and is held to the tolerance stated in ops/gather.py. The megakernels (K3a/K3b) are held to their plain versions with
 the image tolerances of tests/test_torch_pt.py and equal `rays`: a path is
 a long chain of transcendental calls and data-dependent branches, so one
 ulp anywhere may move a lobe pick on a few pixels.
@@ -24,13 +26,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from fermat_tpu_torch.core.math import Vec3  # noqa: E402
 from fermat_tpu_torch.integrators import pt as tpt  # noqa: E402
-from fermat_tpu_torch.accel.cluster import build_clusters  # noqa: E402
+from fermat_tpu_torch.accel.cluster import build_clusters, build_subclusters  # noqa: E402
 from fermat_tpu_torch.ops import binned_trace as bt  # noqa: E402
 from fermat_tpu_torch.ops import cdf_gather  # noqa: E402
 from fermat_tpu_torch.ops import cluster_trace as ct  # noqa: E402
 from fermat_tpu_torch.ops import frontier_trace as ft  # noqa: E402
 from fermat_tpu_torch.ops import gather as gather_mod  # noqa: E402
 from fermat_tpu_torch.ops import pt_mega  # noqa: E402
+from fermat_tpu_torch.ops import sub_trace as st  # noqa: E402
 from fermat_tpu_torch.ops import trace as trace_mod  # noqa: E402
 from fermat_tpu_torch.scene.procedural import (big_room, cornell_box,  # noqa: E402
                                                cornell_camera, glass_cornell_box,
@@ -305,3 +308,109 @@ def test_mega_wrappers_reject_bad_input(dev):
     with pytest.raises(NotImplementedError):
         soup = SceneView.build(random_soup(200), cornell_camera(), dev)
         tpt.render_pass(soup, opts, 8, 8, 0)
+
+
+def _bwd_close(got, want, g, idx, rows) -> bool:
+    """K2b's stated tolerance (ops/gather.py BWD_RTOL)."""
+    scale = gather_mod._gather_bwd_plain(g.abs(), idx, rows)
+    return bool(((got - want).abs() <= gather_mod.BWD_RTOL * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(36, 52), (36, 1), (7, 300), (4096, 52), (99_636, 52)])
+def test_gather_bwd_kernel_matches_plain_on_card(dev, rows, cols):
+    """K2b in both modes (shared: the first three; atomic: the last two)
+    against _gather_bwd_plain, out-of-range indices included; the shared
+    mode gives the same bits on every launch."""
+    gen = torch.Generator(device=dev).manual_seed(rows + cols)
+    n = 262_147
+    idx = torch.randint(-3, rows + 3, (n,), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.randn(n, cols, generator=gen, device=dev)
+    shared = gather_mod.bwd_slices(rows, cols) > 0
+    assert shared == (rows * cols <= 36 * 300)
+    before = gather_mod.GATHER_BWD.launches
+    got = gather_mod.gather_rows_bwd(g, idx, rows)
+    again = gather_mod.gather_rows_bwd(g, idx, rows)
+    want = gather_mod._gather_bwd_plain(g, idx, rows)
+    torch.cuda.synchronize()
+    assert gather_mod.GATHER_BWD.launches == before + 2
+    assert _bwd_close(got, want, g, idx, rows)
+    if shared:
+        assert torch.equal(_bits(got), _bits(again))
+    # through autograd: the Function's backward is the kernel
+    table = torch.randn(rows, cols, generator=gen, device=dev, requires_grad=True)
+    (gather_mod.gather_rows(table, idx) * g).sum().backward()
+    assert gather_mod.GATHER_BWD.launches == before + 3
+    assert _bwd_close(table.grad, want, g, idx, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["big_room400", "soup4096"])
+def test_sub_kernels_match_plain_and_k5_on_card(dev, scene):
+    mesh = (big_room(400) if scene == "big_room400" else random_soup(4096)).device_view(dev)
+    subs, cl = build_subclusters(mesh), build_clusters(mesh)
+    lo, hi = (-6.0, 6.0) if scene == "big_room400" else (-1.0, 1.0)
+    o, d, active, tmax = _rays(65536, lo, hi, dev, seed=7)
+    n = 65536
+    t0, t1 = trace_mod._lanes(1e-4, n, dev), trace_mod._lanes(3.0e38, n, dev)
+    hit = st.trace_closest_sub(subs, o, d, 1e-4, 3.0e38, active)
+    ref = ft._closest_uv_plain(subs, o, d, t0, t1, active)
+    k5 = ft.trace_closest_frontier(cl, o, d, 1e-4, 3.0e38, active)
+    occ = st.trace_any_sub(subs, o, d, 0.0, tmax, active)
+    occ_ref = ft._any_plain(subs, o, d, trace_mod._lanes(0.0, n, dev), tmax, active)
+    occ5 = ft.trace_any_frontier(cl, o, d, 0.0, tmax, active)
+    torch.cuda.synchronize()
+    assert torch.equal(hit.tri, ref.tri) and torch.equal(hit.tri, k5.tri)
+    for a, b in ((hit.t, ref.t), (hit.u, ref.u), (hit.v, ref.v), (hit.t, k5.t)):
+        assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(occ, occ_ref) and torch.equal(occ, occ5)
+    assert (hit.tri >= 0).any() and occ.any() and not occ.all()
+
+
+@pytest.mark.cuda
+def test_sub_wrappers_count_launches_and_reject_bad_input(dev):
+    subs = build_subclusters(random_soup(300).device_view(dev))
+    o, d, active, _ = _rays(64, -1.0, 1.0, dev, seed=3)
+    before = [st.CLOSEST.launches, st.ANY.launches]
+    st.trace_closest_sub(subs, o, d, 1e-4, 3.0e38, active)
+    st.trace_any_sub(subs, o, d, 1e-4, 3.0e38, active)
+    after = [st.CLOSEST.launches, st.ANY.launches]
+    assert after == [b + 1 for b in before]
+    with pytest.raises(ValueError):  # an active mask on the CPU
+        st.trace_closest_sub(subs, o, d, 1e-4, 3.0e38, active.cpu())
+    with pytest.raises(TypeError):  # float64 rays
+        st.trace_any_sub(subs, Vec3(*(c.double() for c in o)), d, 1e-4, 3.0e38, active)
+    # more subclusters than the E' row of shared memory holds at block 512
+    ns = 60_000
+    wide = lambda: torch.zeros(1, ns, device=dev)
+    big = subs._replace(rows=torch.empty(ns, 32, 12, device=dev),
+                        count=torch.zeros(ns, dtype=torch.int32, device=dev),
+                        lo_x=wide(), lo_y=wide(), lo_z=wide(), hi_x=wide(), hi_y=wide(),
+                        hi_z=wide())
+    with pytest.raises(NotImplementedError):
+        st.trace_closest_sub(big, o, d, 1e-4, 3.0e38, active)
+    assert [st.CLOSEST.launches, st.ANY.launches] == after
+
+
+@pytest.mark.cuda
+def test_ad_gradient_on_card_matches_the_replay_gradient(dev):
+    """render_pass under autograd on the card (K1, K2 and K2b) against K3b,
+    the megakernel's replay gradient, for one adjoint: within 1e-3 of
+    max|g|."""
+    res = 64
+    view = SceneView.build(cornell_box(glossy_boxes=True), cornell_camera(), dev)
+    opts = tpt.PTOptions(max_path_length=6)
+    leaf = view.mesh.materials.diffuse.stack().detach().clone().requires_grad_(True)
+    mats = view.mesh.materials._replace(diffuse=Vec3(leaf[:, 0], leaf[:, 1], leaf[:, 2]))
+    v = view._replace(mesh=view.mesh._replace(materials=mats))
+    before = gather_mod.GATHER_BWD.launches
+    img = tpt.render_pass(v, opts, res, res, 4, 0).composited.stack()
+    adjoint = (2.0 * img / img.numel()).detach()
+    (img * adjoint).sum().backward()
+    torch.cuda.synchronize()
+    assert gather_mod.GATHER_BWD.launches > before
+    g = pt_mega.render_grad_diffuse_mega(view, opts, res, res, 4, adjoint, 0)
+    torch.cuda.synchronize()
+    scale = float(g.abs().max())
+    assert scale > 0.0
+    assert float((leaf.grad - g).abs().max()) <= 1e-3 * scale
