@@ -31,8 +31,9 @@ result is printed then):
   3c. large   — the large-scene kernels against their plain versions:
                 trace_closest_frontier / trace_any_frontier (K5a/K5b) on
                 65,536 random rays against big_room(8300) and
-                random_soup(4096) and on 256x256 camera rays of big_room;
-                cdf_pick_rows (K4) on big_room's emissive subset and on a
+                random_soup(4096) and on 256x256 camera rays of big_room,
+                and the sort key they co-sort those rays by against its
+                plain version; cdf_pick_rows (K4) on big_room's emissive subset and on a
                 544-row table, NaN and out-of-range u included; all
                 bit-equal; on the same rays the cluster tracer (K6a/K6b)
                 and the binned tracer (K7a/K7b, also at u_steps=1,
@@ -73,11 +74,15 @@ result is printed then):
                 bench.py:152-163 builds its train step: an MSE against a
                 zero target, d loss / d materials.diffuse (a leaf (M, 3)
                 tensor). The 512x512 6-bounce CornellBox dense pass, its
-                gradient held within 1e-3 of max|g| of K3b's on the same
-                instance and adjoint; then big_room(8300) at 1600x896, 6
-                bounces, tracer="frontier": a warm-up step, best of 2 timed
-                steps, one profiled step; ms/step, train Mrays/s (forward
-                rays / step wall time), peak device memory
+                gradient held within AD_K3B_RTOL of max|g| of K3b's on the
+                same instance and adjoint; big_room(400) at the
+                configuration of tests/golden/torch_port_grad_16.npz held
+                to its stored jax.grad within AD_GOLDEN_RTOL; then
+                big_room(8300) at 1600x896, 6 bounces, tracer="frontier":
+                a warm-up step, best of 2 timed steps (the last held within
+                AD_PLAIN_RTOL to the same step with K2b's plain version),
+                one profiled step; ms/step, train Mrays/s (forward rays /
+                step wall time), peak device memory
                 (max_memory_allocated), idle share, launches per step;
   5. parity   — one 512x512 pass with the kernels and one with the plain
                 versions forced in their place: equal `rays`, equal images;
@@ -101,7 +106,9 @@ result is printed then):
                 and binned passes (tests/golden/
                 torch_port_bigroom_cluster_24.npz) on the card with each
                 tracer, within the same tolerances;
-  6. timing   — every launch of one main-path pass is replayed alone: device
+  6. timing   — every launch of one main-path pass is replayed alone (device_ms:
+                CUDA events around 20 replays queued behind a spin kernel,
+                median and min-max, warm and cold L2): device
                 time of the kernel, of its plain version and (gather only) of
                 `index_select`, beside the bound from the bytes and
                 operations the inputs need; K3a and K3b at 512x512 likewise
@@ -115,6 +122,9 @@ result is printed then):
                 replayed, their plain versions too, and every launch's
                 output held to its plain version's (bit-equal; the kernels
                 line's max_abs_err for K4/K5 is from these comparisons);
+                K5's kernel alone, its co-sort and its whole wrapper timed
+                apart, beside its device time in phase 4d's profiled pass
+                (K3a's beside 4b's);
                 K5's bound counts 46 flops for every real triangle of every
                 cluster a ray must enter (see phase 6's code), K4's is its
                 bytes; each plain version runs once a launch, under the
@@ -164,6 +174,22 @@ ALL_LOBES = (True, True, True, True)
 FLOPS_PER_TEST = 46
 # published H100 peaks (NVIDIA data sheets): memory bytes/s, FP32 (non-tensor) flop/s
 PEAKS = {"SXM": (3.35e12, 67e12), "PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12)}
+# phase 6: replays a kernel is timed over, and the bytes written between
+# replays for its cold-L2 figure (the H100's L2 is 50 MB)
+REPLAYS = 20
+FLUSH_BYTES = 128 * 2 ** 20
+SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's 1.98 GHz boost clock
+_FLUSH = None
+# phase 4f, of max|g|: the CornellBox AD gradient against K3b's (measured
+# 1.12e-05 on an H100: on a few pixels the card's eager NEE arithmetic and
+# mega.cu's round differently and a shadow ray or light pick flips, see
+# ROADMAP Queue 3); big_room(400) against the stored jax.grad golden (the
+# tolerance of tests/test_torch_grad.py; measured 1.9e-07); the big_room
+# 1600x896 gradient against the same step with K2b's plain version (K2b's
+# atomic mode sums in no fixed order; measured 6.5e-06)
+AD_K3B_RTOL = 1e-4
+AD_GOLDEN_RTOL = 1e-5
+AD_PLAIN_RTOL = 1e-4
 
 
 class SmokeFailure(AssertionError):
@@ -196,29 +222,62 @@ def _on_device(event) -> bool:
     return event.device_type == torch.autograd.DeviceType.CUDA
 
 
-def device_ms(fn, reps: int = 20):
-    """Device time per call: summed kernel time from torch.profiler over
-    `reps` calls; CUDA events around the calls where the profiler sees no
-    device activity. Returns (ms, timer)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, reps: int = REPLAYS, cold: bool = True) -> dict:
+    """Device time of one call from CUDA events around each of `reps`
+    back-to-back replays after a warm-up call: the median and the min/max
+    (ms, ms_min, ms_max) with the L2 as the previous replay left it, and
+    with `cold` the same again with FLUSH_BYTES written to a scratch buffer
+    before each replay (cold_ms, cold_ms_min, cold_ms_max). A spin kernel
+    first holds the card while the host queues every replay, so a pair of
+    events brackets the call's device work and not the host's time to
+    issue it (a call that reads back from the card, as the binned tracer's
+    rounds do, still waits for the host inside its bracket).
+    torch.profiler is not used: it lost some replays' kernels in earlier
+    runs, which read as a 2-10x faster kernel."""
+    import statistics
 
+    import torch
+
+    global _FLUSH
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    out = {}
+    for tag in ("", "cold_") if cold else ("",):
+        if tag and _FLUSH is None:
+            _FLUSH = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+        torch.cuda._sleep(SPIN_CYCLES)
+        for start, end in ev:
+            if tag:
+                _FLUSH.fill_(1.0)
+            start.record()
             fn()
+            end.record()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.events() if _on_device(e))
-    if us > 0:
-        return us / 1e3 / reps, "profiler"
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, "events"
+        t = [start.elapsed_time(end) for start, end in ev]
+        out.update({f"{tag}ms": statistics.median(t), f"{tag}ms_min": min(t),
+                    f"{tag}ms_max": max(t)})
+    return out
+
+
+def add_times(acc: dict, times: dict) -> None:
+    """Sums device_ms results over launches (a row divides by the count)."""
+    for k, v in times.items():
+        acc[k] = acc.get(k, 0.0) + v
+
+
+def per_launch(acc: dict, nc: int) -> dict:
+    """A row's timing fields: device_ms's sums over nc launches, per launch."""
+    out = {k: v / nc for k, v in acc.items()}
+    out.update(us_per_launch=out["ms"] * 1e3, timer="events")
+    return out
+
+
+def fmt_times(t: dict) -> str:
+    """'<median> us (min-max <a>-<b>; cold <median> us)' of per_launch fields."""
+    return (f"{t['ms'] * 1e3:.2f} us (min-max {t['ms_min'] * 1e3:.2f}-{t['ms_max'] * 1e3:.2f}"
+            + (f"; cold L2 {t['cold_ms'] * 1e3:.2f} us" if "cold_ms" in t else "") + ")")
 
 
 @contextlib.contextmanager
@@ -246,25 +305,18 @@ def image_close(got, want) -> tuple:
 
 
 def profiled(fn):
-    """(fn(), device ms of that one call, timer): one call under
-    torch.profiler, CUDA events where it sees no device activity. For the
-    plain versions at the big_room pass's size (0.3-0.7 s of device time
-    each), where a warm-up call would double the cost."""
+    """(fn(), ms of that one call): CUDA events around one call on an idle
+    card. For the plain versions at the big_room pass's size (0.3-0.7 s
+    each), where a warm-up call and replays would multiply the cost."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
+    out = fn()
     end.record()
     end.synchronize()
-    us = sum(e.self_device_time_total for e in prof.events() if _on_device(e))
-    if us > 0:
-        return out, us / 1e3, "profiler"
-    return out, start.elapsed_time(end), "events"
+    return out, start.elapsed_time(end)
 
 
 def device_split(fn, reps: int = 3) -> dict:
@@ -291,9 +343,10 @@ def device_split(fn, reps: int = 3) -> dict:
 
 
 def profile_one_pass(ctx, narrow: bool = False):
-    """(device kernels, device-busy ms, top entries) of one pass under
-    torch.profiler; the device is idle for the rest of the pass. narrow: the
-    pass goes through render() (NarrowPass when the context has narrow=1)."""
+    """(device kernels, device-busy ms, top entries, {kernel name: [ms of
+    each launch]}) of one pass under torch.profiler; the device is idle for
+    the rest of the pass. narrow: the pass goes through render()
+    (NarrowPass when the context has narrow=1)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -301,15 +354,21 @@ def profile_one_pass(ctx, narrow: bool = False):
             ctx.render(1)
         else:
             ctx.render_batch(1)
-    by_name = {}
+    by_name, each = {}, {}
     for e in prof.events():
         if _on_device(e):
             t, c = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.self_device_time_total, c + 1)
+            each.setdefault(e.name, []).append(e.self_device_time_total / 1e3)
     busy_ms = sum(t for t, _ in by_name.values()) / 1e3
     n_kern = sum(c for _, c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    return n_kern, busy_ms, top
+    return n_kern, busy_ms, top, each
+
+
+def launches_named(each: dict, part: str) -> list:
+    """The per-launch ms of profile_one_pass's kernels whose name holds part."""
+    return [ms for name, v in each.items() if part in name for ms in v]
 
 
 def best_batches(ctx, passes: int = PASSES, narrow: bool = False):
@@ -385,8 +444,11 @@ def main() -> int:
     ad = {"gather_rows_bwd": gather_mod.GATHER_BWD}
     subk = {"trace_closest_sub": st.CLOSEST, "trace_any_sub": st.ANY}
     kernels = {**dense, **mega, **large, **tracers, **ad, **subk}
-    # the binned tracer's scan: a helper kernel, counted, not a row of its own
-    helpers = {"binned_scan_closest": bt.SCAN_CLOSEST, "binned_scan_any": bt.SCAN_ANY}
+    # helper kernels, counted, not rows of their own: the binned tracer's
+    # scan, and the frontier tracer's ray sort key (held to its plain version
+    # in phases 3c and 6, its time beside K5's)
+    scans = {"binned_scan_closest": bt.SCAN_CLOSEST, "binned_scan_any": bt.SCAN_ANY}
+    helpers = {**scans, "frontier_sort_key": ft.KEY}
 
     def reset_counts():
         for k in (*kernels.values(), *helpers.values()):
@@ -593,6 +655,11 @@ def main() -> int:
             check(torch.equal(hit.tri, ref.tri), f"K5a {scene} {rays}: tri differs from plain")
             check(torch.equal(bits(hit.t), bits(ref.t)), f"K5a {scene} {rays}: t not bit-equal")
             check(torch.equal(occ, occ_ref), f"K5b {scene} {rays}: occ differs from plain")
+            for t0, t1 in ((1e-4, 3.0e38), (0.0, tmax)):  # the keys K5a and K5b sorted by
+                key = ft.sort_key(cl, o, d, t0, t1, active)
+                check(torch.equal(key, ft._sort_key_plain(cl, o, d, lanes(t0, n), lanes(t1, n),
+                                                          active)),
+                      f"K5 sort key {scene} {rays}: differs from its plain version")
             # K6 and K7 on the same rays: bit-equal to the plain versions
             # (u, v included) and so to K5
             for label, f_c, f_a, consts in (
@@ -632,7 +699,8 @@ def main() -> int:
             log(f"[3c large] {scene} ({cl.rows.shape[0]} clusters), {n} {rays} rays "
                 f"({float(active.float().mean()):.2f} active): trace_closest_frontier tri equal, "
                 f"t bit-equal (hit {hits:.3f}); trace_any_frontier equal (occluded "
-                f"{float(occ.float().mean()):.3f}); K6a/K6b, K7a/K7b and K7 at u_steps=1, "
+                f"{float(occ.float().mean()):.3f}); their sort keys equal to plain; K6a/K6b, "
+                f"K7a/K7b and K7 at u_steps=1, "
                 f"block=64 bit-equal to the plain versions (t, tri, u, v; occ) and to K5; "
                 f"K8a/K8b over {subs_of[scene].n_subclusters} subclusters bit-equal to their "
                 f"plain versions and to K5")
@@ -673,7 +741,7 @@ def main() -> int:
         f"{mrays:.2f} Mrays/s ({best_rays / PASSES:.0f} rays/pass; best of {REPS} x "
         f"{PASSES} passes) on {smi}; image mean {hdr.mean():.4f}; launches over "
         f"{n_main} passes: {launches}")
-    n_kern, busy_ms, top = profile_one_pass(ctx)
+    n_kern, busy_ms, top, _ = profile_one_pass(ctx)
     log(f"[4 main] one pass under torch.profiler: {n_kern} device kernels, device busy "
         f"{busy_ms:.2f} ms of the {ms_pass:.2f} ms pass (idle share "
         f"{1 - busy_ms / ms_pass:.3f}); top by device time: "
@@ -699,7 +767,10 @@ def main() -> int:
         f"{m_mrays:.2f} Mrays/s ({m_rays / PASSES:.0f} rays/pass; best of {REPS} x {PASSES} "
         f"passes) on {smi}; image mean {m_hdr.mean():.4f}; launches over {n_main} passes: "
         f"{m_launches}")
-    mk_n, m_busy, m_top = profile_one_pass(mctx)
+    mk_n, m_busy, m_top, m_each = profile_one_pass(mctx)
+    # the kernels' own device time inside the profiled passes, beside phase
+    # 6's replays of the same kernels
+    in_pass = {"mega_forward": launches_named(m_each, "mega_forward_kernel")}
     log(f"[4b mega] one pass under torch.profiler: {mk_n} device kernels, device busy "
         f"{m_busy:.3f} ms of the {m_ms:.3f} ms pass (idle share {1 - m_busy / m_ms:.3f}); top: "
         + "; ".join(f"{n[:50]} {t / 1e3:.3f} ms x{c}" for n, (t, c) in m_top))
@@ -767,12 +838,22 @@ def main() -> int:
               f"big_room {mode} launched a kernel of another path: {b_launches}")
         for n in large:
             check(b_launches[n] > 0, f"kernel {n} was never launched on the big_room path")
-        if not narrow:  # every bounce runs: one closest trace, NEE, one shadow ray set
-            check(all(b_launches[n] == per_bounce for n in large),
-                  f"big_room monolithic: {b_launches} over {n_big} passes of {MPL} bounces")
+        if not narrow:  # every bounce runs: one closest trace, NEE, one shadow ray set;
+            # each trace sorts its 1,433,600 rays first
+            check(all(b_launches[n] == per_bounce for n in large)
+                  and ft.KEY.launches == 2 * per_bounce,
+                  f"big_room monolithic: {counts()} over {n_big} passes of {MPL} bounces")
         b_ms = b_best / BIG_PASSES * 1e3
         b_mrays = b_rays / b_best / 1e6
-        n_kern, busy_ms, top = profile_one_pass(bctx, narrow=narrow)
+        n_kern, busy_ms, top, each = profile_one_pass(bctx, narrow=narrow)
+        if not narrow:
+            in_pass.update(trace_closest_frontier=launches_named(each, "trace_kernel<true>"),
+                           trace_any_frontier=launches_named(each, "trace_kernel<false>"),
+                           frontier_sort_key=launches_named(each, "key_kernel"),
+                           radix_sort=launches_named(each, "Radix"))
+            check(len(in_pass["trace_closest_frontier"]) == MPL
+                  and len(in_pass["trace_any_frontier"]) == MPL,
+                  f"big_room monolithic: K5 launches in the profiled pass: {in_pass}")
         prof = bctx._pass[3].last_profile if narrow else None
         big[mode] = dict(ms=b_ms, mrays=b_mrays, rays=b_rays / BIG_PASSES, launches=b_launches,
                          kernels=n_kern, busy_ms=busy_ms, idle=1 - busy_ms / b_ms)
@@ -818,7 +899,7 @@ def main() -> int:
         others = [n for n in (*dense, *mega, *tracers, *ad, *subk)
                   if n not in mine and n != "gather_rows"]
         check(all(e_launches[n] == 0 for n in (*others, "trace_closest_frontier",
-                                                "trace_any_frontier")),
+                                                "trace_any_frontier", "frontier_sort_key")),
               f"big_room tracer={tracer} launched a kernel of another path: {e_launches}")
         check(groups["closest"] == per_bounce and groups["any"] == per_bounce,
               f"tracer={tracer}: {groups} tracer calls over {n_big} passes of {MPL} bounces")
@@ -827,10 +908,10 @@ def main() -> int:
             check(all(e_launches[n] == per_bounce for n in mine),
                   f"tracer=cluster: {e_launches} over {n_big} passes of {MPL} bounces")
         else:
-            check(all(e_launches[n] > 0 for n in (*mine, *helpers)),
+            check(all(e_launches[n] > 0 for n in (*mine, *scans)),
                   f"tracer=binned: a kernel was never launched: {e_launches}")
         e_ms = e_best / BIG_PASSES * 1e3
-        n_kern, busy_ms, top = profile_one_pass(c4)
+        n_kern, busy_ms, top, _ = profile_one_pass(c4)
         rounds = {k: e_launches[f"trace_{k}_binned"] / per_bounce for k in ("closest", "any")}
         big[tracer] = dict(ms=e_ms, mrays=e_rays / e_best / 1e6, rays=e_rays / BIG_PASSES,
                            launches=e_launches, groups=dict(groups), kernels=n_kern,
@@ -839,7 +920,7 @@ def main() -> int:
             f"{e_ms:.2f} ms/pass, {e_rays / e_best / 1e6:.3f} Mrays/s ({e_rays / BIG_PASSES:.0f} "
             f"rays/pass; best of {REPS} x {BIG_PASSES} passes) on {smi}; image mean "
             f"{e_hdr.mean():.4f}; launches over {n_big} passes: "
-            f"{ {n: e_launches[n] for n in (*mine, *large, *helpers)} }; tracer calls "
+            f"{ {n: e_launches[n] for n in (*mine, *large, *scans)} }; tracer calls "
             f"(launch groups) {groups}"
             + (f"; rounds per launch group: closest {rounds['closest']:.1f}, any "
                f"{rounds['any']:.1f}" if tracer == "binned" else ""))
@@ -950,7 +1031,8 @@ def main() -> int:
     g3 = pt_mega.render_grad_diffuse_mega(ctx.view, a_opts, RES, RES, a_inst, a_adj, 0)
     torch.cuda.synchronize()
     a_scale, a_err = float(g3.abs().max()), float((a_grad - g3).abs().max())
-    check(bool(torch.isfinite(a_grad).all()) and a_scale > 0.0 and a_err <= 1e-3 * a_scale,
+    check(bool(torch.isfinite(a_grad).all()) and a_scale > 0.0
+          and a_err <= AD_K3B_RTOL * a_scale,
           f"CornellBox AD gradient vs K3b: max err {a_err} vs max|g| {a_scale}")
     with patched([(gather_mod, "gather_rows_bwd", bwd_recorder("cornell"))]):
         ad_step(ctx.view, a_opts, RES, RES, a_inst)  # K2b's inputs for phase 6
@@ -960,9 +1042,34 @@ def main() -> int:
         f"d/d diffuse (M, 3): {a_best * 1e3:.2f} ms/step, train {a_rays / a_best / 1e6:.3f} "
         f"Mrays/s ({a_rays:.0f} forward rays), peak memory {a_peak / 2 ** 30:.2f} GiB, on "
         f"{smi}; gradient vs K3b on the same instance ({a_inst}) and adjoint: max |g - K3b| "
-        f"{a_err:.3g} = {a_err / a_scale:.2e} of max|g| {a_scale:.4g}; launches in the step: "
+        f"{a_err:.3g} = {a_err / a_scale:.2e} of max|g| {a_scale:.4g} (tolerance "
+        f"{AD_K3B_RTOL:g}); launches in the step: "
         f"{ {n: c for n, c in a_launches.items() if c} }")
     del g3
+
+    # the configuration of tests/golden/torch_port_grad_16.npz's "bigroom"
+    # case on the card: jax.grad of the mean image of big_room(400), 16x16,
+    # 4 bounces, tracer="frontier", with respect to the (M, 3) diffuse
+    gg = np.load(ROOT / "tests" / "golden" / "torch_port_grad_16.npz")
+    gbz = np.load(ROOT / "tests" / "golden" / "torch_port_bigroom_24.npz")
+    ggview = SceneView.from_numpy({k[5:]: gbz[k] for k in gbz.files if k.startswith("view.")},
+                                  dev)
+    g_opts = pt.PTOptions(max_path_length=4, tracer="frontier",
+                          lobes=tuple(bool(x) for x in gg["bigroom.lobes"]))
+    leaf = ggview.mesh.materials.diffuse.stack().detach().clone().requires_grad_(True)
+    gmats = ggview.mesh.materials._replace(diffuse=Vec3(leaf[:, 0], leaf[:, 1], leaf[:, 2]))
+    g_loss = pt.render_pass(ggview._replace(mesh=ggview.mesh._replace(materials=gmats)), g_opts,
+                            int(gg["res"]), int(gg["res"]), 0, int(gg["seed"]))
+    g_loss = g_loss.composited.stack().mean()
+    g_loss.backward()
+    g_want = gg["bigroom.grad"]
+    g_rel = float(np.abs(leaf.grad.cpu().numpy() - g_want).max() / np.abs(g_want).max())
+    check(g_rel <= AD_GOLDEN_RTOL, f"big_room(400) AD gradient vs the jax.grad golden: {g_rel:.3g}"
+                                   f" of max|g|, over {AD_GOLDEN_RTOL:g}")
+    log(f"[4f AD] big_room(400) {int(gg['res'])}x{int(gg['res'])} mpl=4 tracer=frontier, d mean "
+        f"image / d diffuse on the card vs the stored jax.grad golden: {g_rel:.3g} of max|g| "
+        f"(tolerance {AD_GOLDEN_RTOL:g}); loss {float(g_loss):.8g} vs {float(gg['bigroom.loss']):.8g}")
+    del ggview, leaf, gmats
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -970,7 +1077,7 @@ def main() -> int:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     reset_counts()
-    b_best, b_rays, (_, b_grad, _), b_peak = timed_steps(bview, bopts, BIG_W, BIG_H, 2, 2)
+    b_best, b_rays, (b_inst, b_grad, _), b_peak = timed_steps(bview, bopts, BIG_W, BIG_H, 2, 2)
     b_launches = counts()
     check(b_launches["gather_rows_bwd"] > 0 and b_launches["gather_rows"] > 0
           and all(b_launches[n] > 0 for n in large),
@@ -980,6 +1087,15 @@ def main() -> int:
           f"the big_room AD step launched a kernel of another path: {b_launches}")
     check(bool(torch.isfinite(b_grad).all()) and float(b_grad.abs().max()) > 0.0,
           "big_room AD gradient is not finite or is zero")
+    # the same step (instance, so adjoint) with K2b's plain version
+    with patched([(gather_mod, "gather_rows_bwd", gather_mod._gather_bwd_plain)]):
+        _, _, b_grad_p, _ = ad_step(bview, bopts, BIG_W, BIG_H, b_inst)
+    b_scale = float(b_grad_p.abs().max())
+    b_rel = float((b_grad - b_grad_p).abs().max()) / b_scale
+    check(b_rel <= AD_PLAIN_RTOL, f"big_room AD gradient vs the step with K2b's plain version: "
+                                  f"{b_rel:.3g} of max|g|, over {AD_PLAIN_RTOL:g}")
+    del b_grad_p
+    torch.cuda.empty_cache()
     from torch.profiler import ProfilerActivity, profile
     with patched([(gather_mod, "gather_rows_bwd", bwd_recorder("big_room"))]):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1003,7 +1119,8 @@ def main() -> int:
         f"2; warm-up step {warm_s * 1e3:.0f} ms), train {b_rays / b_best / 1e6:.3f} Mrays/s "
         f"({b_rays:.0f} forward rays), peak memory {b_peak / 2 ** 30:.2f} GiB, on {smi}; "
         f"launches per step: {per_step} (K2b {per_step.get('gather_rows_bwd', 0):g}); "
-        f"max|g| {float(b_grad.abs().max()):.4g}")
+        f"max|g| {float(b_grad.abs().max()):.4g}; vs the same step (instance {b_inst}) with "
+        f"K2b's plain version: {b_rel:.3g} of max|g| (tolerance {AD_PLAIN_RTOL:g})")
     log(f"[4f AD] big_room: one step under torch.profiler: {b_kern} device kernels, device busy "
         f"{b_busy:.2f} ms of the {b_ms:.2f} ms step (idle share {1 - b_busy / b_ms:.3f}); top "
         "by device time: " + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}"
@@ -1246,9 +1363,9 @@ def main() -> int:
 
     rows = []
     for kname, kern in dense.items():
-        ms = plain_ms = lib_ms = bound = 0.0
+        plain_ms = lib_ms = bound = 0.0
         by_bytes = by_ops = 0.0
-        timers = set()
+        times = {}
         shapes = set()
         for args in calls[kname]:
             if kname == "gather_rows":
@@ -1278,12 +1395,10 @@ def main() -> int:
                     f_p = lambda: trace_mod._any_plain(tris, o, d, tmin_l, tmax_l, act)
                 f_l = None
                 shapes.add(f"{n} rays x {t} tris")
-            m, tm = device_ms(f_k)
-            ms += m
-            timers.add(tm)
-            plain_ms += device_ms(f_p, reps=5)[0]
+            add_times(times, device_ms(f_k))
+            plain_ms += device_ms(f_p, reps=5, cold=False)["ms"]
             if f_l is not None:
-                lib_ms += device_ms(f_l)[0]
+                lib_ms += device_ms(f_l, cold=False)["ms"]
             b_bytes, b_ops = byt / bw * 1e3, ops / fp32 * 1e3
             bound += max(b_bytes, b_ops)
             by_bytes += b_bytes
@@ -1291,6 +1406,7 @@ def main() -> int:
         nc = len(calls[kname])
         check(nc > 0, f"{kname}: no launch captured in the timing pass")
         err = max_err[kname]
+        t = per_launch(times, nc)
         rows.append({
             "name": kname, "route": "cuda",
             "source": f"fermat_tpu_torch/ops/csrc/{kern.source}",
@@ -1298,14 +1414,12 @@ def main() -> int:
             "launches": launches[kname],
             "launches_per_pass": launches[kname] / n_main,
             "max_abs_err": err, "max_abs_err_vs_plain": err,
-            "ms": ms / nc, "plain_ms": plain_ms / nc, "bound_ms": bound / nc,
+            **t, "plain_ms": plain_ms / nc, "bound_ms": bound / nc,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": (lib_ms / nc) if kname == "gather_rows" else None,
-            "us_per_launch": ms / nc * 1e3,
-            "timer": "+".join(sorted(timers)),
             "shapes": sorted(shapes),
         })
-        log(f"[6 timing] {kname}: {ms / nc * 1e3:.2f} us/launch (plain "
+        log(f"[6 timing] {kname}: {fmt_times(t)}/launch (plain "
             f"{plain_ms / nc * 1e3:.1f} us, bound {bound / nc * 1e3:.2f} us by "
             f"{rows[-1]['bound_by']}) over the {nc} launches of one pass; {sorted(shapes)}")
 
@@ -1338,10 +1452,12 @@ def main() -> int:
              lambda: pt_mega._mega_grad_plain(m_tb, m_opts, RES, n_full, inst_t, 0, t_adj),
              n_full * 12 + blocks * m_tb.n_mats * 12 + table_bytes, t_launches["mega_grad"],
              REPS)):
-        ms, tm = device_ms(f_k, reps=10)
-        plain_ms = device_ms(f_p, reps=1)[0]
+        t = per_launch(device_ms(f_k), 1)
+        plain_ms = profiled(f_p)[1]
         b_bytes, b_ops = byt / bw * 1e3, tests * FLOPS_PER_TEST / fp32 * 1e3
         kern = mega[kname]
+        if kname == "mega_forward":  # its device time in phase 4b's profiled pass
+            t["in_pass_ms"] = sum(in_pass["mega_forward"]) / len(in_pass["mega_forward"])
         rows.append({
             "name": kname, "route": "cuda",
             "source": f"fermat_tpu_torch/ops/csrc/{kern.source}",
@@ -1350,15 +1466,15 @@ def main() -> int:
             ("launches_per_pass" if kname == "mega_forward" else "launches_per_step"):
                 n_launch / per,
             "max_abs_err": max_err[kname], "max_abs_err_vs_plain": max_err[kname],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
+            **t, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
             "library_ms": None,
-            "us_per_launch": ms * 1e3,
-            "timer": tm,
             "shapes": [f"{RES}x{RES} pixels, mpl {MPL}, {m_tb.n_tris} tris, "
                        f"{traced['closest']:.0f} closest + {traced['shadow']:.0f} shadow tests"],
         })
-        log(f"[6 timing] {kname}: {ms * 1e3:.1f} us/launch (plain {plain_ms * 1e3:.1f} us, "
+        log(f"[6 timing] {kname}: {fmt_times(t)}/launch"
+            + (f", {t['in_pass_ms'] * 1e3:.2f} us inside the profiled pass"
+               if "in_pass_ms" in t else "") + f" (plain {plain_ms * 1e3:.1f} us, "
             f"bound {max(b_bytes, b_ops) * 1e3:.2f} us by {rows[-1]['bound_by']}: "
             f"{byt / 1e6:.2f} MB, {tests * FLOPS_PER_TEST / 1e9:.3f} GFLOP of ray-triangle "
             f"tests, shading not counted) at {RES}x{RES}, {n_launch / per:g} launch per "
@@ -1413,9 +1529,10 @@ def main() -> int:
     k5_plain = {"trace_closest_frontier": [], "trace_any_frontier": []}
     for kname in large:
         kern = large[kname]
-        ms = plain_ms = bound = by_bytes = by_ops = err = 0.0
+        plain_ms = bound = by_bytes = by_ops = err = 0.0
         visits = n_tests = 0.0
-        timers, shapes = set(), set()
+        times, wrapper, sort, each = {}, {}, {}, []
+        shapes = set()
         for args in lcalls[kname]:
             if kname == "cdf_pick_rows":
                 rows_t, cdf_t, u_t = args
@@ -1424,7 +1541,7 @@ def main() -> int:
                 f_k = lambda: cdf_gather.cdf_pick_rows(rows_t, cdf_t, u_t)
                 f_p = lambda: cdf_gather._pick_plain(rows_t, cdf_t, u_t)
                 got, want = f_k(), f_p()
-                p_ms = device_ms(f_p, reps=1)[0]
+                p_ms = profiled(f_p)[1]
                 torch.cuda.synchronize()
                 check(torch.equal(bits(got), bits(want)),
                       "cdf_pick_rows at the big_room pass's inputs: not bit-equal to plain")
@@ -1438,7 +1555,7 @@ def main() -> int:
                     f_k = lambda: ft.trace_closest_frontier(cl, o, d, tmin, tmax, active,
                                                             with_uv=False)
                     f_p = lambda: ft._closest_plain(cl, o, d, tmin_l, tmax_l, active)
-                    (t_fin, tri_fin), p_ms, _ = profiled(f_p)
+                    (t_fin, tri_fin), p_ms = profiled(f_p)
                     hit = f_k()
                     torch.cuda.synchronize()
                     check(torch.equal(hit.tri, tri_fin) and torch.equal(bits(hit.t), bits(t_fin)),
@@ -1450,7 +1567,7 @@ def main() -> int:
                 else:
                     f_k = lambda: ft.trace_any_frontier(cl, o, d, tmin, tmax, active)
                     f_p = lambda: ft._any_plain(cl, o, d, tmin_l, tmax_l, active)
-                    occ_p, p_ms, _ = profiled(f_p)
+                    occ_p, p_ms = profiled(f_p)
                     occ_k = f_k()
                     torch.cuda.synchronize()
                     check(torch.equal(occ_k, occ_p),
@@ -1463,13 +1580,28 @@ def main() -> int:
                 n_tests += need
                 ops = need * FLOPS_PER_TEST
                 shapes.add(f"{n} rays x {int((cl.count > 0).sum())} clusters")
+                # the kernel alone (its inputs, the co-sort's permutation
+                # included, made once), the co-sort (the key kernel, held to
+                # its plain version, and the argsort), and the whole wrapper
+                rays_k = ft._ray_args(o, d, tmin_l, tmax_l, active)
+                check(torch.equal(ft._key(cl, rays_k),
+                                  ft._sort_key_plain(cl, o, d, tmin_l, tmax_l, active)),
+                      f"{kname} at the big_room pass's inputs: the sort key differs from plain")
+                args_k = ft._launch_args(cl, o, d, tmin_l, tmax_l, active)
+                outs = ([torch.empty(n, device=dev), torch.empty(n, dtype=torch.int32, device=dev)]
+                        if kname == "trace_closest_frontier"
+                        else [torch.empty(n, dtype=torch.bool, device=dev)])
+                add_times(wrapper, device_ms(f_k, cold=False))
+                add_times(sort, device_ms(
+                    lambda: torch.argsort(ft._key(cl, rays_k), stable=True), cold=False))
+                f_k = (lambda: kern.launch(dev, *ft._ptrs(args_k), *(x.data_ptr() for x in outs)))
                 k5_plain[kname].append(dict(
                     want=(t_fin, tri_fin) if kname == "trace_closest_frontier" else occ_p,
                     plain_ms=p_ms, need=need, ent=ent, b_bytes=byt / bw * 1e3,
                     b_ops=ops / fp32 * 1e3))
-            m, tm = device_ms(f_k, reps=5)
-            ms += m
-            timers.add(tm)
+            tk = device_ms(f_k)
+            add_times(times, tk)
+            each.append(tk["ms"])
             plain_ms += p_ms
             b_bytes, b_ops = byt / bw * 1e3, ops / fp32 * 1e3
             bound += max(b_bytes, b_ops)
@@ -1478,6 +1610,7 @@ def main() -> int:
         nc = len(lcalls[kname])
         check(nc > 0, f"{kname}: no launch captured in the timing pass")
         max_err[kname] = err
+        t = per_launch(times, nc)
         row = {
             "name": kname, "route": "cuda",
             "source": f"fermat_tpu_torch/ops/csrc/{kern.source}",
@@ -1485,18 +1618,25 @@ def main() -> int:
             "launches": big["monolithic"]["launches"][kname],
             "launches_per_pass": big["monolithic"]["launches"][kname] / n_big,
             "max_abs_err": err, "max_abs_err_vs_plain": err,
-            "ms": ms / nc, "plain_ms": plain_ms / nc, "bound_ms": bound / nc,
+            **t, "plain_ms": plain_ms / nc, "bound_ms": bound / nc,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": None,
-            "us_per_launch": ms / nc * 1e3,
-            "timer": "+".join(sorted(timers)),
             "shapes": sorted(shapes),
+            "ms_each_launch": each,
         }
         if kname != "cdf_pick_rows":
-            row["clusters_needed_per_launch"] = visits / nc
-            row["tests_needed_per_launch"] = n_tests / nc
+            inside = in_pass[kname]
+            row.update(clusters_needed_per_launch=visits / nc, tests_needed_per_launch=n_tests / nc,
+                       in_pass_ms=sum(inside) / len(inside), in_pass_ms_each_launch=inside,
+                       wrapper_ms=wrapper["ms"] / nc, sort_ms=sort["ms"] / nc)
         rows.append(row)
-        log(f"[6 timing] {kname}: {ms / nc * 1e3:.1f} us/launch (plain {plain_ms / nc * 1e3:.1f} "
+        log(f"[6 timing] {kname}: {fmt_times(t)}/launch"
+            + (f", in the profiled pass {row['in_pass_ms'] * 1e3:.1f} us; with the co-sort "
+               f"(key and argsort {row['sort_ms'] * 1e3:.1f} us) the wrapper "
+               f"{row['wrapper_ms'] * 1e3:.1f} us; each launch "
+               + ", ".join(f"{x:.3f}" for x in each) + " ms, in the pass "
+               + ", ".join(f"{x:.3f}" for x in inside) + " ms" if kname != "cdf_pick_rows" else "")
+            + f" (plain {plain_ms / nc * 1e3:.1f} "
             f"us, bound {bound / nc * 1e3:.2f} us by {row['bound_by']}"
             + (f", {visits / nc:.0f} cluster entries and {n_tests / nc:.0f} ray-triangle tests "
                f"needed per launch" if visits else "")
@@ -1542,9 +1682,8 @@ def main() -> int:
                     return False
         return True
 
-    acc = {n: dict(ms=0.0, plain_ms=0.0, bound=0.0, by_bytes=0.0, by_ops=0.0, err=0.0,
-                   timers=set(), wall_ms=0.0, rounds=0, split=dict(scan=0.0, sort=0.0, test=0.0,
-                                                                    other=0.0))
+    acc = {n: dict(times={}, plain_ms=0.0, bound=0.0, by_bytes=0.0, by_ops=0.0, err=0.0,
+                   wall_ms=0.0, rounds=0, split=dict(scan=0.0, sort=0.0, test=0.0, other=0.0))
            for n in tracers}
     fns = {"cluster": (ct.trace_closest_cluster, ct.trace_any_cluster),
            "binned": (bt.trace_closest_binned, bt.trace_any_binned)}
@@ -1559,7 +1698,7 @@ def main() -> int:
                   f"{kind}: the cluster pass's active rays differ from the frontier pass's")
             cl, o, d, tmin, tmax, active = args
             if kind == "closest":
-                (u_p, v_p), uv_ms, _ = profiled(lambda: ft._recompute_uv(cl, o, d, k5["want"][1]))
+                (u_p, v_p), uv_ms = profiled(lambda: ft._recompute_uv(cl, o, d, k5["want"][1]))
                 want = Hit(t=k5["want"][0], tri=k5["want"][1], u=u_p, v=v_p)
                 plain_ms = k5["plain_ms"] + uv_ms
             else:
@@ -1587,11 +1726,9 @@ def main() -> int:
                           f"{tname} at the cluster pass's inputs: occ differs from plain and K5")
                     a["err"] = max(a["err"], float((got != want).sum()))
                 a["rounds"] += tracers[tname].launches - launches0
-                if tracer == "cluster":
-                    m, tm = device_ms(f_k, reps=5)
-                else:
+                add_times(a["times"], device_ms(f_k))
+                if tracer == "binned":  # its split by kernel family; its wall time
                     sp = device_split(f_k)
-                    m, tm = sum(sp.values()), "profiler"
                     for k in sp:
                         a["split"][k] += sp[k]
                     torch.cuda.synchronize()
@@ -1599,8 +1736,6 @@ def main() -> int:
                     f_k()
                     torch.cuda.synchronize()
                     a["wall_ms"] += (time.perf_counter() - w0) * 1e3
-                a["ms"] += m
-                a["timers"].add(tm)
                 a["plain_ms"] += plain_ms
                 a["bound"] += max(k5["b_bytes"], k5["b_ops"])
                 a["by_bytes"] += k5["b_bytes"]
@@ -1610,6 +1745,7 @@ def main() -> int:
         kind, tracer = tname.split("_")[1], tname.split("_")[2]
         nc = len(tcalls[kind])
         max_err[tname] = a["err"]
+        t = per_launch(a["times"], nc)
         row = {
             "name": tname, "route": "cuda",
             "source": f"fermat_tpu_torch/ops/csrc/{kern.source}",
@@ -1617,11 +1753,9 @@ def main() -> int:
             "launches": big[tracer]["launches"][tname],
             "launches_per_pass": big[tracer]["launches"][tname] / n_big,
             "max_abs_err": a["err"], "max_abs_err_vs_plain": a["err"],
-            "ms": a["ms"] / nc, "plain_ms": a["plain_ms"] / nc, "bound_ms": a["bound"] / nc,
+            **t, "plain_ms": a["plain_ms"] / nc, "bound_ms": a["bound"] / nc,
             "bound_by": "bytes" if a["by_bytes"] >= a["by_ops"] else "operations",
             "library_ms": None,
-            "us_per_launch": a["ms"] / nc * 1e3,
-            "timer": "+".join(sorted(a["timers"])),
             "shapes": [f"{tcalls[kind][0][1].x.shape[0]} rays x "
                        f"{int((cview.clusters.count > 0).sum())} clusters"],
             "clusters_needed_per_launch": t_visits[kind] / nc,
@@ -1633,7 +1767,7 @@ def main() -> int:
                        wall_ms_per_launch_group=a["wall_ms"] / nc,
                        **{f"{k}_ms": v / nc for k, v in a["split"].items()})
         rows.append(row)
-        log(f"[6 timing] {tname}: {a['ms'] / nc * 1e3:.1f} us/"
+        log(f"[6 timing] {tname}: {fmt_times(t)}/"
             + ("launch group" if tracer == "binned" else "launch")
             + f" (plain {a['plain_ms'] / nc * 1e3:.1f} us, bound {a['bound'] / nc * 1e3:.2f} us by "
             f"{row['bound_by']}, K5's on the same rays) over the {nc} calls of one cluster "
@@ -1648,8 +1782,8 @@ def main() -> int:
     # the plain version and index_add_ into fresh zeros (the backward of
     # index_select); bound: bytes (idx and the cotangent in, d_table out)
     def bwd_timing(key):
-        a = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0, rel=0.0)
-        shapes, timers = set(), set()
+        a = dict(plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0, rel=0.0)
+        times, shapes = {}, set()
         for g, idx, rows in bwd_calls[key]:
             n, k = g.shape
             idx64 = idx.long()
@@ -1664,19 +1798,17 @@ def main() -> int:
                   f"gather_rows_bwd at the {key} AD step's inputs: {rel:.3g} of sum|g| from plain")
             a["err"] = max(a["err"], float((got - want).abs().max()))
             a["rel"] = max(a["rel"], rel)
-            m, tm = device_ms(f_k)
-            a["ms"] += m
-            timers.add(tm)
-            a["plain_ms"] += device_ms(f_p, reps=5)[0]
-            a["library_ms"] += device_ms(f_l)[0]
+            add_times(times, device_ms(f_k))
+            a["plain_ms"] += device_ms(f_p, reps=5, cold=False)["ms"]
+            a["library_ms"] += device_ms(f_l, cold=False)["ms"]
             a["bound_ms"] += (4 * n + 4 * n * k + 4 * rows * k) / bw * 1e3
             shapes.add(f"cotangent {n}x{k} into {rows} rows "
                        f"({'shared-memory' if gather_mod.bwd_slices(rows, k) else 'atomic'} mode)")
         nc = len(bwd_calls[key])
         check(nc > 0, f"gather_rows_bwd: no launch captured in the {key} AD step")
         out = {k: (v / nc if k.endswith("ms") else v) for k, v in a.items()}
-        out.update(n=nc, timer="+".join(sorted(timers)), shapes=sorted(shapes))
-        log(f"[6 timing] gather_rows_bwd at the {key} AD step: {out['ms'] * 1e3:.1f} us/launch "
+        out.update(per_launch(times, nc), n=nc, shapes=sorted(shapes))
+        log(f"[6 timing] gather_rows_bwd at the {key} AD step: {fmt_times(out)}/launch "
             f"(plain {out['plain_ms'] * 1e3:.1f} us, index_add_ {out['library_ms'] * 1e3:.1f} us, "
             f"bound {out['bound_ms'] * 1e3:.2f} us by bytes) over its {nc} launches, each within "
             f"BWD_RTOL of its plain version (max abs err {a['err']:.3g}, {a['rel']:.3g} of "
@@ -1695,13 +1827,15 @@ def main() -> int:
         "launches_per_step": adr["cornell"]["launches"]["gather_rows_bwd"],
         "max_abs_err": bwd_c["err"], "max_abs_err_vs_plain": bwd_c["err"],
         "max_err_over_sum_abs_g": bwd_c["rel"], "tolerance_over_sum_abs_g": gather_mod.BWD_RTOL,
-        "ms": bwd_c["ms"], "plain_ms": bwd_c["plain_ms"], "bound_ms": bwd_c["bound_ms"],
-        "bound_by": "bytes", "library_ms": bwd_c["library_ms"],
-        "us_per_launch": bwd_c["ms"] * 1e3, "timer": bwd_c["timer"], "shapes": bwd_c["shapes"],
+        **{k: bwd_c[k] for k in ("ms", "ms_min", "ms_max", "cold_ms", "cold_ms_min",
+                                 "cold_ms_max", "us_per_launch", "timer")},
+        "plain_ms": bwd_c["plain_ms"], "bound_ms": bwd_c["bound_ms"],
+        "bound_by": "bytes", "library_ms": bwd_c["library_ms"], "shapes": bwd_c["shapes"],
         "at_big_room": {
             "launches": adr["big_room"]["launches"]["gather_rows_bwd"],
             "launches_per_step": adr["big_room"]["launches"]["gather_rows_bwd"] / 2,
-            **{k: bwd_b[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "shapes")},
+            **{k: bwd_b[k] for k in ("ms", "ms_min", "ms_max", "cold_ms", "plain_ms",
+                                     "library_ms", "bound_ms", "shapes")},
             "max_abs_err": bwd_b["err"], "max_err_over_sum_abs_g": bwd_b["rel"]},
     })
 
@@ -1728,9 +1862,8 @@ def main() -> int:
     sub_table = 4 * (sub_room.rows.numel() + sub_room.count.numel() + 6 * sub_room.lo_x.shape[1])
     for kind in ("closest", "any"):
         kname = f"trace_{kind}_sub"
-        a = dict(ms=0.0, bound=0.0, by_bytes=0.0, by_ops=0.0, k5=0.0, err=0.0, need=0.0,
-                 ent=0.0)
-        timers = set()
+        a = dict(bound=0.0, by_bytes=0.0, by_ops=0.0, k5=0.0, err=0.0, need=0.0, ent=0.0)
+        times = {}
         t0 = time.perf_counter()
         for k, (args, k5, got) in enumerate(zip(lcalls[f"trace_{kind}_frontier"],
                                                 k5_plain[f"trace_{kind}_frontier"],
@@ -1755,7 +1888,7 @@ def main() -> int:
                 byt = n * (33 + 1) + sub_table
             if k == 0:  # K8's own plain version at the first launch
                 with patched([(ft, "_CHUNK_ELEMS", 4 * ft._CHUNK_ELEMS)]):
-                    want, p_ms, _ = profiled(f_p)
+                    want, p_ms = profiled(f_p)
                 torch.cuda.synchronize()
                 if kind == "closest":
                     same = torch.equal(got.tri, want[1]) and torch.equal(bits(got.t),
@@ -1766,12 +1899,11 @@ def main() -> int:
                     a["err"] = max(a["err"], float((got != want).sum()))
                 check(same, f"{kname} at the big_room pass's rays: differs from its plain")
                 del want
-            m, tm = device_ms(f_k, reps=5)
-            a["ms"] += m
-            timers.add(tm)
+            tk = device_ms(f_k)
+            add_times(times, tk)
             b_bytes, b_ops = byt / bw * 1e3, need * FLOPS_PER_TEST / fp32 * 1e3
             if k == 0:
-                first = dict(ms=m, plain_ms=p_ms, bound_ms=max(b_bytes, b_ops),
+                first = dict(ms=tk["ms"], plain_ms=p_ms, bound_ms=max(b_bytes, b_ops),
                              k5_bound_ms=max(k5["b_bytes"], k5["b_ops"]))
             a["bound"] += max(b_bytes, b_ops)
             a["by_bytes"] += b_bytes
@@ -1782,6 +1914,7 @@ def main() -> int:
         nc = len(sub_out[kind])
         max_err[kname] = a["err"]
         kern = subk[kname]
+        t = per_launch(times, nc)
         row = {
             "name": kname, "route": "cuda",
             "source": f"fermat_tpu_torch/ops/csrc/{kern.source}",
@@ -1789,11 +1922,9 @@ def main() -> int:
             "launches": sub_launches[kname],
             "launches_per_pass_of_rays": sub_launches[kname],
             "max_abs_err": a["err"], "max_abs_err_vs_plain": a["err"],
-            "ms": a["ms"] / nc, "plain_ms": first["plain_ms"], "bound_ms": a["bound"] / nc,
+            **t, "plain_ms": first["plain_ms"], "bound_ms": a["bound"] / nc,
             "bound_by": "bytes" if a["by_bytes"] >= a["by_ops"] else "operations",
             "library_ms": None,
-            "us_per_launch": a["ms"] / nc * 1e3,
-            "timer": "+".join(sorted(timers)),
             "shapes": [f"{lcalls[f'trace_{kind}_frontier'][0][1].x.shape[0]} rays x "
                        f"{sub_room.n_subclusters} subclusters"],
             "plain_ms_at": "the first launch (bounce 0)",
@@ -1803,7 +1934,7 @@ def main() -> int:
             "tests_needed_per_launch": a["need"] / nc,
         }
         rows.append(row)
-        log(f"[6 timing] {kname}: {a['ms'] / nc * 1e3:.1f} us/launch (bound "
+        log(f"[6 timing] {kname}: {fmt_times(t)}/launch (bound "
             f"{a['bound'] / nc * 1e3:.2f} us by {row['bound_by']} over K8's leaves: "
             f"{a['ent'] / nc:.0f} subcluster entries and {a['need'] / nc:.0f} ray-triangle tests "
             f"needed per launch; K5's bound on the same rays {a['k5'] / nc * 1e3:.2f} us) over "

@@ -18,13 +18,15 @@ to the JAX package's leaves, slot order and boxes. The JAX package stores
 every subcluster's tile at four lane phases ((Ns * 4, 16, 128)) because a
 Mosaic lane tile is 128 wide; the port stores each once, as rows.
 
-The port's tracers read three more things built here, which the JAX
-package does not have: the triangles of each cluster as (C_pad, 128, 12)
-rows (one 48-byte row per triangle) and the number of real triangles per
-cluster (all of K5-K7), and a top-level BVH over the real clusters' boxes
-(accel/bvh.build_bvh with one cluster per leaf; the frontier kernel,
-ops/frontier_trace.py, alone). The Pallas kernel needs no such tree: it
-slab-tests every ray block against every cluster box.
+The port's tracers read more things built here, which the JAX package
+does not have: the triangles of each cluster as (C_pad, 128, 12) rows (one
+48-byte row per triangle) and the number of real triangles per cluster
+(all of K5-K7), and, for the frontier kernel (ops/frontier_trace.py)
+alone, a top-level BVH over the real clusters' boxes (accel/bvh.build_bvh
+with one cluster per leaf) stored as one 64-byte record per inner node,
+its depth, and the bounds its ray sort normalises origins by. The Pallas
+kernel needs no such tree: it slab-tests every ray block against every
+cluster box.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ CLUSTER = 128  # triangles per cluster
 SUB = 32  # triangles per subcluster
 GROUP = 8  # clusters per group (pads the cluster count)
 SAH_MERGE = 1.4  # union-area gate of the DFS merge
-MAX_DEPTH = 60  # the kernel's per-thread stack holds MAX_DEPTH + 2 entries
+MAX_DEPTH = 60  # the frontier kernel's stack holds up to 64 entries (csrc/frontier.cu)
 _BIG = 3.0e38
 
 
@@ -59,6 +61,9 @@ class ClusterView(NamedTuple):
     count: Tensor  # (C_pad,) int32 real triangles per cluster (a prefix)
     node_box: Tensor  # (n_nodes, 6) f32 lo xyz, hi xyz of the top-level BVH
     node_ref: Tensor  # (n_nodes,) int32: inner -> right child, leaf -> ~cluster
+    nodes: Tensor  # (n_inner, 16) f32: the tree as 64-byte records (_node_records)
+    depth: np.ndarray  # 0-d int32 on the host: the stack entries the tree's walk needs
+    key_norm: Tensor  # (6,) f32 lo xyz, 1 / extent xyz of the boxes (the ray sort's)
     p0: Vec3  # the original-order soup, for barycentrics from a winning id
     e1: Vec3
     e2: Vec3
@@ -172,7 +177,8 @@ def _morton_leaves(cent: np.ndarray) -> list:
 
 def _top_level(c_lo: np.ndarray, c_hi: np.ndarray):
     """BVH over the real clusters' boxes, one cluster per leaf: (node_box
-    (n, 6), node_ref (n,)) with node_ref = right child or ~cluster."""
+    (n, 6), node_ref (n,), depth) with node_ref = right child or ~cluster
+    and depth the deepest node's level (the root's is 0)."""
     cent = ((c_lo + c_hi) * np.float32(0.5)).astype(np.float32)
     bvh, _ = build_bvh(cent, c_lo, c_hi, leaf_size=1)
     n = bvh.n_nodes
@@ -187,7 +193,44 @@ def _top_level(c_lo: np.ndarray, c_hi: np.ndarray):
     if depth.max() > MAX_DEPTH:
         raise ValueError(f"cluster BVH depth {depth.max()} exceeds the kernel's "
                          f"stack ({MAX_DEPTH})")
-    return np.concatenate([bvh.lo, bvh.hi], axis=1).astype(np.float32), ref
+    return np.concatenate([bvh.lo, bvh.hi], axis=1).astype(np.float32), ref, int(depth.max())
+
+
+def _node_records(node_box: np.ndarray, node_ref: np.ndarray) -> np.ndarray:
+    """The tree as the frontier kernel reads it: one (16,) float32 record
+    per inner node, in DFS order (record 0 the root), holding both
+    children: left lo.x hi.x lo.y hi.y | right lo.x hi.x lo.y hi.y | left
+    lo.z hi.z, right lo.z hi.z | left ref, right ref (int32 bits), 0, 0. A
+    ref >= 0 is a record, a ref < 0 is ~cluster. The boxes are node_box's
+    floats, unchanged. A tree whose root is a leaf (one cluster) becomes one
+    record whose right child is an empty (inverted) box."""
+    n = node_ref.shape[0]
+    inner = np.nonzero(node_ref >= 0)[0]
+    if inner.size == 0:
+        box = np.concatenate([node_box, [[_BIG] * 3 + [-_BIG] * 3]]).astype(np.float32)
+        left, right, refs = np.array([0]), np.array([1]), np.array([node_ref[0]] * 2)
+    else:
+        box = node_box
+        left, right = inner + 1, node_ref[inner].astype(np.int64)
+        rec_id = np.full(n, -1, np.int64)
+        rec_id[inner] = np.arange(inner.size)
+        refs = np.where(node_ref >= 0, rec_id, node_ref)
+    rec = np.zeros((left.size, 16), np.float32)
+    for k, (side, col) in enumerate(((left, 0), (left, 3), (left, 1), (left, 4),
+                                     (right, 0), (right, 3), (right, 1), (right, 4),
+                                     (left, 2), (left, 5), (right, 2), (right, 5))):
+        rec[:, k] = box[side, col]
+    rec[:, 12] = refs[left].astype(np.int32).view(np.float32)
+    rec[:, 13] = refs[right].astype(np.int32).view(np.float32)
+    return rec
+
+
+def _key_norm(boxes: Tensor) -> Tensor:
+    """(lo xyz, 1 / extent xyz) of the boxes, as pallas_frontier_trace.
+    _sort_key (:70-74) normalises ray origins; the padding boxes are
+    inverted, so they move neither bound."""
+    lo, hi = boxes[:3].amin(dim=1), boxes[3:].amax(dim=1)
+    return torch.cat([lo, 1.0 / torch.clamp_min(hi - lo, 1e-20)])
 
 
 def _soup(mesh_view):
@@ -290,9 +333,14 @@ def cluster_view(tri: np.ndarray, boxes: np.ndarray, mesh_view) -> ClusterView:
     boxes = np.asarray(boxes, np.float32).reshape(6, -1)
     count = (tri[:, 9, :] >= 0.0).sum(axis=1).astype(np.int32)
     real = np.nonzero(count > 0)[0]  # padding clusters: no triangle, inverted box
-    node_box, node_ref = _top_level(boxes[:3, real].T, boxes[3:, real].T)
+    node_box, node_ref, depth = _top_level(boxes[:3, real].T, boxes[3:, real].T)
     leaf = node_ref < 0
     node_ref[leaf] = ~real[~node_ref[leaf]]
+    # a leaf's box is its cluster's (a min and max over one box), so the
+    # kernel takes a cluster's E' from the record's slab test of the leaf
+    if not np.array_equal(node_box[leaf].view(np.int32),
+                          boxes[:, ~node_ref[leaf]].T.view(np.int32)):
+        raise ValueError("a leaf box of the cluster BVH differs from its cluster's box")
     dev = mesh_view.p0.x.device
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     row = lambda k: t(boxes[k].reshape(1, -1))
@@ -301,5 +349,8 @@ def cluster_view(tri: np.ndarray, boxes: np.ndarray, mesh_view) -> ClusterView:
         lo_x=row(0), lo_y=row(1), lo_z=row(2), hi_x=row(3), hi_y=row(4), hi_z=row(5),
         rows=t(tri[:, :12, :].transpose(0, 2, 1)),
         count=t(count), node_box=t(node_box), node_ref=t(node_ref),
+        nodes=t(_node_records(node_box, node_ref)),
+        depth=np.array(max(depth, 1), np.int32),
+        key_norm=_key_norm(torch.from_numpy(np.ascontiguousarray(boxes))).to(dev),
         p0=mesh_view.p0, e1=mesh_view.e1, e2=mesh_view.e2,
     )

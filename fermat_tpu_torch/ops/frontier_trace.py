@@ -1,12 +1,17 @@
 """K5a / K5b — closest hit and occlusion over the cluster table of a large
 scene (fermat_tpu/ops/pallas_frontier_trace.py).
 
-On CUDA tensors `trace_closest_frontier` / `trace_any_frontier` launch the
-hand-written kernels of csrc/frontier.cu (one thread per ray, a stack walk
-over the top-level BVH of accel/cluster.py, the 128-triangle cluster as the
-leaf); on CPU tensors they run `_closest_plain` / `_any_plain`, which visit
-every ray's clusters in the order of their box entries. Both compute one
-function, so they agree bit for bit whatever order they visit in:
+On CUDA tensors `trace_closest_frontier` / `trace_any_frontier` co-sort the
+rays (from 4 blocks of rays up: the key of csrc/frontier.cu's key_kernel,
+JAX's `_sort_key`, whose plain version is `_sort_key_plain`, then a stable
+`torch.argsort`) and launch the hand-written kernels of csrc/frontier.cu
+(one thread per sorted ray, a stack walk over the top-level BVH of
+accel/cluster.py stored as 64-byte node records, the 128-triangle cluster
+as the leaf); the kernel reads ray perm[i] and writes its answer there, so
+no ray lane is gathered or scattered. On CPU tensors they run
+`_closest_plain` / `_any_plain`, which visit every ray's clusters in the
+order of their box entries. Both compute one function, so they agree bit
+for bit whatever order they visit clusters or rays in:
 
   * a cluster's entry E is the slab entry of the ray into its box, clipped
     to [tmin, tmax] (pallas_frontier_trace.py:157-201, the `lox <= hix`
@@ -31,9 +36,11 @@ Divergences from the Pallas kernels, each deliberate:
   * no phantom hit: the Pallas kernel's all-miss tile value 3e38 counts as
     a hit when tmax > 3e38 (:318-325); here a miss has no value at all, so
     a ray with tmax = inf misses as it should;
-  * no morton/octant co-sort of the rays (`_cosort_rays`, :96) and no
-    per-block `visits` output: both belong to the TPU's ray blocks; and no
-    VMEM gate on the cluster count (`_check_cp`, :141): there is no E
+  * the co-sort carries a permutation into the kernel instead of sorting
+    the nine ray arrays along (`_cosort_rays`, :96), and it counts a ray
+    dead where `active` is off (JAX sets such a ray's tmax to -1 first); no
+    per-block `visits` output, which belongs to the TPU's ray blocks; and
+    no VMEM gate on the cluster count (`_check_cp`, :141): there is no E
     matrix here.
 
 The cluster tracer (K6, ops/cluster_trace.py) and the binned tracer (K7,
@@ -55,6 +62,7 @@ import torch
 from fermat_tpu_torch.accel.cluster import ClusterView
 from fermat_tpu_torch.accel.traverse import Hit
 from fermat_tpu_torch.core.math import Vec3, ray_barycentrics
+from fermat_tpu_torch.core.morton import morton3d
 from fermat_tpu_torch.ops._cuda import I, P, CudaKernel, check_cuda_tensor
 from fermat_tpu_torch.ops.trace import _lane_args, mt_test
 
@@ -64,16 +72,25 @@ SLACK_MUL = 1.0 - 2.0 ** -10  # both exact in float32
 SLACK_ADD = 2.0 ** -12
 _INT_MAX = 2 ** 31 - 1
 _CHUNK_ELEMS = 1 << 26  # rays x clusters per chunk of the plain versions
+BLOCK = 128  # threads a CTA of csrc/frontier.cu
+SORT_MIN = 4 * BLOCK  # the rays are co-sorted from 4 blocks up, as in JAX
+MAX_STACK = 64  # csrc/frontier.cu kMaxStack: stack entries a thread can have
 
+KEY = CudaKernel(
+    "frontier_sort_key", "frontier.cu", "fermat_frontier_sort_key",
+    [P] * 9 + [P, I, P],
+    replaces="fermat_tpu/ops/pallas_frontier_trace.py:61 (_sort_key, XLA; the "
+             "co-sort _cosort_rays :96)",
+)
 CLOSEST = CudaKernel(
     "trace_closest_frontier", "frontier.cu", "fermat_frontier_closest",
-    [P] * 9 + [P, P, P, I, P, P, I, P, P],
+    [P] * 9 + [P, P, P, P, I, I, P, P],
     replaces="fermat_tpu/ops/pallas_frontier_trace.py:489 (_closest_impl, kernel "
              "_closest_kernel :204, entry matrix _build_entry_matrix :157)",
 )
 ANY = CudaKernel(
     "trace_any_frontier", "frontier.cu", "fermat_frontier_any",
-    [P] * 9 + [P, P, P, I, P, P, I, P],
+    [P] * 9 + [P, P, P, P, I, I, P],
     replaces="fermat_tpu/ops/pallas_frontier_trace.py:537 (_any_impl, kernel _any_kernel :352)",
 )
 
@@ -185,6 +202,21 @@ def _any_plain(cl: ClusterView, o: Vec3, d: Vec3, tmin: Tensor, tmax: Tensor,
     return occ
 
 
+def _sort_key_plain(cl: ClusterView, o: Vec3, d: Vec3, tmin: Tensor, tmax: Tensor,
+                    active: Tensor) -> Tensor:
+    """Plain version of key_kernel (int32): pallas_frontier_trace._sort_key
+    (:61-89), (dead << 27) | (octant << 24) | (morton3d(origin normalised
+    to the cluster boxes) >> 6), dead = ~active | (tmax <= tmin). A NaN
+    coordinate takes cell 0 (JAX leaves it unspecified)."""
+    nrm = cl.key_norm
+    cells = [torch.nan_to_num((c - nrm[k]) * nrm[3 + k], nan=0.0) for k, c in enumerate(o)]
+    m = morton3d(*cells) >> 6
+    octant = ((d.x < 0).to(torch.int64) * 4 + (d.y < 0).to(torch.int64) * 2
+              + (d.z < 0).to(torch.int64))
+    dead = (~active | (tmax <= tmin)).to(torch.int64)
+    return ((dead << 27) | (octant << 24) | m).to(torch.int32)
+
+
 def _recompute_uv(cl: ClusterView, o: Vec3, d: Vec3, tri: Tensor):
     """Barycentrics of the winning triangle from the original soup
     (pallas_frontier_trace.py:_recompute_uv, :417-455). ray_barycentrics
@@ -221,34 +253,67 @@ def _ray_args(o: Vec3, d: Vec3, tmin: Tensor, tmax: Tensor, active: Tensor) -> l
 
 
 def _table_args(cl: ClusterView, dev, tree: bool = False, width: int = 128) -> Tensor:
-    """Checks the leaf table a kernel reads (`width` triangle slots a leaf;
-    the top-level tree too when `tree`); returns the (6, Cp) boxes as one
-    contiguous tensor."""
-    boxes = cl.boxes().contiguous()
-    check_cuda_tensor(boxes, "boxes", torch.float32, 2, dev)
+    """Checks the leaf table a kernel reads (`width` triangle slots a leaf)
+    and returns the (6, Cp) boxes as one contiguous tensor; with `tree`,
+    the frontier kernel's table instead, which reads no boxes: the rows,
+    counts, node records and sort bounds (returns None)."""
     check_cuda_tensor(cl.rows, "rows", torch.float32, 3, dev)
     check_cuda_tensor(cl.count, "count", torch.int32, 1, dev)
     c_pad = cl.rows.shape[0]
-    if (tuple(cl.rows.shape[1:]) != (width, 12) or cl.count.shape[0] != c_pad
-            or boxes.shape[0] != 6 or boxes.shape[1] < c_pad):
-        raise ValueError(f"malformed {type(cl).__name__}: rows (C, {width}, 12), count (C,) "
-                         "and boxes (6, Cp >= C)")
-    if tree:
-        check_cuda_tensor(cl.node_box, "node_box", torch.float32, 2, dev)
-        check_cuda_tensor(cl.node_ref, "node_ref", torch.int32, 1, dev)
-        if cl.node_box.shape[1] != 6 or cl.node_ref.shape[0] != cl.node_box.shape[0]:
-            raise ValueError("malformed ClusterView: node_box (n, 6), node_ref (n,)")
+    if tuple(cl.rows.shape[1:]) != (width, 12) or cl.count.shape[0] != c_pad:
+        raise ValueError(f"malformed {type(cl).__name__}: rows (C, {width}, 12), count (C,)")
     if cl.rows.data_ptr() % 16:
-        raise ValueError("ClusterView.rows must be 16-byte aligned (read as float4)")
-    return boxes
+        raise ValueError(f"{type(cl).__name__}.rows must be 16-byte aligned (read as float4)")
+    if not tree:
+        boxes = cl.boxes().contiguous()
+        check_cuda_tensor(boxes, "boxes", torch.float32, 2, dev)
+        if boxes.shape[0] != 6 or boxes.shape[1] < c_pad:
+            raise ValueError(f"malformed {type(cl).__name__}: boxes (6, Cp >= C)")
+        return boxes
+    check_cuda_tensor(cl.nodes, "nodes", torch.float32, 2, dev)
+    check_cuda_tensor(cl.key_norm, "key_norm", torch.float32, 1, dev)
+    if (cl.nodes.shape[1] != 16 or cl.key_norm.shape[0] != 6
+            or not 1 <= int(cl.depth) <= MAX_STACK):
+        raise ValueError(f"malformed ClusterView: nodes (n, 16), key_norm (6,), depth in "
+                         f"[1, {MAX_STACK}]")
+    if cl.nodes.data_ptr() % 16:
+        raise ValueError("ClusterView.nodes must be 16-byte aligned (read as float4)")
+    return None
 
 
-def _kernel_args(cl: ClusterView, o: Vec3, d: Vec3, tmin, tmax, active):
-    """K5's checked launch inputs, held by the caller until the launch is
-    enqueued, and the box stride Cp."""
-    boxes = _table_args(cl, o.x.device, tree=True)
-    return [*_ray_args(o, d, tmin, tmax, active), cl.node_box, cl.node_ref, boxes], \
-        boxes.shape[1]
+def _launch_args(cl: ClusterView, o: Vec3, d: Vec3, tmin, tmax, active) -> list:
+    """K5's checked launch inputs up to n, held by the caller until the
+    launch is enqueued: the rays, the permutation from the co-sort (0, the
+    identity, below SORT_MIN rays; the sort key is key_kernel's, launched
+    here), the node records, the rows, the counts and the tree's depth."""
+    dev, n = o.x.device, o.x.shape[0]
+    _table_args(cl, dev, tree=True)
+    rays = _ray_args(o, d, tmin, tmax, active)
+    perm = torch.argsort(_key(cl, rays), stable=True) if n >= SORT_MIN else None
+    return [*rays, perm, cl.nodes, cl.rows, cl.count, int(cl.depth), n]
+
+
+def _key(cl: ClusterView, rays: list) -> Tensor:
+    """key_kernel's sort key of the checked rays (_ray_args)."""
+    n, dev = rays[0].shape[0], rays[0].device
+    key = torch.empty(n, dtype=torch.int32, device=dev)
+    KEY.launch(dev, *(a.data_ptr() for a in rays), cl.key_norm.data_ptr(), n, key.data_ptr())
+    return key
+
+
+def sort_key(clusters: ClusterView, o: Vec3, d: Vec3, tmin, tmax,
+             active: Optional[Tensor] = None) -> Tensor:
+    """The co-sort key of each ray (int32), as the frontier wrappers sort by
+    it: key_kernel on CUDA tensors, _sort_key_plain on CPU tensors."""
+    tmin, tmax, active = _lane_args(o, tmin, tmax, active)
+    if o.x.device.type == "cpu":
+        return _sort_key_plain(clusters, o, d, tmin, tmax, active)
+    _table_args(clusters, o.x.device, tree=True)
+    return _key(clusters, _ray_args(o, d, tmin, tmax, active))
+
+
+def _ptrs(args: list) -> list:
+    return [a if isinstance(a, int) else 0 if a is None else a.data_ptr() for a in args]
 
 
 def trace_closest_frontier(clusters: ClusterView, o: Vec3, d: Vec3, tmin, tmax,
@@ -261,11 +326,10 @@ def trace_closest_frontier(clusters: ClusterView, o: Vec3, d: Vec3, tmin, tmax,
         t, tri = _closest_plain(clusters, o, d, tmin, tmax, active)
     else:
         n, dev = o.x.shape[0], o.x.device
-        args, cp = _kernel_args(clusters, o, d, tmin, tmax, active)
+        args = _launch_args(clusters, o, d, tmin, tmax, active)
         t = torch.empty(n, dtype=torch.float32, device=dev)
         tri = torch.empty(n, dtype=torch.int32, device=dev)
-        CLOSEST.launch(dev, *(a.data_ptr() for a in args), cp, clusters.rows.data_ptr(),
-                       clusters.count.data_ptr(), n, t.data_ptr(), tri.data_ptr())
+        CLOSEST.launch(dev, *_ptrs(args), t.data_ptr(), tri.data_ptr())
     if with_uv:
         u, v = _recompute_uv(clusters, o, d, tri)
     else:
@@ -280,8 +344,7 @@ def trace_any_frontier(clusters: ClusterView, o: Vec3, d: Vec3, tmin, tmax,
     if o.x.device.type == "cpu":
         return _any_plain(clusters, o, d, tmin, tmax, active)
     n, dev = o.x.shape[0], o.x.device
-    args, cp = _kernel_args(clusters, o, d, tmin, tmax, active)
+    args = _launch_args(clusters, o, d, tmin, tmax, active)
     occ = torch.empty(n, dtype=torch.bool, device=dev)
-    ANY.launch(dev, *(a.data_ptr() for a in args), cp, clusters.rows.data_ptr(),
-               clusters.count.data_ptr(), n, occ.data_ptr())
+    ANY.launch(dev, *_ptrs(args), occ.data_ptr())
     return occ

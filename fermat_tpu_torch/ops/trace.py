@@ -37,6 +37,11 @@ ANY = CudaKernel(
 
 
 def _lanes(x, n: int, device) -> Tensor:
+    """(n,) float32 lanes of a tensor or a Python number. A number becomes a
+    fill on the device: copying it from the host would wait for the
+    stream at every tracer call."""
+    if isinstance(x, (int, float)):
+        return torch.full((n,), x, dtype=torch.float32, device=device)
     return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n).contiguous()
 
 

@@ -131,6 +131,44 @@ def test_frontier_kernels_match_plain_on_card(dev, scene):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dead_lanes", "tmax_inf", "all_dead"])
+def test_frontier_kernels_with_the_sort_match_plain_on_card(dev, case):
+    """K5a/K5b over rays the wrappers co-sort (more than 4 blocks, a ragged
+    last warp), bit for bit against the plain versions: lanes dead by the
+    mask and by tmax <= tmin, tmax = inf, and a launch where every lane is
+    dead; the sort key kernel equal to its plain version."""
+    cl = build_clusters(big_room(400).device_view(dev))
+    n = 4 * ft.SORT_MIN + 77
+    o, d, active, tmax = _rays(n, 0.0, 1.0, dev, seed=5)
+    lo, hi = torch.tensor([-8.0, 0.0, -8.0], device=dev), torch.tensor([8.0] * 3, device=dev)
+    o = Vec3(*(lo[k] + (hi[k] - lo[k]) * c for k, c in enumerate(o)))
+    tmin = trace_mod._lanes(1e-4, n, dev)
+    tmax = tmax * 4.0
+    if case == "dead_lanes":
+        tmax[::7] = 0.0  # tmax <= tmin: dead although active
+    elif case == "tmax_inf":
+        tmax = torch.full((n,), float("inf"), device=dev)
+    else:
+        active = torch.zeros(n, dtype=torch.bool, device=dev)
+    key = ft.sort_key(cl, o, d, tmin, tmax, active)
+    assert torch.equal(key, ft._sort_key_plain(cl, o, d, tmin, tmax, active))
+    before = (ft.KEY.launches, ft.CLOSEST.launches, ft.ANY.launches)
+    hit = ft.trace_closest_frontier(cl, o, d, tmin, tmax, active, with_uv=False)
+    occ = ft.trace_any_frontier(cl, o, d, tmin, tmax, active)
+    assert (ft.KEY.launches, ft.CLOSEST.launches, ft.ANY.launches) == tuple(
+        b + k for b, k in zip(before, (2, 1, 1)))
+    t_ref, tri_ref = ft._closest_plain(cl, o, d, tmin, tmax, active)
+    occ_ref = ft._any_plain(cl, o, d, tmin, tmax, active)
+    torch.cuda.synchronize()
+    assert torch.equal(hit.tri, tri_ref) and torch.equal(_bits(hit.t), _bits(t_ref))
+    assert torch.equal(occ, occ_ref)
+    if case == "all_dead":
+        assert bool((hit.tri == -1).all()) and not bool(occ.any())
+    else:
+        assert (hit.tri >= 0).any() and occ.any() and not occ.all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_rows,cols", [(2, 23), (544, 23), (5000, 7)])
 def test_cdf_pick_kernel_matches_plain_on_card(dev, n_rows, cols):
     g = torch.Generator(device=dev).manual_seed(n_rows)
