@@ -92,7 +92,8 @@ result is printed then):
                 of tests/test_torch_pt.py;
   5b. parity  — K3a at 512x512 against _mega_plain (rays equal, images
                 close), and K3b at 512x512 on the train step's own adjoint
-                against _mega_grad_plain (within 1e-3 of max|g|): the kernels
+                against _mega_grad_plain (within 1e-3 of max|g|; two
+                launches give the same bits): the kernels
                 line's max_abs_err is from these main-path shapes; the card's
                 K3a and K3b at every configuration of
                 tests/golden/torch_port_mega_32.npz (the JAX megakernel's CPU
@@ -114,10 +115,14 @@ result is printed then):
                 operations the inputs need; K3a and K3b at 512x512 likewise
                 (the train step's instance and adjoint),
                 their bound from the 27 output lanes (K3b: the adjoint in,
-                the partials out) plus the tables, and 46 flops per
-                ray-triangle test (closest rays test every triangle, shadow
-                rays up to their first hit). That bound leaves out the
-                shading arithmetic, so it is a lower bound. K4 and K5 at the
+                the partials out) plus the tables, and the FP32 operations
+                of the pass's events (MEGA_FLOPS: 46 flops per ray-triangle
+                test, closest rays testing every triangle and shadow rays up
+                to their first hit, plus each vertex's shading, NEE sample,
+                scatter and K3b term, the events counted from the plain
+                version's pass); the tests alone (a tracing-only lower
+                bound) and the bound without E(|w.z|)'s 32-knot sums are
+                logged beside it, not in the kernels line. K4 and K5 at the
                 inputs of one monolithic big_room pass, every launch
                 replayed, their plain versions too, and every launch's
                 output held to its plain version's (bit-equal; the kernels
@@ -154,7 +159,9 @@ Then the card's nvidia-smi line, one JSON line {"kernels": [...]}, and last
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -172,6 +179,39 @@ ALL_LOBES = (True, True, True, True)
 # FP32 arithmetic operations of one Moller-Trumbore ray-triangle test as
 # written in ops/csrc/trace.cu:hit_test (comparisons not counted)
 FLOPS_PER_TEST = 46
+# FP32 operations of K3a/K3b per event, counted from ops/csrc/mega.cu's
+# __device__ functions (+, -, *, /, sqrtf, rsqrtf, sinf, cosf one each;
+# comparisons, clamps, fabsf, selects and integer hashing not counted) for
+# the main path's option switches (mega.cu MEGA_MAIN_SWITCHES: the diffuse
+# and glossy reflection lobes, no clearcoat, NEE and MIS at every vertex, RR),
+# each term once where a vertex shares it (E(|wi.z|) and the
+# lobe-selection probabilities once a vertex; K3b's d f / d diffuse from the
+# lobe values f was built from); PERF.md section 6 lists the terms of each.
+# MEGA_FLOPS_SOURCE is mega_source_digest() of the mega.cu they were counted
+# from: mega_ops (and tests/test_torch_mega.py) fail when the device code
+# changes, until it is recounted and the digest set anew
+MEGA_FLOPS = {
+    "camera": 35,  # begin_path: 2 samples, the film point, the direction, normalize
+    "vertex": 207,  # a hit: position, shading normal, frame_of, to_local 75; vertex_terms 132
+    "gbuffer": 10,  # the first vertex's uv
+    "emit_first": 9,  # the first vertex's emission, routed
+    "emit": 22,  # a later vertex's emission with its MIS weight
+    "nee": 342,  # sample_3d, the light point, wo, to_local 56; f_split 275; pdf, MIS 11
+    "shadow": 15,  # an able shadow ray's origin and t_lim (its tests counted apart)
+    "lit_first": 20,  # an unoccluded first-vertex NEE term, split into two channels
+    "lit": 17,  # a later one
+    "scatter": 341,  # sample_3d 9, bsdf_sample 298 (diffuse lobe), to_world, origin 34
+    "rr": 7,  # Russian roulette's sample and 1/q
+    "g_miss": 6,  # K3b: the adjoint-weighted environment term
+    "g_emit": 9,  # K3b: the adjoint-weighted emission term
+    "g_nee": 21,  # K3b: kd/f and the NEE vertex's own term (add_g counted apart)
+    "g_u": 9,  # K3b: a surviving vertex's kd/f into U
+}
+MEGA_FLOPS_PER_MAT = 6  # K3b add_g: 3 mul + 3 add per material at each miss, emission, lit NEE
+# e_pwl's 32-knot sum (3 a knot), inside "vertex" (E(|wi.z|)), "nee" and
+# "scatter" (E(|wo.z|)); reported apart, the bound without it beside the bound
+MEGA_FLOPS_PWL = 96
+MEGA_FLOPS_SOURCE = "b7dc1808c0270e53"
 # published H100 peaks (NVIDIA data sheets): memory bytes/s, FP32 (non-tensor) flop/s
 PEAKS = {"SXM": (3.35e12, 67e12), "PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12)}
 # phase 6: replays a kernel is timed over, and the bytes written between
@@ -391,6 +431,85 @@ def best_batches(ctx, passes: int = PASSES, narrow: bool = False):
     return best, best_rays
 
 
+def first_hit_tests(tris, o, d, tmax, active) -> float:
+    """Ray-triangle tests an any-hit ray needs: up to its first hit."""
+    import torch
+
+    from fermat_tpu_torch.ops import trace as trace_mod
+
+    tt, _, _, inside = trace_mod._mt(tris, o, d)
+    ok = inside & (tt > 0.0) & (tt < tmax[:, None])
+    first = torch.where(ok.any(1), ok.int().argmax(1) + 1, tris.shape[1])
+    return float(first[active].sum())
+
+
+def mega_source_digest() -> str:
+    """sha256 (16 hex digits) of mega.cu's device code, the text before its
+    host code (opts_of), with comments and whitespace taken out."""
+    src = (ROOT / "fermat_tpu_torch" / "ops" / "csrc" / "mega.cu").read_text()
+    code = src[:src.index("\nOpts opts_of(")]
+    code = re.sub(r"\s+", "", re.sub(r"//[^\n]*|/\*.*?\*/", "", code, flags=re.S))
+    return hashlib.sha256(code.encode()).hexdigest()[:16]
+
+
+def mega_events(tb, opts, res: int, n: int, inst: int) -> list:
+    """Per vertex b of one mega pass, as the plain version counts it on the
+    card: [(rays alive, hits, closest tests, able shadow rays, occluded,
+    shadow tests up to the first hit)]. Its rays equal the kernel's."""
+    from fermat_tpu_torch.ops import pt_mega
+    from fermat_tpu_torch.ops import trace as trace_mod
+
+    closest, shadow = [], []
+
+    def rec_closest(tris, o, d, tmin, tmax, active):
+        hit = trace_mod._closest_plain(tris, o, d, tmin, tmax, active)
+        alive = float(active.sum())
+        closest.append((alive, float(((hit.tri >= 0) & active).sum()), alive * tris.shape[1]))
+        return hit
+
+    def rec_any(tris, o, d, tmin, tmax, active):
+        occ = trace_mod._any_plain(tris, o, d, tmin, tmax, active)
+        shadow.append((float(active.sum()), float((occ & active).sum()),
+                       first_hit_tests(tris, o, d, tmax, active)))
+        return occ
+
+    with patched([(pt_mega, "_closest_plain", rec_closest), (pt_mega, "_any_plain", rec_any)]):
+        pt_mega._mega_plain(tb, opts, res, n, inst, 0)
+    check(len(closest) == len(shadow), "mega_events: a vertex without its NEE")
+    return [c + s for c, s in zip(closest, shadow)]
+
+
+def mega_ops(events: list, n: int, n_mats: int, opts) -> dict:
+    """FP32 operations one pass needs (MEGA_FLOPS times the events): K3a's,
+    K3b's, and the ray-triangle tests alone (a tracing-only lower bound). The
+    scatter of the last vertex is not counted: its direction is never used."""
+    from fermat_tpu_torch.ops import pt_mega
+
+    check(pt_mega.main_switches(opts),
+          f"MEGA_FLOPS counts the main path's switches, not {pt_mega._opt_vector(opts)}")
+    digest = mega_source_digest()
+    check(digest == MEGA_FLOPS_SOURCE, "mega.cu's device code changed since MEGA_FLOPS was "
+          f"counted: recount it, then set MEGA_FLOPS_SOURCE = {digest!r}")
+    f, last = MEGA_FLOPS, len(events) - 1
+    tests = sum(e[2] + e[5] for e in events) * FLOPS_PER_TEST
+    hits = sum(e[1] for e in events)
+    lit = [e[3] - e[4] for e in events]
+    scat = sum(e[1] for b, e in enumerate(events) if b < last)
+    rr = sum(e[1] for b, e in enumerate(events) if opts.rr_start_bounce <= b < last and b > 0)
+    radiance = (n * f["camera"] + tests + hits * (f["vertex"] + f["nee"])
+                + events[0][1] * f["emit_first"] + (hits - events[0][1]) * f["emit"]
+                + sum(e[3] for e in events) * f["shadow"] + lit[0] * f["lit_first"]
+                + sum(lit[1:]) * f["lit"] + scat * f["scatter"] + rr * f["rr"])
+    per_mat = MEGA_FLOPS_PER_MAT * n_mats
+    misses = sum(e[0] - e[1] for e in events)
+    survivors = sum(events[b + 1][0] for b in range(last))
+    grad = (radiance + misses * (f["g_miss"] + per_mat) + hits * (f["g_emit"] + per_mat)
+            + sum(lit) * (f["g_nee"] + per_mat) + survivors * f["g_u"])
+    return {"forward": radiance + events[0][1] * f["gbuffer"], "grad": grad, "tests": tests,
+            "pwl": (2 * hits + scat) * MEGA_FLOPS_PWL, "hits": hits, "lit": sum(lit),
+            "misses": misses, "survivors": survivors}
+
+
 def lanes_close(got, want) -> tuple:
     """image_close on (3, N) lane blocks of the megakernel's output."""
     return image_close(got.t().cpu().numpy(), want.t().cpu().numpy())
@@ -474,7 +593,7 @@ def main() -> int:
         + ", ".join(f"{s} {r.seconds:.1f} s" for s, r in built.items()))
     for r in built.values():
         for line in r.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"    ptxas {r.source}: {line.split(':', 1)[-1].strip()}")
 
     # ---- 3. kernel vs plain on the card ----
@@ -1204,15 +1323,17 @@ def main() -> int:
         f"diff| {max_err['mega_forward']:.3g}")
     del out_k, out_p
     g = pt_mega._mega_grad(t_tb, t_opts, RES, n_full, t_inst, 0, t_adj)
+    g_again = pt_mega._mega_grad(t_tb, t_opts, RES, n_full, t_inst, 0, t_adj)
     g_ref = pt_mega._mega_grad_plain(t_tb, t_opts, RES, n_full, t_inst, 0, t_adj)
     torch.cuda.synchronize()
     scale, err = float(g_ref.abs().max()), float((g - g_ref).abs().max())
     check(scale > 0.0 and err <= 1e-3 * scale,
           f"mega_grad {RES}x{RES}: max err {err} vs max|g| {scale}")
+    check(torch.equal(bits(g), bits(g_again)), f"mega_grad {RES}x{RES}: two launches differ")
     max_err["mega_grad"] = err
     log(f"[5b parity] mega_grad {RES}x{RES} mpl={MPL} on the train step's adjoint (instance "
         f"{t_inst}, MSE vs 0) vs _mega_grad_plain: max |g - plain| {err:.3g} = "
-        f"{err / scale:.2e} of max|g| {scale:.4g}")
+        f"{err / scale:.2e} of max|g| {scale:.4g}; two launches bit-equal")
 
     gm = np.load(ROOT / "tests" / "golden" / "torch_port_mega_32.npz")
     mres, mseed = int(gm["res"]), int(gm["seed"])
@@ -1354,13 +1475,6 @@ def main() -> int:
         pt.render_pass(ctx.view, opts, RES, RES, 2000, 0)
     torch.cuda.synchronize()
 
-    def first_hit_tests(tris, o, d, tmax, active) -> float:
-        """Ray-triangle tests an any-hit ray needs: up to its first hit."""
-        tt, _, _, inside = trace_mod._mt(tris, o, d)
-        ok = inside & (tt > 0.0) & (tt < tmax[:, None])
-        first = torch.where(ok.any(1), ok.int().argmax(1) + 1, tris.shape[1])
-        return float(first[active].sum())
-
     rows = []
     for kname, kern in dense.items():
         plain_ms = lib_ms = bound = 0.0
@@ -1424,37 +1538,32 @@ def main() -> int:
             f"{rows[-1]['bound_by']}) over the {nc} launches of one pass; {sorted(shapes)}")
 
     # the megakernels at the main path's inputs; the bound counts what this
-    # pass's paths need: every closest ray tests all triangles, every shadow
-    # ray tests up to its first hit (recorded from the plain version's pass,
-    # whose rays equal the kernel's)
-    traced = {"closest": 0.0, "shadow": 0.0}
-
-    def rec_closest(tris, o, d, tmin, tmax, active):
-        traced["closest"] += float(active.sum()) * tris.shape[1]
-        return trace_mod._closest_plain(tris, o, d, tmin, tmax, active)
-
-    def rec_any(tris, o, d, tmin, tmax, active):
-        traced["shadow"] += first_hit_tests(tris, o, d, tmax, active)
-        return trace_mod._any_plain(tris, o, d, tmin, tmax, active)
-
+    # pass's paths need (MEGA_FLOPS per event, the events counted from the
+    # plain version's pass, whose rays equal the kernel's): every closest ray
+    # tests all triangles, every shadow ray up to its first hit, and each
+    # vertex, NEE sample, scatter and K3b term its shading arithmetic. The
+    # tracing-only count, the bound before the shading was counted, is
+    # reported beside it as a lower bound.
     inst_t = t_inst
-    with patched([(pt_mega, "_closest_plain", rec_closest), (pt_mega, "_any_plain", rec_any)]):
-        pt_mega._mega_plain(m_tb, m_opts, RES, n_full, inst_t, 0)
+    events = mega_events(m_tb, m_opts, RES, n_full, inst_t)
     torch.cuda.synchronize()
-    tests = traced["closest"] + traced["shadow"]
+    m_ops = mega_ops(events, n_full, m_tb.n_mats, m_opts)
     table_bytes = 4 * sum(t.numel() for t in (m_tb.tri, m_tb.mat, m_tb.light, m_tb.cam))
     blocks = -(-n_full // pt_mega.BLOCK)
-    for kname, f_k, f_p, byt, n_launch, per in (
+    for kname, f_k, f_p, byt, ops, n_launch, per in (
             ("mega_forward", lambda: pt_mega._mega_forward(m_tb, m_opts, RES, n_full, inst_t, 0),
              lambda: pt_mega._mega_plain(m_tb, m_opts, RES, n_full, inst_t, 0),
-             pt_mega.N_OUT * n_full * 4 + table_bytes, m_launches["mega_forward"], n_main),
+             pt_mega.N_OUT * n_full * 4 + table_bytes, m_ops["forward"],
+             m_launches["mega_forward"], n_main),
             ("mega_grad", lambda: pt_mega._mega_grad(m_tb, m_opts, RES, n_full, inst_t, 0, t_adj),
              lambda: pt_mega._mega_grad_plain(m_tb, m_opts, RES, n_full, inst_t, 0, t_adj),
-             n_full * 12 + blocks * m_tb.n_mats * 12 + table_bytes, t_launches["mega_grad"],
-             REPS)):
+             n_full * 12 + blocks * m_tb.n_mats * 12 + table_bytes, m_ops["grad"],
+             t_launches["mega_grad"], REPS)):
         t = per_launch(device_ms(f_k), 1)
         plain_ms = profiled(f_p)[1]
-        b_bytes, b_ops = byt / bw * 1e3, tests * FLOPS_PER_TEST / fp32 * 1e3
+        b_bytes, b_ops = byt / bw * 1e3, ops / fp32 * 1e3
+        tests_ms = m_ops["tests"] / fp32 * 1e3
+        no_pwl_ms = (ops - m_ops["pwl"]) / fp32 * 1e3
         kern = mega[kname]
         if kname == "mega_forward":  # its device time in phase 4b's profiled pass
             t["in_pass_ms"] = sum(in_pass["mega_forward"]) / len(in_pass["mega_forward"])
@@ -1470,15 +1579,21 @@ def main() -> int:
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
             "library_ms": None,
             "shapes": [f"{RES}x{RES} pixels, mpl {MPL}, {m_tb.n_tris} tris, "
-                       f"{traced['closest']:.0f} closest + {traced['shadow']:.0f} shadow tests"],
+                       f"{sum(e[2] for e in events):.0f} closest + "
+                       f"{sum(e[5] for e in events):.0f} shadow tests, {m_ops['hits']:.0f} "
+                       f"vertices, {m_ops['lit']:.0f} lit NEE samples"],
         })
         log(f"[6 timing] {kname}: {fmt_times(t)}/launch"
             + (f", {t['in_pass_ms'] * 1e3:.2f} us inside the profiled pass"
                if "in_pass_ms" in t else "") + f" (plain {plain_ms * 1e3:.1f} us, "
             f"bound {max(b_bytes, b_ops) * 1e3:.2f} us by {rows[-1]['bound_by']}: "
-            f"{byt / 1e6:.2f} MB, {tests * FLOPS_PER_TEST / 1e9:.3f} GFLOP of ray-triangle "
-            f"tests, shading not counted) at {RES}x{RES}, {n_launch / per:g} launch per "
-            f"{'pass' if kname == 'mega_forward' else 'step'}")
+            f"{byt / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP, of which ray-triangle tests "
+            f"{m_ops['tests'] / 1e9:.4f} (alone {tests_ms * 1e3:.2f} us), of which E(|w.z|) "
+            f"32-knot sums {m_ops['pwl'] / 1e9:.4f} (without them {no_pwl_ms * 1e3:.2f} us); "
+            f"per vertex b "
+            f"(alive, hits, closest tests, shadow rays, occluded, shadow tests): "
+            f"{[tuple(int(x) for x in e) for e in events]}) at {RES}x{RES}, "
+            f"{n_launch / per:g} launch per {'pass' if kname == 'mega_forward' else 'step'}")
 
     # the large-scene kernels at the big_room main path's inputs (one
     # monolithic 1600x896 pass, every launch replayed): each launch's kernel

@@ -60,6 +60,7 @@ from fermat_tpu_torch.core.camera import camera_frame
 from fermat_tpu_torch.core.math import Vec3, dot, normalize, orthonormal_basis, to_local, to_world
 from fermat_tpu_torch.core.rng import M32, TiledSequence
 from fermat_tpu_torch.core.sampling import power_heuristic, square_to_uniform_triangle
+from fermat_tpu_torch.ops import _cuda
 from fermat_tpu_torch.ops._cuda import I, P, CudaKernel, check_cuda_tensor
 from fermat_tpu_torch.ops.gather import _gather_plain
 from fermat_tpu_torch.ops.trace import _any_plain, _closest_plain
@@ -74,7 +75,7 @@ _BIG = 3.0e38
 _E_KNOTS = 32
 N_OUT = 27  # ld xyz, lf xyz, ls xyz, depth, hit, n xyz, p xyz, uv, mat, da xyz, sa xyz, rays
 TRI_COLS, MAT_COLS, LIGHT_COLS, CAM_COLS = 53, 52, 17, 24
-BLOCK = 128  # threads per block of both kernels (mega.cu kBlock)
+BLOCK = 128  # mega.cu kBlock; K3b's partial buffer has a row per BLOCK pixels
 N_OPTS = 14
 
 FORWARD = CudaKernel(
@@ -213,6 +214,16 @@ def _opt_vector(opts) -> list:
                               opts.direct_lighting_bsdf, opts.indirect_lighting_nee,
                               opts.indirect_lighting_bsdf, opts.visible_lights,
                               max(opts.max_path_length, 1))]
+
+
+def main_switches(opts) -> bool:
+    """Whether K3a/K3b run these options on their build with the main
+    path's option switches as constants (mega.cu `MEGA_MAIN_SWITCHES`);
+    asks the built library, so it needs the CUDA toolchain."""
+    fn = _cuda._library(FORWARD.source).fermat_mega_main_switches
+    fn.argtypes, fn.restype = [P], I
+    ov = (ctypes.c_int * N_OPTS)(*_opt_vector(opts))
+    return bool(fn(ctypes.addressof(ov)))
 
 
 # ---------------------------------------------------------------------------
@@ -525,7 +536,8 @@ def _mega_forward(tb: MegaTables, opts, res_x: int, n: int, instance: int,
 def _mega_grad(tb: MegaTables, opts, res_x: int, n: int, instance: int, seed: int,
                adjoint: Tensor) -> Tensor:
     """K3b: (M, 3) d loss / d diffuse. The kernel reduces each block in
-    shared memory into a (blocks, M, 3) partial buffer, summed here."""
+    shared memory into a row of a (blocks, M, 3) partial buffer, summed here;
+    its persistent grid fills the first rows and writes zeros in the rest."""
     if tb.tri.device.type == "cpu":
         return _mega_grad_plain(tb, opts, res_x, n, instance, seed, adjoint)
     dev = tb.tri.device

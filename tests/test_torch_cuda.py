@@ -16,9 +16,11 @@ the image tolerances of tests/test_torch_pt.py and equal `rays`: a path is
 a long chain of transcendental calls and data-dependent branches, so one
 ulp anywhere may move a lobe pick on a few pixels.
 """
+import copy
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -328,6 +330,86 @@ def test_mega_grad_matches_plain_on_card(dev, scene, lobes):
     torch.cuda.synchronize()
     scale = float(ref.abs().max())
     assert scale > 0.0
+    assert float((g - ref).abs().max()) <= 1e-3 * scale
+
+
+def _cornell_16_materials():
+    """The glossy CornellBox with its 36 triangles spread over 16 materials
+    (GRAD_M_MAX): the boxes' 24 triangles go over the box material and 11
+    copies of it with other diffuse colours, two triangles each, one of
+    each box, so that each material has a triangle the camera sees (each
+    box's last two lie on the floor)."""
+    storage = cornell_box(glossy_boxes=True)
+    box = storage.materials[4]
+    for k in range(11):
+        m = copy.deepcopy(box)
+        m.name = f"box{k}"
+        m.diffuse = tuple(0.3 + 0.05 * k + 0.02 * c for c in range(3))
+        storage.materials.append(m)
+    ids = storage.material_ids.copy()
+    boxes = np.flatnonzero(ids == 4)
+    k = np.arange(boxes.size)
+    ids[boxes] = 4 + np.where(k < 12, k, (k - 6) % 12)
+    storage.material_ids = ids
+    assert len(storage.materials) == pt_mega.GRAD_M_MAX
+    return storage
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res_x,res_y", [(100, 37), (16, 16), (300, 301)])
+def test_mega_forward_matches_plain_at_any_pixel_count_on_card(dev, res_x, res_y):
+    """K3a's persistent grid at 3,700 pixels (not a multiple of 128), 256
+    (fewer blocks than the grid holds) and 90,300 (more pixels than the
+    grid's threads, so lanes take further pixels): every pixel traced once
+    (a hit flag of +-1 and at least one ray in every lane) and the pass
+    held to its plain version."""
+    view = SceneView.build(cornell_box(glossy_boxes=True), cornell_camera(), dev)
+    opts = tpt.PTOptions(tracer="mega", max_path_length=6, lobes=(True, False, True, False))
+    tb = pt_mega.build_mega_tables(view, res_x, res_y, opts.ray_eps)
+    n = res_x * res_y
+    out = pt_mega._mega_forward(tb, opts, res_x, n, 5, 0)
+    ref = pt_mega._mega_plain(tb, opts, res_x, n, 5, 0)
+    torch.cuda.synchronize()
+    assert bool((out[10].abs() == 1.0).all()) and bool((out[26] >= 1.0).all())
+    assert float(out[26].sum()) == float(ref[26].sum())
+    for k in range(0, 9, 3):
+        assert _image_ok(out[k:k + 3], ref[k:k + 3])
+    assert float((out[10] == ref[10]).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+def test_mega_grad_two_launches_bit_equal_on_card(dev):
+    """K3b at the main path's 512x512 (lanes take several pixels each): the
+    pixel-to-lane assignment is static, so the sum is the same every run."""
+    res = 512
+    n = res * res
+    view = SceneView.build(cornell_box(glossy_boxes=True), cornell_camera(), dev)
+    opts = tpt.PTOptions(tracer="mega", max_path_length=6, lobes=(True, False, True, False))
+    tb = pt_mega.build_mega_tables(view, res, res, opts.ray_eps)
+    img = pt_mega._mega_forward(tb, opts, res, n, 3, 0)
+    adjoint = 2.0 * (img[0:3] + img[3:6] + img[6:9]).t().contiguous() / (n * 3)
+    g1 = pt_mega._mega_grad(tb, opts, res, n, 3, 0, adjoint)
+    g2 = pt_mega._mega_grad(tb, opts, res, n, 3, 0, adjoint)
+    torch.cuda.synchronize()
+    assert float(g1.abs().max()) > 0.0
+    assert torch.equal(_bits(g1), _bits(g2))
+
+
+@pytest.mark.cuda
+def test_mega_grad_at_sixteen_materials_matches_plain_on_card(dev):
+    res = 128
+    n = res * res
+    view = SceneView.build(_cornell_16_materials(), cornell_camera(), dev)
+    opts = tpt.PTOptions(tracer="mega", max_path_length=6, lobes=(True, False, True, False))
+    tb = pt_mega.build_mega_tables(view, res, res, opts.ray_eps)
+    assert tb.n_mats == pt_mega.GRAD_M_MAX
+    img = pt_mega._mega_forward(tb, opts, res, n, 2, 0)
+    adjoint = 2.0 * ((img[0:3] + img[3:6] + img[6:9]).t().contiguous() - 0.2) / (n * 3)
+    g = pt_mega._mega_grad(tb, opts, res, n, 2, 0, adjoint)
+    ref = pt_mega._mega_grad_plain(tb, opts, res, n, 2, 0, adjoint)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    assert scale > 0.0 and bool((ref.abs().sum(dim=1) > 0.0).all())  # every material seen
     assert float((g - ref).abs().max()) <= 1e-3 * scale
 
 

@@ -256,6 +256,21 @@ def test_context_drives_mega_and_gbuffer_miss(monkeypatch):
     assert np.isfinite(img).all() and img.mean() > 0.0
 
 
+def test_mega_flops_counts_this_kernel_source():
+    """chip_smoke.py's MEGA_FLOPS, K3's bound, is a hand count of mega.cu's
+    device functions; it names the digest of the device code it was counted
+    from, so an edit of that code fails here until the count is redone."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.mega_source_digest() == smoke.MEGA_FLOPS_SOURCE, (
+        "mega.cu's device code changed since chip_smoke.MEGA_FLOPS was counted: recount "
+        "it, then set MEGA_FLOPS_SOURCE")
+
+
 def write_golden() -> None:
     jv = _jax_view()
     assert tuple(jscene_lobes(jproc.cornell_box(glossy_boxes=True).materials)) == SCENE_LOBES
