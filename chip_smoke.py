@@ -11,7 +11,8 @@ result is printed then):
                 sub) for sm_90a, one nvcc per source, all started together;
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 trace_closest / trace_any on 262,144 random rays against the
-                CornellBox and random_soup(4096), gather_rows on (36, 52),
+                CornellBox and random_soup(4096) (trace_closest also with
+                every 7th lane active), gather_rows on (36, 52),
                 (36, 23) and (4096, 52) tables with out-of-range indices;
                 all bit-equal (the kernels are built with --fmad=false);
                 K2's backward (gather_rows_bwd, K2b) at the AD path's two
@@ -107,7 +108,9 @@ result is printed then):
                 and binned passes (tests/golden/
                 torch_port_bigroom_cluster_24.npz) on the card with each
                 tracer, within the same tolerances;
-  6. timing   — every launch of one main-path pass is replayed alone (device_ms:
+  6. timing   — every launch of one main-path pass is held to its plain
+                version (K1a's t/u/v bits and tri, K2 bit-equal, K1b equal)
+                and replayed alone (device_ms:
                 CUDA events around 20 replays queued behind a spin kernel,
                 median and min-max, warm and cold L2): device
                 time of the kernel, of its plain version and (gather only) of
@@ -130,6 +133,11 @@ result is printed then):
                 K5's kernel alone, its co-sort and its whole wrapper timed
                 apart, beside its device time in phase 4d's profiled pass
                 (K3a's beside 4b's);
+                K2 also at the 11 launches of the same big_room pass, each
+                held bit-equal to its plain version, with its plain
+                version's and index_select's times and its bytes bound
+                (the gather_rows row's at_big_room); K1a's time at each
+                launch of the CornellBox pass beside its active lanes;
                 K5's bound counts 46 flops for every real triangle of every
                 cluster a ray must enter (see phase 6's code), K4's is its
                 bytes; each plain version runs once a launch, under the
@@ -625,6 +633,15 @@ def main() -> int:
         err = max(float((a - b).abs().max()) for a, b in
                   ((hit.t, ref.t), (hit.u, ref.u), (hit.v, ref.v)))
         max_err["trace_closest"] = max(max_err["trace_closest"], err)
+        sparse = torch.arange(N_RAYS, device=dev) % 7 == 0  # K1a's compaction, few lanes
+        s_hit = trace_mod.trace_closest(tris, o, d, 1e-4, 3.0e38, sparse)
+        s_ref = trace_mod._closest_plain(tris, o, d, lanes(1e-4, N_RAYS),
+                                         lanes(3.0e38, N_RAYS), sparse)
+        torch.cuda.synchronize()
+        check(torch.equal(s_hit.tri, s_ref.tri) and all(
+            torch.equal(bits(a), bits(b)) for a, b in
+            ((s_hit.t, s_ref.t), (s_hit.u, s_ref.u), (s_hit.v, s_ref.v))),
+            f"trace_closest {scene}, every 7th lane active: not bit-equal to plain")
         occ = trace_mod.trace_any(tris, o, d, 0.0, tmax, active)
         occ_ref = trace_mod._any_plain(tris, o, d, lanes(0.0, N_RAYS), tmax, active)
         torch.cuda.synchronize()
@@ -1481,6 +1498,7 @@ def main() -> int:
         by_bytes = by_ops = 0.0
         times = {}
         shapes = set()
+        each, alive = [], []  # K1a: each launch's ms and active lanes
         for args in calls[kname]:
             if kname == "gather_rows":
                 table, idx = args
@@ -1497,19 +1515,38 @@ def main() -> int:
                 act = active if active is not None else torch.ones(n, dtype=torch.bool,
                                                                    device=dev)
                 tmin_l, tmax_l = lanes(tmin, n), lanes(tmax, n)
+                # bytes: every lane's flag in and result out (K1a's miss
+                # also reads tmax), the rays and the rest of tmin/tmax of
+                # the active lanes only, the soup once
+                n_act = float(act.sum())
                 if kname == "trace_closest":
-                    byt = n * (24 + 1 + 16) + 36 * t
-                    ops = float(act.sum()) * t * FLOPS_PER_TEST
+                    byt = n * (1 + 4 + 16) + n_act * (24 + 4) + 36 * t
+                    ops = n_act * t * FLOPS_PER_TEST
                     f_k = lambda: trace_mod.trace_closest(tris, o, d, tmin, tmax, active)
                     f_p = lambda: trace_mod._closest_plain(tris, o, d, tmin_l, tmax_l, act)
                 else:
-                    byt = n * (24 + 1 + 4 + 1) + 36 * t
+                    byt = n * (1 + 1) + n_act * (24 + 8) + 36 * t
                     ops = first_hit_tests(tris, o, d, tmax_l, act) * FLOPS_PER_TEST
                     f_k = lambda: trace_mod.trace_any(tris, o, d, tmin, tmax, active)
                     f_p = lambda: trace_mod._any_plain(tris, o, d, tmin_l, tmax_l, act)
                 f_l = None
                 shapes.add(f"{n} rays x {t} tris")
-            add_times(times, device_ms(f_k))
+            got, want = f_k(), f_p()
+            torch.cuda.synchronize()
+            if kname == "trace_closest":
+                pairs = [(got.tri, want.tri)] + [(bits(a), bits(b)) for a, b in (
+                    (got.t, want.t), (got.u, want.u), (got.v, want.v))]
+            else:
+                pairs = [(bits(got), bits(want)) if kname == "gather_rows" else (got, want)]
+            check(all(torch.equal(a, b) for a, b in pairs),
+                  f"{kname} at the main pass's inputs ({sorted(shapes)}): differs from its plain "
+                  "version")
+            del got, want, pairs
+            tk = device_ms(f_k)
+            add_times(times, tk)
+            if kname == "trace_closest":
+                each.append(tk["ms"])
+                alive.append(int(act.sum()))
             plain_ms += device_ms(f_p, reps=5, cold=False)["ms"]
             if f_l is not None:
                 lib_ms += device_ms(f_l, cold=False)["ms"]
@@ -1533,9 +1570,14 @@ def main() -> int:
             "library_ms": (lib_ms / nc) if kname == "gather_rows" else None,
             "shapes": sorted(shapes),
         })
+        if each:
+            rows[-1].update(ms_each_launch=each, active_lanes_each_launch=alive)
         log(f"[6 timing] {kname}: {fmt_times(t)}/launch (plain "
             f"{plain_ms / nc * 1e3:.1f} us, bound {bound / nc * 1e3:.2f} us by "
-            f"{rows[-1]['bound_by']}) over the {nc} launches of one pass; {sorted(shapes)}")
+            f"{rows[-1]['bound_by']}) over the {nc} launches of one pass, each equal to its "
+            f"plain version; {sorted(shapes)}"
+            + ("; each launch (us, active lanes): " + ", ".join(
+                f"{m * 1e3:.2f} ({a})" for m, a in zip(each, alive)) if each else ""))
 
     # the megakernels at the main path's inputs; the bound counts what this
     # pass's paths need (MEGA_FLOPS per event, the events counted from the
@@ -1606,7 +1648,7 @@ def main() -> int:
     # lies before its final hit, an unoccluded shadow ray every real triangle
     # of every cluster it enters, an occluded one at least the one triangle
     # that stops it (counted from the plain side's entries and hits)
-    lcalls = {n: [] for n in large}
+    lcalls = {n: [] for n in (*large, "gather_rows")}
 
     def lrecorder(name, fn):
         def wrapper(*args, **kw):
@@ -1614,7 +1656,9 @@ def main() -> int:
             return fn(*args, **kw)
         return wrapper
 
-    with patched([(pt, n, lrecorder(n, getattr(pt, n))) for n in large]):
+    with patched([(pt, n, lrecorder(n, getattr(pt, n))) for n in large]
+                 + [(m, "gather_rows", lrecorder("gather_rows", m.gather_rows))
+                    for m in (mesh_mod, lights_mod)]):
         pt.render_pass(bview, bopts, BIG_W, BIG_H, 2000, 0)
     torch.cuda.synchronize()
 
@@ -1757,6 +1801,44 @@ def main() -> int:
                f"needed per launch" if visits else "")
             + f") over the {nc} launches of one big_room pass, each equal to its plain "
             f"version (max abs err {err:.3g}); {sorted(shapes)}")
+
+    # K2 at the launches of the same big_room pass: each held bit-equal to its
+    # plain version and timed with it and index_select; bound: bytes (idx and
+    # the table once in, the rows out), in brackets beside the CornellBox's
+    a = dict(plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    times, each, shapes = {}, [], set()
+    for table, idx in lcalls["gather_rows"]:
+        n, (r, k) = idx.shape[0], table.shape
+        idx64 = idx.long()
+        f_k = lambda: gather_mod.gather_rows(table, idx)
+        f_p = lambda: gather_mod._gather_plain(table, idx)
+        got, want = f_k(), f_p()
+        torch.cuda.synchronize()
+        check(torch.equal(bits(got), bits(want)),
+              f"gather_rows at the big_room pass's inputs ({r}x{k}): not bit-equal to plain")
+        del got, want
+        tk = device_ms(f_k)
+        add_times(times, tk)
+        each.append(tk["ms"])
+        a["plain_ms"] += device_ms(f_p, reps=5, cold=False)["ms"]
+        a["library_ms"] += device_ms(lambda: table.index_select(0, idx64), cold=False)["ms"]
+        a["bound_ms"] += (n * 4 + r * k * 4 + n * k * 4) / bw * 1e3
+        shapes.add(f"table {r}x{k}, {n} idx")
+    nc = len(lcalls["gather_rows"])
+    check(nc > 0, "gather_rows: no launch captured in the big_room timing pass")
+    t = per_launch(times, nc)
+    big_k2 = {"launches": big["monolithic"]["launches"]["gather_rows"],
+              "launches_per_pass": big["monolithic"]["launches"]["gather_rows"] / n_big,
+              **{k: t[k] for k in ("ms", "ms_min", "ms_max", "cold_ms")},
+              **{k: v / nc for k, v in a.items()}, "ms_each_launch": each,
+              "shapes": sorted(shapes)}
+    next(r for r in rows if r["name"] == "gather_rows")["at_big_room"] = big_k2
+    log(f"[6 timing] gather_rows at the big_room pass: {fmt_times(t)}/launch (plain "
+        f"{big_k2['plain_ms'] * 1e3:.1f} us, index_select {big_k2['library_ms'] * 1e3:.1f} us, "
+        f"bound {big_k2['bound_ms'] * 1e3:.2f} us by bytes) over the {nc} launches of one "
+        f"big_room pass, each bit-equal to its plain version; each launch "
+        + ", ".join(f"{m * 1e3:.2f}" for m in each) + f" us; {sorted(shapes)}")
+    del lcalls["gather_rows"]
 
     # K6 and K7 at the inputs of one phase 4e pass (tracer="cluster", the
     # instance above; the binned pass traces the same rays, its images being

@@ -6,13 +6,26 @@
 // per-lane gather. A GPU thread can load any address, so this is a plain
 // gather: no matmul form, hence no TF32 or bf16 rounding can arise.
 //
-// Bound on H100: bytes. Per call it must read idx (4 B/row) and write the
-// output (4*K B/row); the table itself is tiny (<= 4096 rows). Design: one
-// thread per output element in a grid-stride loop, so neighbouring threads
-// store neighbouring addresses (coalesced); the table is staged once per
-// block in shared memory when it fits in 48 KB (the path's 36x52 table is
-// 7.5 KB), otherwise read through the read-only cache. An index outside
-// [0, R) yields a zero row, as the padded one-hot does (gather.py:56-72).
+// Bound on H100: bytes. Per call it must read idx (4 B/row) and the table
+// once, and write the output (4*K B/row). Design (gather_rows_kernel): a warp
+// copies a tile of 32 consecutive rows. Lane l loads the index of row l once;
+// the tile's output is 32 * q consecutive vectors (q = K/4 float4 a row when
+// K % 4 == 0 and both pointers are 16-byte aligned, else q = K floats),
+// and lane l copies vectors l, l + 32, ..., taking each row's index from
+// the lane that loaded it (a shuffle) and stepping (row, column) without an
+// integer division, so every store of the warp is 512 (or 128) consecutive
+// bytes. A row of one vector (the path's 1-column pdf) is copied a thread a
+// row instead, with no shuffle (the tile loop was measured slower there,
+// tools/torch_k2_k1_steps.py). The grid is the blocks that fit on the card at once (one wave at the
+// CornellBox's 262,144 rows), striding over the tiles beyond that (big_room's
+// 1,433,600). The table is read through L1/L2 (staging the path's 7.5 KB
+// table in shared memory was measured slower, tools/torch_k2_k1_steps.py).
+// An output larger than L2 is written with streaming stores (st.global.cs),
+// so that its stream (298 MB on big_room, 54.5 MB for the CornellBox's
+// 52-column rows) does not evict the table from L2; a smaller one, which
+// the pass's next kernels read back while it is still in L2, with plain
+// stores. An index outside [0, R) yields a zero row, as the padded one-hot
+// does (gather.py:56-72).
 //
 // K2b: its backward, d_table[r, :] = sum of g[n, :] over the lanes n with
 // idx[n] == r (lanes outside [0, R) add nothing). Replaces
@@ -40,32 +53,70 @@ namespace {
 
 constexpr int kBlock = 256;
 
-template <bool kStage>
+// V: float4 (q = cols / 4) or float (q = cols); kStream: streaming stores
+template <typename V, bool kStream>
 __global__ void __launch_bounds__(kBlock)
-gather_rows_kernel(const float* __restrict__ table, const int* __restrict__ idx,
-                   int rows, int cols, int total, float* __restrict__ out) {
-  extern __shared__ float staged[];
-  if constexpr (kStage) {
-    for (int k = threadIdx.x; k < rows * cols; k += blockDim.x) staged[k] = table[k];
-    __syncthreads();
-  }
-  const int stride = gridDim.x * blockDim.x;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
-    const int n = e / cols;
-    const int k = e - n * cols;
-    const int r = __ldg(idx + n);
-    float val = 0.0f;
-    if (r >= 0 && r < rows) {
-      if constexpr (kStage) {
-        val = staged[r * cols + k];
+gather_rows_kernel(const V* __restrict__ table, const int* __restrict__ idx, int rows, int q,
+                   int n, V* __restrict__ out) {
+  if (q == 1) {
+    for (int i = blockIdx.x * kBlock + threadIdx.x; i < n; i += gridDim.x * kBlock) {
+      const int ri = __ldg(idx + i);
+      V val{};
+      if (ri >= 0 && ri < rows) val = __ldg(table + ri);
+      if constexpr (kStream) {
+        __stcs(out + i, val);
       } else {
-        val = __ldg(table + r * cols + k);
+        out[i] = val;
       }
     }
-    out[e] = val;
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int r0 = lane / q, c0 = lane - r0 * q;  // the lane's first vector: (row, column)
+  const int dr = 32 / q, dc = 32 - dr * q;      // its step of 32 vectors
+  const int tiles = (n + 31) >> 5;
+  for (int tile = blockIdx.x * (kBlock / 32) + (threadIdx.x >> 5); tile < tiles;
+       tile += gridDim.x * (kBlock / 32)) {
+    const int row0 = tile << 5;
+    const int valid = min(32, n - row0);
+    const int mine = lane < valid ? __ldg(idx + row0 + lane) : -1;
+    V* dst = out + static_cast<size_t>(row0) * q;
+    int r = r0, c = c0;
+#pragma unroll 4
+    for (int f = lane; f < 32 * q; f += 32) {  // vector f of the tile: (r, c)
+      const int ri = __shfl_sync(0xffffffffu, mine, r);
+      if (r < valid) {
+        V val{};
+        if (ri >= 0 && ri < rows) val = __ldg(table + ri * q + c);
+        if constexpr (kStream) {
+          __stcs(dst + f, val);
+        } else {
+          dst[f] = val;
+        }
+      }
+      r += dr;
+      c += dc;
+      if (c >= q) {
+        c -= q;
+        ++r;
+      }
+    }
   }
 }
 
+template <typename V, bool kStream>
+cudaError_t launch_gather(const float* table, const int* idx, int rows, int q, int n,
+                          float* out, int sms, cudaStream_t stream) {
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, gather_rows_kernel<V, kStream>, kBlock, 0);
+  if (err != cudaSuccess) return err;
+  const int tiles = (n + 31) / 32;
+  const int blocks = min((tiles + kBlock / 32 - 1) / (kBlock / 32), max(per_sm, 1) * sms);
+  gather_rows_kernel<V, kStream><<<blocks, kBlock, 0, stream>>>(
+      reinterpret_cast<const V*>(table), idx, rows, q, n, reinterpret_cast<V*>(out));
+  return cudaGetLastError();
+}
 
 constexpr int kBwdChunk = 512;  // lanes per CTA (ops/gather.py BWD_CHUNK)
 constexpr int kBwdSmem = 96 * 1024;  // ops/gather.py BWD_SMEM
@@ -164,19 +215,23 @@ extern "C" int fermat_gather_rows(const float* table, const int* idx, int rows,
                                   cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int total = n * cols;
-  if (total == 0) return 0;
-  int blocks = (total + kBlock - 1) / kBlock;
-  if (blocks > 132 * 8) blocks = 132 * 8;  // grid-stride: ~8 blocks per SM
-  const size_t table_bytes = static_cast<size_t>(rows) * cols * sizeof(float);
-  if (table_bytes <= 48 * 1024) {
-    gather_rows_kernel<true><<<blocks, kBlock, table_bytes, stream>>>(
-        table, idx, rows, cols, total, out);
+  if (n == 0 || cols == 0) return 0;
+  int sms = 0, l2 = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = cols % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(table) | reinterpret_cast<uintptr_t>(out)) &
+                    15u) == 0;
+  const bool big = static_cast<size_t>(n) * cols * sizeof(float) > static_cast<size_t>(l2);
+  if (vec) {
+    err = big ? launch_gather<float4, true>(table, idx, rows, cols / 4, n, out, sms, stream)
+              : launch_gather<float4, false>(table, idx, rows, cols / 4, n, out, sms, stream);
   } else {
-    gather_rows_kernel<false><<<blocks, kBlock, 0, stream>>>(
-        table, idx, rows, cols, total, out);
+    err = big ? launch_gather<float, true>(table, idx, rows, cols, n, out, sms, stream)
+              : launch_gather<float, false>(table, idx, rows, cols, n, out, sms, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // g (n, cols) f32 cotangent, idx (n,) i32 -> out (rows, cols) f32 d_table.

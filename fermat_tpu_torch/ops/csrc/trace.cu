@@ -4,11 +4,11 @@
 // Replaces fermat_tpu/ops/pallas_trace.py: _trace_kernel (:65, launched by
 // _trace_impl :146) and _any_kernel (:213, launched by _any_impl :264). The
 // Pallas kernels put rays on sublanes and 128 triangles on lanes and take a
-// lane argmin, because Mosaic has no per-lane control flow. Here each thread
-// owns one ray and walks the triangles in order, so the TPU layout is gone
+// lane argmin, because Mosaic has no per-lane control flow. Here a thread
+// owns a ray and walks the triangles in order, so the TPU layout is gone
 // while the function stays the same:
 //   * an inactive lane gets tmax = -1 and is a guaranteed miss
-//     (pallas_trace.py:198-200); it skips the loop;
+//     (pallas_trace.py:198-200); it is not traced;
 //   * a hit needs tmin < t < t_best; on equal t the lowest triangle index
 //     wins (the first column inside a tile, strict compares across tiles,
 //     pallas_trace.py:109-129): a strict `<` in index order is the same rule;
@@ -18,19 +18,50 @@
 // The arithmetic is written in the order of the plain PyTorch version and
 // built with --fmad=false, so both round identically on the card.
 //
-// Bound on H100: for the path's 36-triangle scene, bytes (8 floats + 1 flag
-// in, 16 bytes out per ray); for thousands of triangles, FP32 operations
-// (~45 per ray-triangle test). Design: the soup is staged through shared
-// memory 128 triangles at a time (9 floats each, read by all threads of the
-// block as broadcasts), so global memory sees each ray once and each
-// triangle once per block.
+// Bound on H100: for the path's 36-triangle scene, FP32 operations of the
+// active lanes (~46 per ray-triangle test) and, at few active lanes, bytes
+// (every lane's flag and tmax in and 16 bytes out, the ray and tmin of the
+// active lanes only); for thousands of triangles, operations.
+//
+// K1a's design (closest_kernel). The path calls it once a bounce on every
+// lane of the pass, and from the second bounce on most lanes are dead (13%
+// active at the fourth), scattered so that nearly every warp holds one:
+//   * a block compacts its lanes before tracing: a ballot per warp and the
+//     warps' counts give each active lane its place in a shared list, in
+//     lane order; a slot thread takes a ray of the list, loads it and
+//     writes its result back to that ray's own lane, so a warp with no ray
+//     left exits at once and the busy warps are full. A ray's bits do not
+//     depend on which thread traces it. Inactive lanes write the miss
+//     themselves. Nothing is read back to the host;
+//   * a block takes 256 lanes, one a thread; where the launch still gives
+//     two blocks an SM at 512 (the path's 262,144 lanes do), it takes 512,
+//     two a thread, and a thread traces two rays (sharing each record
+//     load) where the block has more rays than threads;
+//   * where a block has few active rays, g threads (2-8, as the block's
+//     threads allow) share a ray: each walks every g-th triangle, and a
+//     shuffle reduction keeps the nearest hit, the lowest index on equal t
+//     (the walk's own rule), so a late bounce's sparse blocks do not wait on
+//     one thread's walk over every triangle;
+//   * the triangles are staged as three float4 records each (p0, e1, e2;
+//     three 16-byte shared loads a test), up to kTileTris at once: a scene
+//     of one tile is staged once, with one barrier;
+//   * a test returns as soon as the det, u or v bound rejects it (the same
+//     decisions: u + v <= 1 with v >= 0 needs u <= 1, since rounding is
+//     monotone), and 1/det is __frcp_rn (IEEE round-to-nearest, the bits of
+//     1.0f / det).
+// K1b (any_kernel): one thread per lane; the soup staged 128 triangles at a
+// time as nine scalar rows, read by all threads of the block as broadcasts.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kBlock = 256;
-constexpr int kTile = 128;
+constexpr int kTile = 128;  // any-hit: triangles a staged tile
+// closest-hit: triangles staged at once (48 KB of records), and the most
+// threads that share a ray's triangles
+constexpr int kTileTris = 1024;
+constexpr int kSplit = 8;
 constexpr float kEpsDet = 1e-12f;
 
 struct Ray {
@@ -84,47 +115,184 @@ __device__ __forceinline__ Ray load_ray(const RayPtrs& p, int i) {
   return Ray{p.ox[i], p.oy[i], p.oz[i], p.dx[i], p.dy[i], p.dz[i]};
 }
 
+// Moller-Trumbore against one staged record (three float4: p0, e1, e2):
+// hit_test's operations in its order, returning at the first bound that
+// rejects; writes t, u, v only on a hit
+__device__ __forceinline__ bool closest_test(const float4* __restrict__ rec, const Ray& r,
+                                             float tmin, float tmax, float* t, float* u,
+                                             float* v) {
+  const float4 ra = rec[0], rb = rec[1], rc = rec[2];
+  const float p0x = ra.x, p0y = ra.y, p0z = ra.z;
+  const float e1x = rb.x, e1y = rb.y, e1z = rb.z;
+  const float e2x = rc.x, e2y = rc.y, e2z = rc.z;
+  const float pvx = r.dy * e2z - r.dz * e2y;
+  const float pvy = r.dz * e2x - r.dx * e2z;
+  const float pvz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  if (!(fabsf(det) > kEpsDet)) return false;
+  const float inv_det = __frcp_rn(det);
+  const float tvx = r.ox - p0x;
+  const float tvy = r.oy - p0y;
+  const float tvz = r.oz - p0z;
+  const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  if (!(uu >= 0.0f && uu <= 1.0f)) return false;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float vv = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv_det;
+  if (!(vv >= 0.0f && uu + vv <= 1.0f)) return false;
+  const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  if (!(tt > tmin && tt < tmax)) return false;
+  *t = tt;
+  *u = uu;
+  *v = vv;
+  return true;
+}
+
+// triangles [base, base + cnt) of the (9, T) soup as float4 records
+__device__ __forceinline__ void stage_records(float4* rec, const float* __restrict__ tris,
+                                              int n_tris, int base, int cnt) {
+  for (int c = threadIdx.x; c < cnt; c += kBlock) {
+    const float* t = tris + base + c;
+    rec[3 * c] = make_float4(t[0], t[n_tris], t[2 * n_tris], 0.0f);
+    rec[3 * c + 1] = make_float4(t[3 * n_tris], t[4 * n_tris], t[5 * n_tris], 0.0f);
+    rec[3 * c + 2] = make_float4(t[6 * n_tris], t[7 * n_tris], t[8 * n_tris], 0.0f);
+  }
+}
+
+// kRays: lanes a thread compacts (kBlock * kRays a block)
+template <int kRays>
 __global__ void __launch_bounds__(kBlock)
 closest_kernel(RayPtrs ray, const float* __restrict__ tmin,
                const float* __restrict__ tmax, const uint8_t* __restrict__ active,
                const float* __restrict__ tris, int n_tris, int n,
                float* __restrict__ t_out, int* __restrict__ tri_out,
                float* __restrict__ u_out, float* __restrict__ v_out) {
-  __shared__ float s[9][kTile];
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = i < n;
-  const bool work = live && active[i] != 0;
-  Ray r{};
-  float lo = 0.0f, t_best = -1.0f;
-  if (work) {
-    r = load_ray(ray, i);
-    lo = tmin[i];
-    t_best = tmax[i];
+  constexpr int kLanes = kBlock * kRays;
+  extern __shared__ float4 rec[];  // a tile of triangles, 3 records each
+  __shared__ int list[kLanes];     // the block's active lanes, in lane order
+  __shared__ int warp_n[kRays][kBlock / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int first = blockIdx.x * kLanes;
+  // thread t holds lanes first + t + k * kBlock
+  bool work[kRays];
+  unsigned ballot[kRays];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int i = first + k * kBlock + threadIdx.x;
+    const bool live = i < n;
+    work[k] = live && active[i] != 0;
+    if (live && !work[k]) {
+      t_out[i] = tmax[i];
+      tri_out[i] = -1;
+      u_out[i] = 0.0f;
+      v_out[i] = 0.0f;
+    }
+    ballot[k] = __ballot_sync(0xffffffffu, work[k]);
+    if (lane == 0) warp_n[k][warp] = __popc(ballot[k]);
   }
-  int best = -1;
-  float bu = 0.0f, bv = 0.0f;
-  for (int base = 0; base < n_tris; base += kTile) {
-    if (!__syncthreads_or(work)) break;  // no live ray left in this block
-    load_tile(s, tris, n_tris, base);
-    __syncthreads();
-    if (work) {
-      const int cnt = min(kTile, n_tris - base);
-      for (int c = 0; c < cnt; ++c) {
+  int cnt = min(kTileTris, n_tris);
+  stage_records(rec, tris, n_tris, 0, cnt);
+  __syncthreads();
+  int total = 0, before[kRays];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+#pragma unroll
+    for (int w = 0; w < kBlock / 32; ++w) {
+      if (w == warp) before[k] = total;
+      total += warp_n[k][w];
+    }
+  }
+  if (total == 0) return;  // the whole block is inactive
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    if (work[k]) {
+      const int pos = before[k] + __popc(ballot[k] & ((1u << lane) - 1u));
+      list[pos] = first + k * kBlock + threadIdx.x;
+    }
+  }
+  __syncthreads();  // the list
+  // a slot holds the list's entries s, s + slots, ... (per of them: one, or
+  // kRays where the block's threads are fewer than its rays); g threads share
+  // a slot's triangles (a power of two up to kSplit, as many as the block's
+  // threads allow), thread s * g + part taking triangles part, part + g, ...
+  const int per = (total + kBlock - 1) / kBlock;
+  const int slots = (total + per - 1) / per;
+  int g = 1;
+  while (g < kSplit && 2 * g * slots <= kBlock) g *= 2;
+  const bool busy = warp * 32 < slots * g;  // the warp holds a slot
+  if (!busy && n_tris <= kTileTris) return;  // no slot, no tile to stage
+  const int slot = threadIdx.x / g;
+  const int part = threadIdx.x & (g - 1);
+  Ray r[kRays];
+  int at[kRays], best[kRays];
+  float lo[kRays], tb[kRays], bu[kRays], bv[kRays];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int s = slot + k * slots;
+    const bool has = k < per && slot < slots && s < total;
+    at[k] = has ? list[s] : -1;
+    r[k] = Ray{};
+    lo[k] = 0.0f;
+    tb[k] = -1.0f;  // a guaranteed miss for an empty slot
+    if (has) {
+      r[k] = load_ray(ray, at[k]);
+      lo[k] = tmin[at[k]];
+      tb[k] = tmax[at[k]];
+    }
+    best[k] = -1;
+    bu[k] = 0.0f;
+    bv[k] = 0.0f;
+  }
+  for (int base = 0;;) {
+    for (int c = part; busy && c < cnt; c += g) {
+#pragma unroll
+      for (int k = 0; k < kRays; ++k) {
         float t, u, v;
-        if (hit_test(s, c, r, lo, t_best, &t, &u, &v)) {
-          t_best = t;
-          best = base + c;
-          bu = u;
-          bv = v;
+        if (closest_test(rec + 3 * c, r[k], lo[k], tb[k], &t, &u, &v)) {
+          tb[k] = t;
+          best[k] = base + c;
+          bu[k] = u;
+          bv[k] = v;
         }
       }
     }
+    base += cnt;
+    if (base >= n_tris) break;
+    __syncthreads();  // the tile is consumed
+    cnt = min(kTileTris, n_tris - base);
+    stage_records(rec, tris, n_tris, base, cnt);
+    __syncthreads();
   }
-  if (live) {
-    t_out[i] = best >= 0 ? t_best : tmax[i];
-    tri_out[i] = best;
-    u_out[i] = bu;
-    v_out[i] = bv;
+  // the g threads of a slot hold each the nearest hit of their triangles
+  // (the lowest index on equal t): the nearest of those, the lowest index on
+  // equal t, is the nearest hit over all, as a walk in index order finds it;
+  // a miss (tri = -1, t = tmax) loses to any hit (t < tmax)
+  for (int off = g >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      const float t2 = __shfl_xor_sync(0xffffffffu, tb[k], off);
+      const int b2 = __shfl_xor_sync(0xffffffffu, best[k], off);
+      const float u2 = __shfl_xor_sync(0xffffffffu, bu[k], off);
+      const float v2 = __shfl_xor_sync(0xffffffffu, bv[k], off);
+      if (t2 < tb[k] ||
+          (t2 == tb[k] && static_cast<unsigned>(b2) < static_cast<unsigned>(best[k]))) {
+        tb[k] = t2;
+        best[k] = b2;
+        bu[k] = u2;
+        bv[k] = v2;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    if (part == 0 && at[k] >= 0) {  // t stays the caller's tmax on a miss
+      t_out[at[k]] = tb[k];
+      tri_out[at[k]] = best[k];
+      u_out[at[k]] = bu[k];
+      v_out[at[k]] = bv[k];
+    }
   }
 }
 
@@ -165,6 +333,24 @@ any_kernel(RayPtrs ray, const float* __restrict__ tmin,
 
 inline int blocks_for(int n) { return (n + kBlock - 1) / kBlock; }
 
+template <int kRays>
+cudaError_t launch_closest(const RayPtrs& ray, const float* tmin, const float* tmax,
+                           const uint8_t* active, const float* tris, int n_tris, int n,
+                           float* t_out, int* tri_out, float* u_out, float* v_out,
+                           cudaStream_t stream) {
+  const size_t smem = 3 * sizeof(float4) * static_cast<size_t>(max(1, min(n_tris, kTileTris)));
+  if (smem > 32 * 1024) {  // with the static list, past the default 48 KB a block
+    const cudaError_t err = cudaFuncSetAttribute(
+        closest_kernel<kRays>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int kLanes = kBlock * kRays;
+  closest_kernel<kRays><<<(n + kLanes - 1) / kLanes, kBlock, smem, stream>>>(
+      ray, tmin, tmax, active, tris, n_tris, n, t_out, tri_out, u_out, v_out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* fermat_error_string(int code) {
@@ -180,10 +366,17 @@ extern "C" int fermat_trace_closest(const float* ox, const float* oy, const floa
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;
-  closest_kernel<<<blocks_for(n), kBlock, 0, stream>>>(RayPtrs{ox, oy, oz, dx, dy, dz}, tmin,
-                                                      tmax, active, tris, n_tris, n, t_out,
-                                                      tri_out, u_out, v_out);
-  return static_cast<int>(cudaGetLastError());
+  // two lanes a thread where that still leaves two blocks an SM
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const RayPtrs ray{ox, oy, oz, dx, dy, dz};
+  err = (n + 2 * kBlock - 1) / (2 * kBlock) >= 2 * sms
+            ? launch_closest<2>(ray, tmin, tmax, active, tris, n_tris, n, t_out, tri_out, u_out,
+                                v_out, stream)
+            : launch_closest<1>(ray, tmin, tmax, active, tris, n_tris, n, t_out, tri_out, u_out,
+                                v_out, stream);
+  return static_cast<int>(err);
 }
 
 extern "C" int fermat_trace_any(const float* ox, const float* oy, const float* oz,

@@ -13,6 +13,8 @@ first triangle (pallas_trace.py:117-127).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from fermat_tpu_torch.accel.traverse import Hit
@@ -43,6 +45,24 @@ def _lanes(x, n: int, device) -> Tensor:
     if isinstance(x, (int, float)):
         return torch.full((n,), x, dtype=torch.float32, device=device)
     return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n).contiguous()
+
+
+# K1a's lanes of a Python number on a card: one read-only buffer per value
+# (-0.0 apart from 0.0) and device, grown as needed. The path passes the
+# same two numbers at every bounce, and a fill per call was two kernel
+# launches beside K1a's one.
+_CONST_LANES: dict = {}
+
+
+def _const_lanes(x, n: int, device) -> Tensor:
+    if not isinstance(x, (int, float)):
+        return _lanes(x, n, device)
+    key = (float(x), math.copysign(1.0, x), device)
+    buf = _CONST_LANES.get(key)
+    if buf is None or buf.shape[0] < n:
+        buf = _lanes(x, n, device)
+        _CONST_LANES[key] = buf
+    return buf[:n]
 
 
 def _mt(tile: Tensor, o: Vec3, d: Vec3):
@@ -145,10 +165,12 @@ def _kernel_args(tris, o, d, tmin, tmax, active):
 def trace_closest(tris: Tensor, o: Vec3, d: Vec3, tmin, tmax,
                   active: Tensor = None) -> Hit:
     """Closest hit over the whole soup; t = tmax and tri = -1 on a miss."""
-    tmin, tmax, active = _lane_args(o, tmin, tmax, active)
     if o.x.device.type == "cpu":
-        return _closest_plain(tris, o, d, tmin, tmax, active)
+        return _closest_plain(tris, o, d, *_lane_args(o, tmin, tmax, active))
     n, dev = o.x.shape[0], o.x.device
+    tmin, tmax = _const_lanes(tmin, n, dev), _const_lanes(tmax, n, dev)
+    if active is None:
+        active = torch.ones(n, dtype=torch.bool, device=dev)
     args = _kernel_args(tris, o, d, tmin, tmax, active)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)

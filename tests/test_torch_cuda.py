@@ -86,16 +86,126 @@ def test_trace_kernels_match_plain_on_card(dev, scene):
     assert occ.any() and not occ.all()
 
 
+def _hit_equal(a, b) -> bool:
+    return torch.equal(a.tri, b.tri) and all(
+        torch.equal(_bits(x), _bits(y)) for x, y in ((a.t, b.t), (a.u, b.u), (a.v, b.v)))
+
+
+def _aimed_rays(tris, n, dev, seed):
+    """n rays from random points of the soup's box toward random triangles'
+    centroids, so that every triangle count gets hits."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lo = tris[0:3].min(dim=1).values[:, None] - 1.0
+    hi = tris[0:3].max(dim=1).values[:, None] + 1.0
+    o = torch.rand(3, n, generator=g, device=dev) * (hi - lo) + lo
+    k = torch.randint(0, tris.shape[1], (n,), generator=g, device=dev)
+    c = tris[0:3, k] + (tris[3:6, k] + tris[6:9, k]) / 3.0
+    d = c - o
+    return Vec3(*o), Vec3(*(d / d.norm(dim=0, keepdim=True)))
+
+
+_N_MASK = 4 * 256 + 77  # lanes: not a multiple of K1a's 256-lane block
+# the path's lanes: K1a takes two a thread, 512 a block, from 2 blocks an SM up
+_N_PATH = 512 * 512
+
+
+def _mask(kind, n, dev):
+    i = torch.arange(n, device=dev)
+    return {"none": i < 0, "one": i == 300, "31_lanes": i < 31,
+            "33_lanes": (i >= 200) & (i < 233), "every_7th": i % 7 == 0, "all": i >= 0}[kind]
+
+
+_MASK_CASES = ([(m, t, _N_MASK) for m in ["none", "one", "31_lanes", "33_lanes", "every_7th",
+                                            "all"] for t in [1, 127, 129, 4096]]
+               + [(m, t, _N_PATH) for m in ["none", "one", "33_lanes", "every_7th", "all"]
+                  for t in [36, 4096]])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,cols", [(36, 52), (36, 23), (36, 1), (4096, 52)])
-def test_gather_kernel_matches_plain_on_card(dev, rows, cols):
+@pytest.mark.parametrize("mask,n_tris,n", _MASK_CASES)
+def test_closest_kernel_active_masks_match_plain_on_card(dev, mask, n_tris, n):
+    """K1a's block compaction bit for bit against the plain version: active
+    lanes none, one, within one warp and across two, scattered, all; a
+    partial last block; one tile (1, 36, 127, 129) and four (4,096
+    triangles); 1,101 lanes (one lane a thread) and the path's 262,144 (two
+    a thread, two rays a slot); inactive lanes keep t = tmax, tri = -1,
+    u = v = 0; two launches bit-equal."""
+    tris = random_soup(n_tris).device_view(dev).tri_soup()
+    o, d = _aimed_rays(tris, n, dev, seed=n_tris)
+    active = _mask(mask, n, dev)
+    tmax = trace_mod._lanes(3.0e38, n, dev)
+    hit = trace_mod.trace_closest(tris, o, d, 1e-4, tmax, active)
+    again = trace_mod.trace_closest(tris, o, d, 1e-4, tmax, active)
+    ref = trace_mod._closest_plain(tris, o, d, trace_mod._lanes(1e-4, n, dev), tmax, active)
+    torch.cuda.synchronize()
+    assert _hit_equal(hit, ref) and _hit_equal(hit, again)
+    off = ~active
+    assert bool((hit.tri[off] == -1).all()) and bool((hit.t[off] == 3.0e38).all())
+    assert bool((hit.u[off] == 0.0).all()) and bool((hit.v[off] == 0.0).all())
+    if mask != "none":
+        assert bool((hit.tri[active] >= 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [65_536, _N_PATH])
+@pytest.mark.parametrize("tmax", [3.0e38, float("inf")])
+def test_closest_kernel_ties_and_tmax_match_plain_on_card(dev, tmax, n):
+    """Coplanar ties: the soup holds every triangle twice, so each hit ties
+    exactly across indices and tiles, and once more with its vertices
+    rotated (the same plane, a t that rounds differently), so hits nearly
+    tie (387 triangles, four 128-triangle plain tiles); on an exact tie the
+    lowest index wins, as in the plain version. tmax 3e38 and inf; 65,536
+    lanes (one a thread) and the path's 262,144 (two a thread); two
+    launches bit-equal."""
+    base = random_soup(129).device_view(dev).tri_soup()
+    p1, p2 = base[0:3] + base[3:6], base[0:3] + base[6:9]
+    rotated = torch.cat([p1, p2 - p1, base[0:3] - p1])
+    tris = torch.cat([base, base, rotated], dim=1).contiguous()
+    o, d = _aimed_rays(base, n, dev, seed=11)
+    active = torch.arange(n, device=dev) % 3 != 0
+    hit = trace_mod.trace_closest(tris, o, d, 0.0, tmax, active)
+    again = trace_mod.trace_closest(tris, o, d, 0.0, tmax, active)
+    ref = trace_mod._closest_plain(tris, o, d, trace_mod._lanes(0.0, n, dev),
+                                   trace_mod._lanes(tmax, n, dev), active)
+    torch.cuda.synchronize()
+    assert _hit_equal(hit, ref) and _hit_equal(hit, again)
+    got = hit.tri[hit.tri >= 0]
+    # the exact copy never wins its tie
+    assert got.numel() > 0 and not bool(((got >= 129) & (got < 258)).any())
+    assert bool((hit.t[hit.tri < 0] == tmax).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,n", [(36, 52, 100_003), (36, 23, 100_003), (36, 1, 100_003),
+                                         (4096, 52, 100_003), (36, 3, 100_003),
+                                         (36, 16, 100_003), (36, 53, 100_003),
+                                         (99_636, 52, 100_003), (36, 52, 262_144),
+                                         (36, 53, 262_144)])
+def test_gather_kernel_matches_plain_on_card(dev, rows, cols, n):
+    """K2 exact against the plain version: the 16-byte row path (cols 16,
+    52) and the scalar one (1, 3, 23, 53, and a table 4 bytes off 16-byte
+    alignment), small tables and one of big_room's 99,636 rows, outputs
+    within L2 (plain stores) and larger (262,144 x 52 or 53: streaming
+    stores), indices -1 and R, n = 0; two launches bit-equal."""
     g = torch.Generator(device=dev).manual_seed(rows + cols)
     table = torch.randn(rows, cols, generator=g, device=dev)
-    idx = torch.randint(-3, rows + 3, (100_003,), generator=g, device=dev,
+    idx = torch.randint(-3, rows + 3, (n,), generator=g, device=dev,
                         dtype=torch.int32)  # includes out-of-range rows
+    idx[:2] = torch.tensor([-1, rows], device=dev)
+    buf = torch.empty(rows * cols + 1, device=dev)
+    shifted = buf[1:].view(rows, cols)  # contiguous, 4 bytes past 16-byte alignment
+    shifted.copy_(table)
+    before = gather_mod.GATHER.launches
     out = gather_mod.gather_rows(table, idx)
+    again = gather_mod.gather_rows(table, idx)
+    off = gather_mod.gather_rows(shifted, idx)
+    empty = gather_mod.gather_rows(table, idx[:0])
     torch.cuda.synchronize()
-    assert torch.equal(_bits(out), _bits(gather_mod._gather_plain(table, idx)))
+    assert gather_mod.GATHER.launches == before + 4
+    want = gather_mod._gather_plain(table, idx)
+    assert torch.equal(_bits(out), _bits(want)) and torch.equal(_bits(out), _bits(again))
+    assert torch.equal(_bits(off), _bits(want))
+    assert bool((out[:2] == 0.0).all()) and empty.shape == (0, cols)
 
 
 @pytest.mark.cuda

@@ -115,3 +115,22 @@ def test_tmax_above_pallas_sentinel_is_no_phantom_hit():
     d = TV(*(torch.tensor([v]) for v in (0.0, 1.0, 0.0)))  # pointing away
     hit = ttrace.trace_closest(tris, o, d, 1e-4, float("inf"))
     assert int(hit.tri[0]) == -1 and float(hit.t[0]) == float("inf")
+
+
+def test_const_lanes_keep_each_number_apart():
+    """K1a's cached constant lanes (ops/trace._const_lanes): one buffer per
+    value with its sign (-0.0 apart from 0.0), grown as needed, returned as
+    an (n,) slice holding the value's float32 bits; tensors pass through."""
+    dev = torch.device("cpu")
+    bits = lambda t: t.view(torch.int32)
+    a = ttrace._const_lanes(0.0, 8, dev)
+    b = ttrace._const_lanes(-0.0, 4, dev)
+    c = ttrace._const_lanes(0.0, 16, dev)  # grows the 0.0 buffer
+    d = ttrace._const_lanes(3.0e38, 3, dev)
+    assert a.shape == (8,) and b.shape == (4,) and c.shape == (16,) and d.shape == (3,)
+    assert bool((bits(a) == 0).all()) and bool((bits(c) == 0).all())
+    assert bool((bits(b) == bits(torch.tensor(-0.0))).all())
+    assert bool((d == torch.tensor(3.0e38, dtype=torch.float32)).all())
+    assert ttrace._const_lanes(0.0, 5, dev).data_ptr() == c.data_ptr()  # reused
+    t = torch.arange(4, dtype=torch.float32)
+    assert torch.equal(ttrace._const_lanes(t, 4, dev), t)

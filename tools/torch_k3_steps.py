@@ -65,9 +65,7 @@ per step and round; --out writes them all as one JSON file.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import re
 import statistics
 import subprocess
 import sys
@@ -76,12 +74,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
+from torch_steps_common import FLUSH_BYTES, bind, build, edited, log, replay  # noqa: E402
 
 RES, MPL, PASSES, REPS, INST = 512, 6, 8, 3, 3
-REPLAYS = 20
-FLUSH_BYTES = 128 * 2 ** 20
-SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's 1.98 GHz boost clock
-T0 = time.perf_counter()
 
 # the exact text edits that take a step out of this checkout's mega.cu: (old, new, count)
 NO_PERSIST = [
@@ -161,7 +157,7 @@ def unshared(src: str, parent: str) -> str:
     trace section) and the call sites that go with them."""
     a, b = src.index(BSDF_FROM), src.index(BSDF_TO)
     pa, pb = parent.index(BSDF_FROM), parent.index(BSDF_TO)
-    return edited(src[:a] + parent[pa:pb] + src[b:], SHARED_CALLS)
+    return edited(src[:a] + parent[pa:pb] + src[b:], SHARED_CALLS, "mega.cu")
 
 
 NO_SINCOS = [
@@ -190,90 +186,6 @@ UNROLL_2 = [("  float tb = kBig, ub = 0.0f, vb = 0.0f;\n  for (int k = 0; k < sc
              "  for (int k = 0; k < sc.n_tris; ++k) {\n", 1)]
 MIN_BLOCKS_5 = [("__global__ void __launch_bounds__(kBlock)\n",
                  "__global__ void __launch_bounds__(kBlock, 5)\n", 2)]
-
-
-def log(msg: str) -> None:
-    print(f"[+{time.perf_counter() - T0:.1f} s] {msg}", flush=True)
-
-
-def edited(src: str, edits: list) -> str:
-    for old, new, count in edits:
-        if src.count(old) != count:
-            raise SystemExit(f"a step's edit no longer applies to mega.cu: {old[:70]!r}")
-        src = src.replace(old, new)
-    return src
-
-
-def ptxas(text: str) -> dict:
-    """{kernel: {registers, stack_bytes, spill_store_bytes, spill_load_bytes}}
-    from nvcc -Xptxas -v output."""
-    out, cur = {}, None
-    for ln in text.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", ln)
-        if m:
-            name = m.group(1)
-            cur = next((k for k in ("mega_forward_kernel", "mega_grad_kernel") if k in name), name)
-            if "ILb1E" in name or "ILb0E" in name:  # the main-switch and the runtime build
-                cur += "<main>" if "ILb1E" in name else "<runtime>"
-            out[cur] = {}
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
-                      ln)
-        if m:
-            out[cur].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
-                            spill_load_bytes=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            out[cur]["registers"] = int(m.group(1))
-    return out
-
-
-def build(variants: dict, build_dir: Path) -> dict:
-    """{name: source text} -> {name: (.so path, ptxas dict)}; one nvcc each,
-    all started together."""
-    from fermat_tpu_torch.ops import _cuda
-
-    procs = {}
-    for name, text in variants.items():
-        d = build_dir / re.sub(r"[^A-Za-z0-9]+", "_", name).strip("_")
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "mega.cu").write_text(text)
-        cmd = [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "mega.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), d / "lib.so")
-    out = {}
-    for name, (p, so) in procs.items():
-        text, _ = p.communicate()
-        if p.returncode != 0:
-            raise SystemExit(f"nvcc failed for {name}:\n{text}")
-        info = ptxas(text)
-        log(f"built {name}: " + "; ".join(
-            f"{k} {v.get('registers')} registers, {v.get('stack_bytes')} B stack, "
-            f"{v.get('spill_store_bytes')}/{v.get('spill_load_bytes')} B spill stores/loads"
-            for k, v in info.items()))
-        out[name] = (so, info)
-    return out
-
-
-def bind(so: Path):
-    """(forward, grad, error_string) C entry points of one build, typed as
-    ops/pt_mega.py's CudaKernels type them."""
-    from fermat_tpu_torch.ops import _cuda
-    from fermat_tpu_torch.ops import pt_mega
-
-    lib = ctypes.CDLL(str(so))
-    fns = []
-    for kern in (pt_mega.FORWARD, pt_mega.GRAD):
-        fn = getattr(lib, kern.symbol)
-        fn.argtypes = kern.argtypes + [_cuda.I, _cuda.P]
-        fn.restype = _cuda.I
-        fns.append(fn)
-    err = lib.fermat_error_string
-    err.argtypes = [_cuda.I]
-    err.restype = ctypes.c_char_p
-    return fns[0], fns[1], err
 
 
 def main() -> int:
@@ -305,24 +217,28 @@ def main() -> int:
     log(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     here = (ROOT / "fermat_tpu_torch" / "ops" / "csrc" / "mega.cu").read_text()
     there = (a.parent / "fermat_tpu_torch" / "ops" / "csrc" / "mega.cu").read_text()
-    sin_cos = edited(here, NO_SINCOS)
-    runtime = edited(sin_cos, NO_SWITCHES)
+    sin_cos = edited(here, NO_SINCOS, "mega.cu")
+    runtime = edited(sin_cos, NO_SWITCHES, "mega.cu")
     before = unshared(runtime, there)
     steps = {
         "parent": there,
-        "+vertex steps": edited(before, NO_PERSIST + CAP_TABLES + ROW_TESTS),
-        "+records": edited(before, NO_PERSIST + CAP_TABLES),
-        "+scene tables": edited(before, NO_PERSIST),
+        "+vertex steps": edited(before, NO_PERSIST + CAP_TABLES + ROW_TESTS, "mega.cu"),
+        "+records": edited(before, NO_PERSIST + CAP_TABLES, "mega.cu"),
+        "+scene tables": edited(before, NO_PERSIST, "mega.cu"),
         "+persistent": before,
         "+shared terms": runtime,
         "+main switches": sin_cos,
         "+sincosf": here,
-        "+min blocks 5": edited(here, MIN_BLOCKS_5),
-        "+unroll 2": edited(here, UNROLL_2),
-        "+path in shared memory": edited(here, PATH_SMEM),
+        "+min blocks 5": edited(here, MIN_BLOCKS_5, "mega.cu"),
+        "+unroll 2": edited(here, UNROLL_2, "mega.cu"),
+        "+path in shared memory": edited(here, PATH_SMEM, "mega.cu"),
     }
-    built = build(steps, _cuda.BUILD_DIR / "k3_steps")
-    libs = {k: bind(so) for k, (so, _) in built.items()}
+    built = build({k: ("mega.cu", v) for k, v in steps.items()}, _cuda.BUILD_DIR / "k3_steps",
+                  ("mega_forward_kernel", "mega_grad_kernel"))
+    failed = [k for k, (so, _, _) in built.items() if so is None]
+    if failed:
+        raise SystemExit(f"nvcc failed for {failed}")
+    libs = {k: bind(so, [pt_mega.FORWARD, pt_mega.GRAD]) for k, (so, _, _) in built.items()}
 
     ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), RES, RES,
                                   renderer="pt", max_path_length=MPL, tracer="mega")
@@ -341,27 +257,10 @@ def main() -> int:
     log(f"plain versions done: rays {float(ref[26].sum()):.0f}, max|g| {g_scale:.5g}")
 
     def use(name):
-        fwd, grad, err = libs[name]
-        pt_mega.FORWARD._fn, pt_mega.FORWARD._err = fwd, err
-        pt_mega.GRAD._fn, pt_mega.GRAD._err = grad, err
+        for kern, (fn, err) in zip((pt_mega.FORWARD, pt_mega.GRAD), libs[name]):
+            kern._fn, kern._err = fn, err
 
     flush = torch.empty(FLUSH_BYTES // 4, device=dev)
-
-    def replay(fn, cold):
-        fn()
-        torch.cuda.synchronize()
-        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(REPLAYS)]
-        torch.cuda._sleep(SPIN_CYCLES)  # the card waits while the host queues the replays
-        for s, e in ev:
-            if cold:
-                flush.fill_(1.0)
-            s.record()
-            fn()
-            e.record()
-        torch.cuda.synchronize()
-        t = [s.elapsed_time(e) * 1e3 for s, e in ev]
-        return {"us": statistics.median(t), "us_min": min(t), "us_max": max(t)}
 
     def image_ok(got, want):
         near = torch.isclose(got, want, atol=1e-4, rtol=1e-3).all(dim=0).float().mean()
@@ -469,7 +368,7 @@ def main() -> int:
         f_fwd = lambda: pt_mega._mega_forward(tb, opts, RES, n, INST, 0)
         f_grad = lambda: pt_mega._mega_grad(tb, opts, RES, n, INST, 0, adjoint)
         for key, fn in (("k3a", f_fwd), ("k3b", f_grad)):
-            row[key] = {"warm": replay(fn, False), "cold": replay(fn, True)}
+            row[key] = {"warm": replay(fn, False, flush), "cold": replay(fn, True, flush)}
         ctx.restart()
         in_pass = profiled(lambda: ctx.render_batch(1))
         in_step = profiled(lambda: train_step(0))

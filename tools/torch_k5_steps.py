@@ -48,21 +48,16 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
-import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
+from torch_steps_common import FLUSH_BYTES, build, edited, log, replay  # noqa: E402
 
 BIG_BOXES, BIG_W, BIG_H, MPL = 8300, 1600, 896, 6
-REPLAYS = 20
-FLUSH_BYTES = 128 * 2 ** 20
-SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's 1.98 GHz boost clock
-T0 = time.perf_counter()
 
 # the exact text edits that take a step out of this checkout's frontier.cu
 LOCAL_STACK = [
@@ -255,43 +250,6 @@ def l2_window(rows_bytes: int) -> list:
              "  return err != cudaSuccess ? err : reset;\n")]
 
 
-def log(msg: str) -> None:
-    print(f"[+{time.perf_counter() - T0:.1f} s] {msg}", flush=True)
-
-
-def edited(src: str, edits: list) -> str:
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise SystemExit(f"a step's edit no longer applies to frontier.cu: {old[:60]!r}")
-        src = src.replace(old, new)
-    return src
-
-
-def build(variants: dict, build_dir: Path) -> dict:
-    """{name: (csrc dir, source text)} -> {name: .so path}; one nvcc each,
-    all started together."""
-    from fermat_tpu_torch.ops import _cuda
-
-    procs = {}
-    for name, (csrc, text) in variants.items():
-        d = build_dir / name.replace(" ", "_").replace("+", "p")
-        d.mkdir(parents=True, exist_ok=True)
-        shutil.copy(csrc / "cluster_common.cuh", d / "cluster_common.cuh")
-        (d / "frontier.cu").write_text(text)
-        cmd = [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "frontier.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), d / "lib.so")
-    out = {}
-    for name, (p, so) in procs.items():
-        text, _ = p.communicate()
-        if p.returncode != 0:
-            raise SystemExit(f"nvcc failed for {name}:\n{text}")
-        regs = [ln.split(":", 1)[-1].strip() for ln in text.splitlines() if "registers" in ln]
-        log(f"built {name}: {regs}")
-        out[name] = so
-    return out
-
-
 class Lib:
     """The C entry points of one build of frontier.cu."""
 
@@ -351,16 +309,22 @@ def main() -> int:
     there = (a.parent / "fermat_tpu_torch" / "ops" / "csrc").resolve()
     src = (here / "frontier.cu").read_text()
     steps_src = {
-        "+records": edited(src, ONE_LOOP + LOCAL_STACK),
-        "+smem stack": edited(src, ONE_LOOP),
+        "+records": edited(src, ONE_LOOP + LOCAL_STACK, "frontier.cu"),
+        "+smem stack": edited(src, ONE_LOOP, "frontier.cu"),
         "+while-while": src,
-        "+persistent": edited(src, PERSISTENT),
-        "+L2 window": edited(src, l2_window(cl.rows.numel() * 4)),
+        "+persistent": edited(src, PERSISTENT, "frontier.cu"),
+        "+L2 window": edited(src, l2_window(cl.rows.numel() * 4), "frontier.cu"),
     }
-    sos = build({"parent": (there, (there / "frontier.cu").read_text()),
-                 **{k: (here, v) for k, v in steps_src.items()}},
-                _cuda.BUILD_DIR / "k5_steps")
-    libs = {k: Lib(so, parent=k == "parent") for k, so in sos.items()}
+    kernels = ("trace_kernel", "key_kernel")
+    parent_build = build({"parent": ("frontier.cu", (there / "frontier.cu").read_text())},
+                         _cuda.BUILD_DIR / "k5_steps", kernels, (there / "cluster_common.cuh",))
+    sos = {**parent_build, **build({k: ("frontier.cu", v) for k, v in steps_src.items()},
+                                   _cuda.BUILD_DIR / "k5_steps", kernels,
+                                   (here / "cluster_common.cuh",))}
+    failed = [k for k, (so, _, _) in sos.items() if so is None]
+    if failed:
+        raise SystemExit(f"nvcc failed for {failed}")
+    libs = {k: Lib(so, parent=k == "parent") for k, (so, _, _) in sos.items()}
     libs["+sort"] = libs["parent"]
 
     # the rays of every K5 launch of one pass, and the plain answers
@@ -418,22 +382,6 @@ def main() -> int:
 
     flush = torch.empty(FLUSH_BYTES // 4, device=dev)
 
-    def replay(fn, cold):
-        fn()
-        torch.cuda.synchronize()
-        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(REPLAYS)]
-        torch.cuda._sleep(SPIN_CYCLES)  # the card waits while the host queues the replays
-        for s, e in ev:
-            if cold:
-                flush.fill_(1.0)
-            s.record()
-            fn()
-            e.record()
-        torch.cuda.synchronize()
-        t = [s.elapsed_time(e) for s, e in ev]
-        return statistics.median(t), min(t), max(t)
-
     def in_pass(name):
         """Per-launch device ms of the kernel inside one profiled pass, with
         pt's frontier tracers going through this build, and the pass's
@@ -489,11 +437,12 @@ def main() -> int:
                     ok = torch.equal(got[0], w)
                 if not ok:
                     raise SystemExit(f"{name} {kind}: differs from the plain version")
-                warm.append(replay(launch, False))
-                cold.append(replay(launch, True))
-            row[kind] = {"replay_ms": [x[0] for x in warm], "replay_min_ms": [x[1] for x in warm],
-                         "replay_max_ms": [x[2] for x in warm],
-                         "cold_ms": [x[0] for x in cold]}
+                warm.append(replay(launch, False, flush))
+                cold.append(replay(launch, True, flush))
+            row[kind] = {"replay_ms": [x["us"] / 1e3 for x in warm],
+                         "replay_min_ms": [x["us_min"] / 1e3 for x in warm],
+                         "replay_max_ms": [x["us_max"] / 1e3 for x in warm],
+                         "cold_ms": [x["us"] / 1e3 for x in cold]}
         each, busy = in_pass(name)
         for kind in ("closest", "any"):
             row[kind]["in_pass_ms"] = each[kind]
