@@ -11,8 +11,8 @@ result is printed then):
                 sub) for sm_90a, one nvcc per source, all started together;
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 trace_closest / trace_any on 262,144 random rays against the
-                CornellBox and random_soup(4096) (trace_closest also with
-                every 7th lane active), gather_rows on (36, 52),
+                CornellBox and random_soup(4096) (both also with every 7th
+                lane active), gather_rows on (36, 52),
                 (36, 23) and (4096, 52) tables with out-of-range indices;
                 all bit-equal (the kernels are built with --fmad=false);
                 K2's backward (gather_rows_bwd, K2b) at the AD path's two
@@ -148,6 +148,9 @@ result is printed then):
                 time is the device time of one launch group (one wrapper
                 call: every round's scan, sort and test), split into scan,
                 sort, test and the rest, with its rounds and wall time.
+                The dense kernels' device time a launch inside phase 4's
+                profiled pass, and K2b's inside one profiled CornellBox AD
+                step (in_pass_ms), beside their replays.
                 K2b at every launch of the two 4f steps (the CornellBox's
                 in the kernels line, big_room's beside it), its plain
                 version and index_add_ into fresh zeros (what index_select's
@@ -185,7 +188,8 @@ N_LARGE = 65_536
 MEGA_RES = 128  # megakernel-vs-plain comparisons (the plain pass is eager PyTorch)
 ALL_LOBES = (True, True, True, True)
 # FP32 arithmetic operations of one Moller-Trumbore ray-triangle test as
-# written in ops/csrc/trace.cu:hit_test (comparisons not counted)
+# written in ops/trace.py:mt_test, the order of ops/csrc/trace.cu:record_test
+# (comparisons not counted)
 FLOPS_PER_TEST = 46
 # FP32 operations of K3a/K3b per event, counted from ops/csrc/mega.cu's
 # __device__ functions (+, -, *, /, sqrtf, rsqrtf, sinf, cosf one each;
@@ -644,16 +648,20 @@ def main() -> int:
             f"trace_closest {scene}, every 7th lane active: not bit-equal to plain")
         occ = trace_mod.trace_any(tris, o, d, 0.0, tmax, active)
         occ_ref = trace_mod._any_plain(tris, o, d, lanes(0.0, N_RAYS), tmax, active)
+        s_occ = trace_mod.trace_any(tris, o, d, 0.0, tmax, sparse)  # K1b's split rays
+        s_occ_ref = trace_mod._any_plain(tris, o, d, lanes(0.0, N_RAYS), tmax, sparse)
         torch.cuda.synchronize()
         check(torch.equal(occ, occ_ref), f"trace_any {scene}: occ differs from plain")
+        check(torch.equal(s_occ, s_occ_ref),
+              f"trace_any {scene}, every 7th lane active: occ differs from plain")
         max_err["trace_any"] = max(max_err["trace_any"], float((occ != occ_ref).sum()))
         hits = float((hit.tri >= 0).float().mean())
         check(0.05 < hits and bool(occ.any()) and not bool(occ.all()),
               f"{scene}: degenerate test rays (hit fraction {hits})")
         log(f"[3 kernels] {scene} ({tris.shape[1]} tris, {N_RAYS} rays, "
             f"{float(active.float().mean()):.2f} active): trace_closest tri equal, t/u/v "
-            f"bit-equal (hit {hits:.3f}); trace_any equal (occluded "
-            f"{float(occ.float().mean()):.3f})")
+            f"bit-equal (hit {hits:.3f}), also with every 7th lane active; trace_any equal "
+            f"(occluded {float(occ.float().mean()):.3f}), also with every 7th lane active")
     for rows, cols in ((36, 52), (36, 23), (4096, 52)):
         table = torch.randn(rows, cols, generator=gen, device=dev)
         idx = torch.randint(-4, rows + 4, (N_RAYS,), generator=gen, device=dev,
@@ -877,7 +885,14 @@ def main() -> int:
         f"{mrays:.2f} Mrays/s ({best_rays / PASSES:.0f} rays/pass; best of {REPS} x "
         f"{PASSES} passes) on {smi}; image mean {hdr.mean():.4f}; launches over "
         f"{n_main} passes: {launches}")
-    n_kern, busy_ms, top, _ = profile_one_pass(ctx)
+    n_kern, busy_ms, top, d_each = profile_one_pass(ctx)
+    # the dense kernels' own device time inside the profiled pass, beside
+    # phase 6's replays
+    d_in_pass = {"trace_closest": launches_named(d_each, "closest_kernel"),
+                 "trace_any": launches_named(d_each, "any_kernel"),
+                 "gather_rows": launches_named(d_each, "gather_rows_kernel")}
+    check(len(d_in_pass["trace_closest"]) == MPL and len(d_in_pass["trace_any"]) == MPL,
+          f"the profiled dense pass: K1a/K1b launches {d_in_pass}")
     log(f"[4 main] one pass under torch.profiler: {n_kern} device kernels, device busy "
         f"{busy_ms:.2f} ms of the {ms_pass:.2f} ms pass (idle share "
         f"{1 - busy_ms / ms_pass:.3f}); top by device time: "
@@ -1170,17 +1185,35 @@ def main() -> int:
     check(bool(torch.isfinite(a_grad).all()) and a_scale > 0.0
           and a_err <= AD_K3B_RTOL * a_scale,
           f"CornellBox AD gradient vs K3b: max err {a_err} vs max|g| {a_scale}")
+    from torch.profiler import ProfilerActivity, profile
     with patched([(gather_mod, "gather_rows_bwd", bwd_recorder("cornell"))]):
-        ad_step(ctx.view, a_opts, RES, RES, a_inst)  # K2b's inputs for phase 6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ad_step(ctx.view, a_opts, RES, RES, a_inst)  # K2b's inputs for phase 6
+            torch.cuda.synchronize()
+    a_each = {}
+    for e in prof.events():
+        if _on_device(e):
+            a_each.setdefault(e.name, []).append(e.self_device_time_total / 1e3)
+    a_busy = sum(sum(v) for v in a_each.values())
+    # K2b's device time a launch inside the step (its kernels summed over its
+    # launches), and K1b's
+    a_in_step = {"gather_rows_bwd": sum(launches_named(a_each, "gather_bwd"))
+                 / max(1, len(bwd_calls["cornell"])),
+                 "trace_any": launches_named(a_each, "any_kernel")}
+    del prof
     adr["cornell"] = dict(ms=a_best * 1e3, mrays=a_rays / a_best / 1e6, peak=a_peak,
-                          launches=a_launches)
+                          launches=a_launches, busy_ms=a_busy, idle=1 - a_busy / (a_best * 1e3))
     log(f"[4f AD] CornellBox glossy {RES}x{RES} mpl={MPL} dense pass under autograd, MSE vs 0, "
         f"d/d diffuse (M, 3): {a_best * 1e3:.2f} ms/step, train {a_rays / a_best / 1e6:.3f} "
         f"Mrays/s ({a_rays:.0f} forward rays), peak memory {a_peak / 2 ** 30:.2f} GiB, on "
         f"{smi}; gradient vs K3b on the same instance ({a_inst}) and adjoint: max |g - K3b| "
         f"{a_err:.3g} = {a_err / a_scale:.2e} of max|g| {a_scale:.4g} (tolerance "
         f"{AD_K3B_RTOL:g}); launches in the step: "
-        f"{ {n: c for n, c in a_launches.items() if c} }")
+        f"{ {n: c for n, c in a_launches.items() if c} }; one step under torch.profiler: device "
+        f"busy {a_busy:.2f} ms (idle share {1 - a_busy / (a_best * 1e3):.3f}), K2b "
+        f"{a_in_step['gather_rows_bwd'] * 1e3:.2f} us a launch, K1b "
+        f"{sum(a_in_step['trace_any']) / max(1, len(a_in_step['trace_any'])) * 1e3:.2f} us a "
+        "launch")
     del g3
 
     # the configuration of tests/golden/torch_port_grad_16.npz's "bigroom"
@@ -1232,7 +1265,6 @@ def main() -> int:
                                   f"{b_rel:.3g} of max|g|, over {AD_PLAIN_RTOL:g}")
     del b_grad_p
     torch.cuda.empty_cache()
-    from torch.profiler import ProfilerActivity, profile
     with patched([(gather_mod, "gather_rows_bwd", bwd_recorder("big_room"))]):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             ad_step(bview, bopts, BIG_W, BIG_H, 4)
@@ -1569,10 +1601,12 @@ def main() -> int:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": (lib_ms / nc) if kname == "gather_rows" else None,
             "shapes": sorted(shapes),
+            "in_pass_ms": sum(d_in_pass[kname]) / len(d_in_pass[kname]),
         })
         if each:
             rows[-1].update(ms_each_launch=each, active_lanes_each_launch=alive)
-        log(f"[6 timing] {kname}: {fmt_times(t)}/launch (plain "
+        log(f"[6 timing] {kname}: {fmt_times(t)}/launch, "
+            f"{rows[-1]['in_pass_ms'] * 1e3:.2f} us inside phase 4's profiled pass (plain "
             f"{plain_ms / nc * 1e3:.1f} us, bound {bound / nc * 1e3:.2f} us by "
             f"{rows[-1]['bound_by']}) over the {nc} launches of one pass, each equal to its "
             f"plain version; {sorted(shapes)}"
@@ -2028,6 +2062,7 @@ def main() -> int:
                                  "cold_ms_max", "us_per_launch", "timer")},
         "plain_ms": bwd_c["plain_ms"], "bound_ms": bwd_c["bound_ms"],
         "bound_by": "bytes", "library_ms": bwd_c["library_ms"], "shapes": bwd_c["shapes"],
+        "in_pass_ms": a_in_step["gather_rows_bwd"], "in_pass": "the profiled CornellBox AD step",
         "at_big_room": {
             "launches": adr["big_room"]["launches"]["gather_rows_bwd"],
             "launches_per_step": adr["big_room"]["launches"]["gather_rows_bwd"] / 2,

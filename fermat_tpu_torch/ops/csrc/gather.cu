@@ -34,14 +34,25 @@
 // cotangent. Here it is a scatter-add. Bound on H100: bytes (idx 4 B and the
 // cotangent 4*K B per lane in, d_table once out). Two modes, chosen by the
 // wrapper (ops/gather.py bwd_slices):
-//   * shared (at most 128 rows, whose partials fit in shared memory; the
-//     CornellBox's 36 x 52): a CTA takes kBwdChunk consecutive lanes; thread (j, k) owns
-//     column k of a private (R, K) partial for lane slice j (lanes j, j + S,
-//     ...), so every add lands in a shared word no other thread writes, in
-//     lane order; the S partials are summed in slice order into a (CTAs, R,
-//     K) buffer, and a second launch sums that over the CTAs in CTA order.
-//     Every sum has a fixed order: deterministic, the same bits every run.
-//     Many lanes land on few rows, and no add waits for another thread's;
+//   * shared (small tables, whose partials fit in shared memory; the
+//     CornellBox's 36 x 52): the grid is the CTAs that fit on the card at
+//     once (at most kBwdPerSm an SM); the lanes are cut into grid x S
+//     contiguous slices, S a CTA. Thread (j, c) of a CTA owns vector column
+//     c (q = K / 4 float4 when K % 4 == 0 and the cotangent is 16-byte
+//     aligned, else q = K floats) of slice j's private (R, K) partial in
+//     shared memory; it walks its slice's lanes in order with kUnroll lanes'
+//     loads in flight (the cotangent's loads do not wait on the index
+//     loads; the q threads of a slice read a row's consecutive vectors) and
+//     adds each lane's vector to its row of the partial. The S partials are
+//     added in slice order into the CTA's partial in global scratch, and a
+//     second launch (gather_bwd_sum_kernel) sums those in a fixed order.
+//     Every sum has a fixed order, set by (N, R, K) and the card's SM count:
+//     two launches give the same bits. No add waits for another thread's.
+//     Measured and left out (tools/torch_k1b_k2b_steps.py), each slower or
+//     no faster: summing a run of lanes with one index in registers first,
+//     folding the second launch into the first (the last CTAs to finish, by
+//     tickets, summing the partials), 16 lanes' loads in flight, two CTAs
+//     an SM, 512 threads a CTA;
 //   * atomic (larger tables; big_room's 99,636 x 52): d_table zeroed, one
 //     global atomicAdd per non-zero cotangent element. The order of the adds
 //     changes from run to run: not deterministic, within float rounding of
@@ -118,49 +129,59 @@ cudaError_t launch_gather(const float* table, const int* idx, int rows, int q, i
   return cudaGetLastError();
 }
 
-constexpr int kBwdChunk = 512;  // lanes per CTA (ops/gather.py BWD_CHUNK)
-constexpr int kBwdSmem = 96 * 1024;  // ops/gather.py BWD_SMEM
+constexpr int kBwdThreads = 256;  // most threads a CTA (ops/gather.py BWD_THREADS)
+constexpr int kBwdPerSm = 2;      // most CTAs an SM in the grid (ops/gather.py BWD_PER_SM)
+constexpr int kBwdSmem = 232448;  // most shared memory a CTA (ops/gather.py BWD_SMEM)
+constexpr int kBwdMinLanes = 32;  // fewest lanes a slice, as n allows
 constexpr int kUnroll = 8;
 
-// Shared mode, pass 1: the CTA's (R, K) partial of its kBwdChunk lanes into
-// part_out[blockIdx.x]. Threads j * cols + k for j < slices; the rest idle.
-__global__ void gather_bwd_partial_kernel(const float* __restrict__ g,
-                                          const int* __restrict__ idx, int rows, int cols,
-                                          int n, int slices, float* __restrict__ part_out) {
-  extern __shared__ float part[];  // (slices, rows, cols)
-  const int rk = rows * cols;
-  for (int e = threadIdx.x; e < slices * rk; e += blockDim.x) part[e] = 0.0f;
+__device__ __forceinline__ void vadd(float& a, float b) { a += b; }
+__device__ __forceinline__ void vadd(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// Shared mode (see the header): V float4 (q = K / 4) or float (q = K).
+// Thread j * q + c for j < slices; the rest only help to zero and sum.
+template <typename V>
+__global__ void __launch_bounds__(kBwdThreads)
+gather_bwd_shared_kernel(const V* __restrict__ g, const int* __restrict__ idx, int rows, int q,
+                         int n, int slices, int per_slice, float* __restrict__ part) {
+  extern __shared__ float4 smem[];
+  V* sp = reinterpret_cast<V*>(smem);  // (slices, rows, q)
+  const int rq = rows * q;
+  for (int e = threadIdx.x; e < slices * rq; e += blockDim.x) sp[e] = V{};
   __syncthreads();
-  const int j = threadIdx.x / cols;
-  const int k = threadIdx.x - j * cols;
+  const int j = threadIdx.x / q;
+  const int c = threadIdx.x - j * q;
   if (j < slices) {
-    float* mine = part + j * rk + k;
-    const int lo = blockIdx.x * kBwdChunk;
-    const int hi = min(n, lo + kBwdChunk);
-    // lanes lo + j, lo + j + S, ...: loads of kUnroll lanes in flight, then
-    // their adds in lane order
-    for (int base = lo + j; base < hi; base += kUnroll * slices) {
+    V* mine = sp + j * rq + c;
+    const int lo = min(n, (blockIdx.x * slices + j) * per_slice);
+    const int hi = min(n, lo + per_slice);
+    for (int base = lo; base < hi; base += kUnroll) {
       int r[kUnroll];
-      float v[kUnroll];
+      V v[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int ln = base + u * slices;
+      for (int u = 0; u < kUnroll; ++u) {  // the row's load waits on no index load
+        const int ln = base + u;
         r[u] = ln < hi ? __ldg(idx + ln) : -1;
-        v[u] = (r[u] >= 0 && r[u] < rows) ? __ldg(g + static_cast<size_t>(ln) * cols + k)
-                                          : 0.0f;
+        v[u] = ln < hi ? __ldg(g + static_cast<size_t>(ln) * q + c) : V{};
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (r[u] >= 0 && r[u] < rows) mine[r[u] * cols] += v[u];
+      for (int u = 0; u < kUnroll; ++u) {  // a lane out of range adds nothing
+        if (r[u] >= 0 && r[u] < rows) vadd(mine[r[u] * q], v[u]);
       }
     }
   }
   __syncthreads();
-  float* dst = part_out + static_cast<size_t>(blockIdx.x) * rk;
-  for (int e = threadIdx.x; e < rk; e += blockDim.x) {
-    float acc = part[e];
-    for (int s2 = 1; s2 < slices; ++s2) acc += part[s2 * rk + e];
-    dst[e] = acc;
+  // the CTA's partial: its slices' partials in slice order
+  V* dst = reinterpret_cast<V*>(part) + static_cast<size_t>(blockIdx.x) * rq;
+  for (int e = threadIdx.x; e < rq; e += blockDim.x) {
+    V a = sp[e];
+    for (int s2 = 1; s2 < slices; ++s2) vadd(a, sp[s2 * rq + e]);
+    dst[e] = a;
   }
 }
 
@@ -186,6 +207,48 @@ __global__ void gather_bwd_sum_kernel(const float* __restrict__ part, int ctas, 
     for (int w = 1; w < 8; ++w) s2 += red[w][el];
     out[e] = s2;
   }
+}
+
+// the kernel's shared-memory attribute on a device, set once to the most a
+// launch has needed so far (each set is a driver call)
+template <typename V>
+cudaError_t allow_bwd_smem(int device, size_t smem) {
+  static int allowed[64] = {};  // by device
+  if (smem <= 48 * 1024) return cudaSuccess;
+  if (device < 64 && static_cast<int>(smem) <= allowed[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      gather_bwd_shared_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess && device < 64) allowed[device] = static_cast<int>(smem);
+  return err;
+}
+
+template <typename V>
+cudaError_t launch_bwd_shared(const float* g, const int* idx, int rows, int cols, int n,
+                              float* scratch, float* out, int slices, int device, int sms,
+                              cudaStream_t stream) {
+  const int q = cols / static_cast<int>(sizeof(V) / sizeof(float));
+  const int s = min(slices, kBwdThreads / q);
+  const int threads = ((s * q + 31) / 32) * 32;
+  const size_t smem = static_cast<size_t>(s) * rows * cols * sizeof(float);
+  if (s < 1 || threads > kBwdThreads || smem > static_cast<size_t>(kBwdSmem))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_bwd_smem<V>(device, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gather_bwd_shared_kernel<V>,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  const int need = (n + s * kBwdMinLanes - 1) / (s * kBwdMinLanes);
+  const int ctas = max(1, min(need, max(1, min(per_sm, kBwdPerSm)) * sms));
+  const int per_slice = (n + ctas * s - 1) / (ctas * s);
+  gather_bwd_shared_kernel<V><<<ctas, threads, smem, stream>>>(
+      reinterpret_cast<const V*>(g), idx, rows, q, n, s, per_slice, scratch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int rk = rows * cols;
+  gather_bwd_sum_kernel<<<(rk + 31) / 32, 256, 0, stream>>>(scratch, ctas, rk, out);
+  return cudaGetLastError();
 }
 
 // Atomic mode: one atomicAdd per non-zero cotangent element of an in-range
@@ -235,11 +298,12 @@ extern "C" int fermat_gather_rows(const float* table, const int* idx, int rows,
 }
 
 // g (n, cols) f32 cotangent, idx (n,) i32 -> out (rows, cols) f32 d_table.
-// slices > 0: the shared mode with that many lane slices a CTA, part a
-// (ceil(n / kBwdChunk), rows, cols) scratch buffer; slices == 0: the atomic
-// mode (part unused). n * cols and rows * cols < 2^31.
+// slices > 0: the shared mode with at most that many lane slices a CTA
+// (fewer where the threads allow fewer), scratch sms * kBwdPerSm * rows *
+// cols floats; slices == 0: the atomic mode (scratch unused). n * cols and
+// rows * cols < 2^31.
 extern "C" int fermat_gather_rows_bwd(const float* g, const int* idx, int rows, int cols,
-                                      int n, float* part, float* out, int slices, int device,
+                                      int n, float* scratch, float* out, int slices, int device,
                                       cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -254,19 +318,13 @@ extern "C" int fermat_gather_rows_bwd(const float* g, const int* idx, int rows, 
     gather_bwd_atomic_kernel<<<blocks, kBlock, 0, stream>>>(g, idx, rows, cols, total, out);
     return static_cast<int>(cudaGetLastError());
   }
-  const int threads = ((slices * cols + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(slices) * rk * sizeof(float);
-  if (threads > 1024 || smem > static_cast<size_t>(kBwdSmem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(gather_bwd_partial_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int ctas = (n + kBwdChunk - 1) / kBwdChunk;
-  gather_bwd_partial_kernel<<<ctas, threads, smem, stream>>>(g, idx, rows, cols, n, slices,
-                                                              part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gather_bwd_sum_kernel<<<(rk + 31) / 32, 256, 0, stream>>>(part, ctas, rk, out);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = cols % 4 == 0 && (reinterpret_cast<uintptr_t>(g) & 15u) == 0;
+  err = vec ? launch_bwd_shared<float4>(g, idx, rows, cols, n, scratch, out, slices, device, sms,
+                                        stream)
+            : launch_bwd_shared<float>(g, idx, rows, cols, n, scratch, out, slices, device, sms,
+                                       stream);
+  return static_cast<int>(err);
 }

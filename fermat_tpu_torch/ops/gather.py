@@ -30,10 +30,15 @@ GATHER_BWD = CudaKernel(
              "_pallas_onehot_gather_diff :78; an XLA transposed one-hot matmul)",
 )
 
-# csrc/gather.cu: lanes per CTA of the shared-memory backward, and the most
-# shared memory its per-CTA partials may take
-BWD_CHUNK = 512
-BWD_SMEM = 96 * 1024
+# csrc/gather.cu's shared-memory backward: the most threads and shared
+# memory a CTA takes, the most CTAs an SM in its grid (one partial each in
+# the scratch), and the most table rows it serves: at 52 columns the atomic
+# mode is as fast at 160 rows and faster above (tools/torch_k1b_k2b_steps.py
+# --cut)
+BWD_THREADS = 256
+BWD_SMEM = 232_448
+BWD_PER_SM = 2
+BWD_ROWS = 160
 # K2b against its plain version: both sum each d_table element in float32,
 # in orders that differ (the plain version's index_add_ is atomic on a
 # card), so per element |K2b - plain| <= BWD_RTOL * (sum of |g| over the
@@ -60,19 +65,15 @@ def _gather_bwd_plain(g: Tensor, idx: Tensor, rows: int) -> Tensor:
 
 def bwd_slices(rows: int, cols: int) -> int:
     """Lane slices a CTA of the shared-memory backward keeps a private
-    (R, K) partial for (the `slices` argument of csrc/gather.cu); 0
-    selects the global atomic mode. The shared mode writes one (R, K)
-    partial per BWD_CHUNK lanes, ceil(N / BWD_CHUNK) * R * K floats of
-    scratch that its second launch reads back: R / BWD_CHUNK of the
-    cotangent's bytes. It is taken only up to R = BWD_CHUNK / 4 rows (the
-    scratch at most a quarter of the cotangent) and while the partials fit
-    in shared memory; the atomic mode serves every larger table."""
-    if rows > BWD_CHUNK // 4:
+    (R, K) partial for (the `slices` argument of csrc/gather.cu, for a
+    16-byte aligned cotangent); 0 selects the global atomic mode. A slice is
+    read by q threads, q = K / 4 float4 columns when K % 4 == 0, else K
+    floats; a CTA takes at most BWD_THREADS threads and BWD_SMEM bytes of
+    partials. The shared mode serves tables of at most BWD_ROWS rows."""
+    q = cols // 4 if cols % 4 == 0 else cols
+    if rows > BWD_ROWS or q > BWD_THREADS:
         return 0
-    s = max(1, min(8, 256 // max(cols, 1)))
-    while s > 0 and s * rows * cols * 4 > BWD_SMEM:
-        s //= 2
-    return s if cols <= 1024 else 0
+    return min(BWD_THREADS // q, BWD_SMEM // (4 * rows * cols))
 
 
 def _gather_fwd(table: Tensor, idx: Tensor) -> Tensor:
@@ -102,9 +103,12 @@ def gather_rows_bwd(g: Tensor, idx: Tensor, rows: int) -> Tensor:
     if n * k >= 2 ** 31 or rows * k >= 2 ** 31:
         raise ValueError(f"gather_rows_bwd: {n} x {k} cotangent or {rows} x {k} table exceeds "
                          "the kernel's int32 range")
+    if k % 4 == 0 and g.data_ptr() % 16:
+        g = g.clone()  # 16-byte aligned, for the float4 loads bwd_slices counts on
     s = bwd_slices(rows, k)
-    # the shared-memory mode's per-CTA partials; the atomic mode needs none
-    scratch = torch.empty(-(-n // BWD_CHUNK) * rows * k if s else 1, dtype=torch.float32,
+    # one (R, K) partial a CTA of the shared mode's grid; the atomic mode reads none
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    scratch = torch.empty(sms * BWD_PER_SM * rows * k if s else 1, dtype=torch.float32,
                           device=dev)
     out = torch.empty((rows, k), dtype=torch.float32, device=dev)
     GATHER_BWD.launch(dev, g.data_ptr(), idx.data_ptr(), rows, k, n, scratch.data_ptr(),

@@ -13,7 +13,7 @@ first triangle (pallas_trace.py:117-127).
 """
 from __future__ import annotations
 
-import math
+import struct
 
 import torch
 
@@ -38,30 +38,25 @@ ANY = CudaKernel(
 )
 
 
+# The lanes of a Python number: one buffer per value (by its float64 bits, so
+# -0.0 apart from 0.0) and device, grown as needed and shared by every call
+# that asks for that number, so that a tracer call launches no fill for its
+# tmin or tmax (the path passes the same numbers at every bounce). No
+# wrapper and no plain version writes into a lane buffer or returns one.
+_LANES: dict = {}
+
+
 def _lanes(x, n: int, device) -> Tensor:
-    """(n,) float32 lanes of a tensor or a Python number. A number becomes a
-    fill on the device: copying it from the host would wait for the
-    stream at every tracer call."""
-    if isinstance(x, (int, float)):
-        return torch.full((n,), x, dtype=torch.float32, device=device)
-    return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n).contiguous()
-
-
-# K1a's lanes of a Python number on a card: one read-only buffer per value
-# (-0.0 apart from 0.0) and device, grown as needed. The path passes the
-# same two numbers at every bounce, and a fill per call was two kernel
-# launches beside K1a's one.
-_CONST_LANES: dict = {}
-
-
-def _const_lanes(x, n: int, device) -> Tensor:
+    """(n,) float32 lanes of a tensor or a Python number (a read-only view
+    of the number's cached buffer)."""
     if not isinstance(x, (int, float)):
-        return _lanes(x, n, device)
-    key = (float(x), math.copysign(1.0, x), device)
-    buf = _CONST_LANES.get(key)
+        return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n).contiguous()
+    device = torch.device(device)
+    key = (struct.pack("<d", x), device)
+    buf = _LANES.get(key)
     if buf is None or buf.shape[0] < n:
-        buf = _lanes(x, n, device)
-        _CONST_LANES[key] = buf
+        buf = torch.full((n,), x, dtype=torch.float32, device=device)
+        _LANES[key] = buf
     return buf[:n]
 
 
@@ -141,9 +136,16 @@ def _any_plain(tris: Tensor, o: Vec3, d: Vec3, tmin: Tensor, tmax: Tensor,
 
 
 def _lane_args(o: Vec3, tmin, tmax, active):
+    """tmin, tmax and active as (n,) lanes; a missing mask is every lane,
+    cached like a number's lanes."""
     n, dev = o.x.shape[0], o.x.device
     if active is None:
-        active = torch.ones(n, dtype=torch.bool, device=dev)
+        key = ("every lane", dev)
+        buf = _LANES.get(key)
+        if buf is None or buf.shape[0] < n:
+            buf = torch.ones(n, dtype=torch.bool, device=dev)
+            _LANES[key] = buf
+        active = buf[:n]
     return _lanes(tmin, n, dev), _lanes(tmax, n, dev), active
 
 
@@ -165,12 +167,10 @@ def _kernel_args(tris, o, d, tmin, tmax, active):
 def trace_closest(tris: Tensor, o: Vec3, d: Vec3, tmin, tmax,
                   active: Tensor = None) -> Hit:
     """Closest hit over the whole soup; t = tmax and tri = -1 on a miss."""
+    tmin, tmax, active = _lane_args(o, tmin, tmax, active)
     if o.x.device.type == "cpu":
-        return _closest_plain(tris, o, d, *_lane_args(o, tmin, tmax, active))
+        return _closest_plain(tris, o, d, tmin, tmax, active)
     n, dev = o.x.shape[0], o.x.device
-    tmin, tmax = _const_lanes(tmin, n, dev), _const_lanes(tmax, n, dev)
-    if active is None:
-        active = torch.ones(n, dtype=torch.bool, device=dev)
     args = _kernel_args(tris, o, d, tmin, tmax, active)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)

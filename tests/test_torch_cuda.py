@@ -176,6 +176,93 @@ def test_closest_kernel_ties_and_tmax_match_plain_on_card(dev, tmax, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mask,n_tris,n", _MASK_CASES)
+def test_any_kernel_active_masks_match_plain_on_card(dev, mask, n_tris, n):
+    """K1b's block compaction and split rays against the plain version: the
+    masks, triangle counts and lane counts of K1a's test; tmax from the
+    ray's reach into the box, so that some rays are occluded and some are
+    not; inactive lanes report False; two launches equal."""
+    tris = random_soup(n_tris).device_view(dev).tri_soup()
+    o, d = _aimed_rays(tris, n, dev, seed=n_tris + 1)
+    active = _mask(mask, n, dev)
+    g = torch.Generator(device=dev).manual_seed(n)
+    tmax = torch.rand(n, generator=g, device=dev) * 3.0
+    occ = trace_mod.trace_any(tris, o, d, 1e-4, tmax, active)
+    again = trace_mod.trace_any(tris, o, d, 1e-4, tmax, active)
+    ref = trace_mod._any_plain(tris, o, d, trace_mod._lanes(1e-4, n, dev), tmax, active)
+    torch.cuda.synchronize()
+    assert torch.equal(occ, ref) and torch.equal(occ, again)
+    assert not bool(occ[~active].any())
+    if mask in ("every_7th", "all") and n_tris > 1:
+        assert bool(occ[active].any()) and not bool(occ[active].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["all", "one", "every_7th"])
+@pytest.mark.parametrize("n", [_N_MASK, _N_PATH])
+def test_any_kernel_hit_at_tmin_or_tmax_is_no_hit_on_card(dev, mask, n):
+    """A hit at t exactly tmin or exactly tmax occludes nothing (tmin < t <
+    tmax): every ray meets one triangle of a 36-triangle soup at t = 1
+    exactly (u = v = 0.25), away from the others."""
+    tris = random_soup(36).device_view(dev).tri_soup().clone()
+    tris[:, 17] = torch.tensor([10.0, 10.0, 5.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0], device=dev)
+    full = lambda v: torch.full((n,), v, device=dev)
+    o, d = Vec3(full(10.25), full(10.25), full(6.0)), Vec3(full(0.0), full(0.0), full(-1.0))
+    active = _mask(mask, n, dev)
+    for tmin, tmax, want in ((1.0, 2.0, False), (0.0, 1.0, False), (0.5, 1.5, True)):
+        occ = trace_mod.trace_any(tris, o, d, tmin, tmax, active)
+        ref = trace_mod._any_plain(tris, o, d, trace_mod._lanes(tmin, n, dev),
+                                   trace_mod._lanes(tmax, n, dev), active)
+        torch.cuda.synchronize()
+        assert torch.equal(occ, ref) and torch.equal(occ, active & want)
+
+
+def _device_kernels(fn) -> list:
+    """The names of the device kernels one call of fn runs (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+_WRAPPERS = {"dense": (trace_mod.trace_closest, trace_mod.trace_any),
+             "frontier": (ft.trace_closest_frontier, ft.trace_any_frontier),
+             "cluster": (ct.trace_closest_cluster, ct.trace_any_cluster),
+             "binned": (bt.trace_closest_binned, bt.trace_any_binned),
+             "sub": (st.trace_closest_sub, st.trace_any_sub)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracer", list(_WRAPPERS))
+def test_tracer_wrappers_launch_no_fill_on_card(dev, tracer):
+    """With number tmin / tmax (and no mask) a tracer wrapper runs the same
+    device kernels as with lanes made before the call: no fill, its lanes
+    are cached (ops/trace._lanes). trace_any runs exactly one device
+    kernel, K1b."""
+    mesh = big_room(400).device_view(dev)
+    table = (mesh.tri_soup() if tracer == "dense" else build_subclusters(mesh)
+             if tracer == "sub" else build_clusters(mesh))
+    n = 4096
+    o, d, active, _ = _rays(n, -6.0, 6.0, dev, seed=9)
+    t0, t1 = torch.full((n,), 1e-4, device=dev), torch.full((n,), 3.0e38, device=dev)
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    for fn in _WRAPPERS[tracer]:
+        for act, act_t in ((active, active), (None, every)):
+            with_numbers = _device_kernels(lambda: fn(table, o, d, 1e-4, 3.0e38, act))
+            with_lanes = _device_kernels(lambda: fn(table, o, d, t0, t1, act_t))
+            assert with_numbers and sorted(with_numbers) == sorted(with_lanes), with_numbers
+    soup = mesh.tri_soup()
+    before = trace_mod.ANY.launches
+    names = _device_kernels(lambda: trace_mod.trace_any(soup, o, d, 0.0, 2.5, active))
+    assert len(names) == 1 and "any_kernel" in names[0], names
+    assert trace_mod.ANY.launches == before + 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows,cols,n", [(36, 52, 100_003), (36, 23, 100_003), (36, 1, 100_003),
                                          (4096, 52, 100_003), (36, 3, 100_003),
                                          (36, 16, 100_003), (36, 53, 100_003),
@@ -572,6 +659,42 @@ def test_gather_bwd_kernel_matches_plain_on_card(dev, rows, cols):
     (gather_mod.gather_rows(table, idx) * g).sum().backward()
     assert gather_mod.GATHER_BWD.launches == before + 3
     assert _bwd_close(table.grad, want, g, idx, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["one_row", "runs", "out_of_range", "uniform"])
+@pytest.mark.parametrize("rows,cols", [(36, 52), (gather_mod.BWD_ROWS, 52), (36, 23), (36, 1),
+                                       (gather_mod.BWD_ROWS, 1)])
+def test_gather_bwd_shared_mode_patterns_on_card(dev, rows, cols, pattern):
+    """K2b's shared mode at the shapes around its cut (ops/gather.py
+    BWD_ROWS): every lane on one row, runs of equal indices (the path's
+    shape), every index out of range (zeros), and uniform random indices;
+    two launches bit-equal, within BWD_RTOL of the plain version."""
+    assert gather_mod.bwd_slices(rows, cols) > 0
+    gen = torch.Generator(device=dev).manual_seed(rows * cols)
+    n = _N_PATH + 33
+    if pattern == "one_row":
+        idx = torch.full((n,), rows // 2, dtype=torch.int32, device=dev)
+    elif pattern == "runs":  # runs of 1-300 lanes, a random row each
+        lens = torch.randint(1, 301, (n,), generator=gen, device=dev)
+        starts = torch.zeros(n, dtype=torch.bool, device=dev)
+        starts[torch.cumsum(lens, 0)[torch.cumsum(lens, 0) < n]] = True
+        starts[0] = True
+        run_row = torch.randint(-2, rows + 2, (n,), generator=gen, device=dev)
+        idx = run_row[torch.cumsum(starts.long(), 0) - 1].to(torch.int32)
+    elif pattern == "out_of_range":
+        idx = torch.where(torch.arange(n, device=dev) % 2 == 0, -1, rows).to(torch.int32)
+    else:
+        idx = torch.randint(0, rows, (n,), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.randn(n, cols, generator=gen, device=dev)
+    got = gather_mod.gather_rows_bwd(g, idx, rows)
+    again = gather_mod.gather_rows_bwd(g, idx, rows)
+    want = gather_mod._gather_bwd_plain(g, idx, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(again))
+    assert _bwd_close(got, want, g, idx, rows)
+    if pattern == "out_of_range":
+        assert bool((got == 0.0).all())
 
 
 @pytest.mark.cuda

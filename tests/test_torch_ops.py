@@ -20,8 +20,13 @@ from fermat_tpu.core.math import Vec3 as JV
 from fermat_tpu.ops.gather import _pallas_onehot_gather, one_hot_matmul_gather
 from fermat_tpu.ops.pallas_trace import trace_any_pallas, trace_closest_pallas
 from fermat_tpu.scene import procedural as jproc
+from fermat_tpu_torch.accel.cluster import build_clusters, build_subclusters
 from fermat_tpu_torch.core.math import Vec3 as TV
+from fermat_tpu_torch.ops import binned_trace as tbinned
+from fermat_tpu_torch.ops import cluster_trace as tcluster
+from fermat_tpu_torch.ops import frontier_trace as tfrontier
 from fermat_tpu_torch.ops import gather as tgather
+from fermat_tpu_torch.ops import sub_trace as tsub
 from fermat_tpu_torch.ops import trace as ttrace
 from fermat_tpu_torch.scene import procedural as tproc
 
@@ -117,20 +122,80 @@ def test_tmax_above_pallas_sentinel_is_no_phantom_hit():
     assert int(hit.tri[0]) == -1 and float(hit.t[0]) == float("inf")
 
 
-def test_const_lanes_keep_each_number_apart():
-    """K1a's cached constant lanes (ops/trace._const_lanes): one buffer per
+def test_lanes_keep_each_number_apart():
+    """The cached lanes of a Python number (ops/trace._lanes): one buffer per
     value with its sign (-0.0 apart from 0.0), grown as needed, returned as
     an (n,) slice holding the value's float32 bits; tensors pass through."""
     dev = torch.device("cpu")
     bits = lambda t: t.view(torch.int32)
-    a = ttrace._const_lanes(0.0, 8, dev)
-    b = ttrace._const_lanes(-0.0, 4, dev)
-    c = ttrace._const_lanes(0.0, 16, dev)  # grows the 0.0 buffer
-    d = ttrace._const_lanes(3.0e38, 3, dev)
+    a = ttrace._lanes(0.0, 8, dev)
+    b = ttrace._lanes(-0.0, 4, dev)
+    c = ttrace._lanes(0.0, 16, dev)  # grows the 0.0 buffer
+    d = ttrace._lanes(3.0e38, 3, dev)
     assert a.shape == (8,) and b.shape == (4,) and c.shape == (16,) and d.shape == (3,)
     assert bool((bits(a) == 0).all()) and bool((bits(c) == 0).all())
     assert bool((bits(b) == bits(torch.tensor(-0.0))).all())
     assert bool((d == torch.tensor(3.0e38, dtype=torch.float32)).all())
-    assert ttrace._const_lanes(0.0, 5, dev).data_ptr() == c.data_ptr()  # reused
+    assert ttrace._lanes(0.0, 5, dev).data_ptr() == c.data_ptr()  # reused
     t = torch.arange(4, dtype=torch.float32)
-    assert torch.equal(ttrace._const_lanes(t, 4, dev), t)
+    assert torch.equal(ttrace._lanes(t, 4, dev), t)
+
+
+# the five tracer wrappers that take their tmin / tmax lanes from _lanes:
+# (the table they trace, closest-hit, any-hit)
+_TRACERS = {
+    "dense": (lambda m: m.tri_soup(), ttrace.trace_closest, ttrace.trace_any),
+    "frontier": (build_clusters, tfrontier.trace_closest_frontier,
+                 tfrontier.trace_any_frontier),
+    "cluster": (build_clusters, tcluster.trace_closest_cluster, tcluster.trace_any_cluster),
+    "binned": (build_clusters, tbinned.trace_closest_binned, tbinned.trace_any_binned),
+    "sub": (build_subclusters, tsub.trace_closest_sub, tsub.trace_any_sub),
+}
+
+
+@pytest.fixture(scope="module", params=["cornell_box", "big_room400"])
+def lane_scene(request):
+    mesh = (tproc.cornell_box(glossy_boxes=True) if request.param == "cornell_box"
+            else tproc.big_room(400)).device_view("cpu")
+    lo, hi = mesh.tri_soup()[0:3].min(dim=1).values, mesh.tri_soup()[0:3].max(dim=1).values
+    r = np.random.default_rng(5)
+    n = 512
+    o = r.uniform(0.0, 1.0, (3, n)).astype(np.float32) * (hi - lo).numpy()[:, None] \
+        + lo.numpy()[:, None]
+    d = r.standard_normal((3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    active = torch.from_numpy(r.uniform(size=n) < 0.8)
+    return mesh, TV(*map(torch.from_numpy, o)), TV(*map(torch.from_numpy, d)), active
+
+
+@pytest.mark.parametrize("tracer", list(_TRACERS))
+def test_tracer_wrappers_share_no_lane_buffer(lane_scene, tracer):
+    """Every tracer wrapper with number tmin / tmax (the cached lanes, and
+    the cached every-lane mask) answers as with freshly filled lanes, and
+    none of its outputs shares storage with a cached lane buffer, even
+    after the caller writes into the outputs."""
+    mesh, o, d, active = lane_scene
+    build, closest, any_hit = _TRACERS[tracer]
+    table = build(mesh)
+    n = o.x.shape[0]
+    fresh = lambda x: torch.full((n,), x, dtype=torch.float32)
+
+    def traced():
+        return (closest(table, o, d, 1e-4, 3.0e38, active),
+                any_hit(table, o, d, 0.0, 2.5, active),
+                any_hit(table, o, d, 0.0, 2.5))
+
+    hit, occ, occ_all = traced()
+    want_hit = closest(table, o, d, fresh(1e-4), fresh(3.0e38), active)
+    want_occ = any_hit(table, o, d, fresh(0.0), fresh(2.5), active)
+    want_all = any_hit(table, o, d, fresh(0.0), fresh(2.5), torch.ones(n, dtype=torch.bool))
+    outs = [*hit, occ, occ_all]
+    wants = [*want_hit, want_occ, want_all]
+    assert all(torch.equal(a, b) for a, b in zip(outs, wants))
+    assert bool((hit.tri >= 0).any()) and bool(occ.any()) and not bool(occ.all())
+    cached = {b.untyped_storage().data_ptr() for b in ttrace._LANES.values()}
+    assert not any(t.untyped_storage().data_ptr() in cached for t in outs)
+    for t in outs:  # the caller writes into what it was given
+        t.fill_(True if t.dtype == torch.bool else -7)
+    again = traced()
+    assert all(torch.equal(a, b) for a, b in zip([*again[0], *again[1:]], wants))

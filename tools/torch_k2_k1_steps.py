@@ -107,7 +107,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
-from torch_steps_common import FLUSH_BYTES, bind, build, edited, log, patch, replay  # noqa: E402
+from torch_steps_common import (FLUSH_BYTES, bind, build, edited, filled_lanes,  # noqa: E402
+                                log, record_pass, replay)
 
 RES, MPL, PASSES, REPS = 512, 6, 8, 3
 BIG_BOXES, BIG_W, BIG_H, BIG_PASSES = 8300, 1600, 896, 3
@@ -447,8 +448,6 @@ def main() -> int:
     from fermat_tpu_torch.ops import gather as gather_mod
     from fermat_tpu_torch.ops import trace as trace_mod
     from fermat_tpu_torch.render.context import RenderingContext
-    from fermat_tpu_torch.scene import lights as lights_mod
-    from fermat_tpu_torch.scene import mesh as mesh_mod
     from fermat_tpu_torch.scene.procedural import (big_room, big_room_camera, cornell_box,
                                                    cornell_camera, random_soup)
 
@@ -472,7 +471,7 @@ def main() -> int:
         if so is not None:
             libs[(fname, step)] = bind(so, gather_kerns if fname == "gather.cu" else trace_kerns)
 
-    cached = trace_mod._const_lanes
+    cached = trace_mod._lanes
 
     def use(fname, step):
         for kern, (fn, err) in zip(gather_kerns if fname == "gather.cu" else trace_kerns,
@@ -480,38 +479,19 @@ def main() -> int:
             kern._fn, kern._err = fn, err
         if fname == "trace.cu":
             before = step in K1_STEPS and K1_STEPS.index(step) < K1_STEPS.index(CACHED_LANES)
-            trace_mod._const_lanes = trace_mod._lanes if before else cached
+            trace_mod._lanes = filled_lanes if before else cached
 
     # ---- the main path's inputs, recorded with this checkout's kernels ----
     use("gather.cu", HERE["gather.cu"])
     use("trace.cu", HERE["trace.cu"])
-    rec = {"dense_k2": [], "big_k2": [], "k1a": [], "k1b": []}
-
-    def recorder(key, fn):
-        def wrapper(*args):
-            rec[key].append(args)
-            return fn(*args)
-        return wrapper
-
     ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), RES, RES,
                                   renderer="pt", max_path_length=MPL)
-    opts = pt.PTOptions(**ctx.renderer_options)
-    with torch.no_grad(), patch([(pt, "trace_closest", recorder("k1a", pt.trace_closest)),
-                                 (pt, "trace_any", recorder("k1b", pt.trace_any)),
-                                 (mesh_mod, "gather_rows",
-                                  recorder("dense_k2", mesh_mod.gather_rows)),
-                                 (lights_mod, "gather_rows",
-                                  recorder("dense_k2", lights_mod.gather_rows))]):
-        pt.render_pass(ctx.view, opts, RES, RES, 2000, 0)
+    dense = record_pass(ctx.view, pt.PTOptions(**ctx.renderer_options), RES, RES)
     bctx = RenderingContext.create(big_room(BIG_BOXES), big_room_camera(), BIG_W, BIG_H,
                                    renderer="pt", max_path_length=MPL)
-    bopts = pt.PTOptions(**bctx.renderer_options)
-    with torch.no_grad(), patch([(mesh_mod, "gather_rows",
-                                  recorder("big_k2", mesh_mod.gather_rows)),
-                                 (lights_mod, "gather_rows",
-                                  recorder("big_k2", lights_mod.gather_rows))]):
-        pt.render_pass(bctx.view, bopts, BIG_W, BIG_H, 2000, 0)
-    torch.cuda.synchronize()
+    big = record_pass(bctx.view, pt.PTOptions(**bctx.renderer_options), BIG_W, BIG_H)
+    rec = {"dense_k2": dense["k2"], "big_k2": big["k2"], "k1a": dense["k1a"],
+           "k1b": dense["k1b"]}
     lanes = lambda x, n: trace_mod._lanes(x, n, dev)
     k1a = []
     for tris, o, d, tmin, tmax, active in rec["k1a"]:

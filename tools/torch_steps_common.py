@@ -1,8 +1,10 @@
 """What the port's design-step tools share (tools/torch_k3_steps.py,
-tools/torch_k5_steps.py, tools/torch_k2_k1_steps.py): exact text edits of a
-kernel source, one nvcc a variant started together, ptxas's registers and
-spills per kernel, binding a build's C entry points the way the port's
-wrappers bind them, and CUDA-event replay timing behind a spin kernel.
+tools/torch_k5_steps.py, tools/torch_k2_k1_steps.py,
+tools/torch_k1b_k2b_steps.py): exact text edits of a kernel source, one nvcc
+a variant started together, ptxas's registers and spills per kernel, binding
+a build's C entry points the way the port's wrappers bind them, CUDA-event
+replay timing behind a spin kernel, and the main path's recorded launches
+(one render_pass, one AD train step).
 
 A tool builds each design step from this checkout's sources by exact text
 edits. The edits are a record of how the kernel was designed: they are
@@ -166,3 +168,85 @@ class patch:
     def __exit__(self, *exc):
         for m, n, v in self.saved:
             setattr(m, n, v)
+
+
+def filled_lanes(x, n: int, device):
+    """A tracer's lanes as the wrappers made them before ops/trace._lanes
+    cached a number's: a fill on the device per call."""
+    import torch
+
+    if isinstance(x, (int, float)):
+        return torch.full((n,), x, dtype=torch.float32, device=device)
+    return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n).contiguous()
+
+
+def record_pass(view, opts, res_x: int, res_y: int, instance: int = 2000) -> dict:
+    """The dense tracers' and the row gather's launches of one render_pass
+    (no autograd), as their wrappers' arguments: {"k1a": [(tris, o, d, tmin,
+    tmax, active)], "k1b": [...], "k2": [(table, idx)]}. A pass with another
+    tracer records only its K2 launches."""
+    import torch
+
+    from fermat_tpu_torch.integrators import pt
+    from fermat_tpu_torch.scene import lights as lights_mod
+    from fermat_tpu_torch.scene import mesh as mesh_mod
+
+    rec = {"k1a": [], "k1b": [], "k2": []}
+
+    def recorder(key, fn):
+        def wrapper(*args):
+            rec[key].append(args)
+            return fn(*args)
+        return wrapper
+
+    with torch.no_grad(), patch([(pt, "trace_closest", recorder("k1a", pt.trace_closest)),
+                                 (pt, "trace_any", recorder("k1b", pt.trace_any)),
+                                 (mesh_mod, "gather_rows", recorder("k2", mesh_mod.gather_rows)),
+                                 (lights_mod, "gather_rows",
+                                  recorder("k2", lights_mod.gather_rows))]):
+        pt.render_pass(view, opts, res_x, res_y, instance, 0)
+    torch.cuda.synchronize()
+    return rec
+
+
+def ad_step(view, opts, res_x: int, res_y: int, instance: int):
+    """One AD train step as chip_smoke.py phase 4f drives it (bench.py:152-163):
+    render_pass under autograd with the (M, 3) diffuse albedos as a leaf, an
+    MSE against a zero target, backward(). Returns the leaf's gradient."""
+    import torch
+
+    from fermat_tpu_torch.core.math import Vec3
+    from fermat_tpu_torch.integrators import pt
+
+    leaf = view.mesh.materials.diffuse.stack().detach().clone().requires_grad_(True)
+    mats = view.mesh.materials._replace(diffuse=Vec3(leaf[:, 0], leaf[:, 1], leaf[:, 2]))
+    out = pt.render_pass(view._replace(mesh=view.mesh._replace(materials=mats)), opts,
+                         res_x, res_y, instance, 0)
+    torch.mean(out.composited.stack() ** 2).backward()
+    return leaf.grad
+
+
+def record_ad_step(view, opts, res_x: int, res_y: int, instance: int) -> dict:
+    """The launches of one AD train step (ad_step): its forward's dense
+    tracer and gather launches as record_pass records them, and "k2b": K2b's
+    [(g, idx, rows)]."""
+    import torch
+
+    from fermat_tpu_torch.integrators import pt
+    from fermat_tpu_torch.ops import gather as gather_mod
+
+    rec = {"k1a": [], "k1b": [], "k2b": []}
+    bwd = gather_mod.gather_rows_bwd
+
+    def recorder(key, fn):
+        def wrapper(*args):
+            rec[key].append(args)
+            return fn(*args)
+        return wrapper
+
+    with patch([(pt, "trace_closest", recorder("k1a", pt.trace_closest)),
+                (pt, "trace_any", recorder("k1b", pt.trace_any)),
+                (gather_mod, "gather_rows_bwd", recorder("k2b", bwd))]):
+        ad_step(view, opts, res_x, res_y, instance)
+    torch.cuda.synchronize()
+    return rec
