@@ -85,6 +85,31 @@ result is printed then):
                 one profiled step; ms/step, train Mrays/s (forward rays /
                 step wall time), peak device memory
                 (max_memory_allocated), idle share, launches per step;
+  4g. lit    — the PT pass's full light model through RenderingContext
+                (dir_lights, point_lights, env_map) and SceneView.build
+                (area_light_defs), with a 2048x1024 float32 sky made from a
+                fixed seed (its sample() picking the same texel on the card
+                as on the CPU on 1,048,576 lanes): the glossy CornellBox with the blocker panel
+                flagged FLAG_SHADOW_DIRECT_IGNORE (one shadow set), an
+                analytic disk and rect, a point and a directional light,
+                512x512, 6 bounces (K1a, K1b also over the set, K2); and
+                big_room(8300) 1600x896, 6 bounces, with the sky, a
+                directional sun through the open side and the clutter
+                flagged FLAG_SHADOW_INDIRECT_IGNORE (K5a; K5b at bounce 0;
+                K1b over the 36-triangle set at the later bounces; K4, K2),
+                monolithic and narrow=1: ms/pass, Mrays/s (best of 3
+                batches of 2 passes after a warm-up), launches per pass,
+                one profiled pass each (busy, idle share, the route
+                kernels' time a launch in it); tracer="mega" on the lit CornellBox raises; one
+                pass with the kernels and one with the plain versions
+                forced (512x512; big_room at 400x224): rays equal, every
+                channel bit-equal; at the first shadow launch on each
+                set, K1b on its soup and K5b on its cluster table
+                bit-equal to their plain versions; the light-model golden
+                (tests/golden/torch_port_lights_24.npz, JAX on the CPU,
+                configurations A-D, D also with tracer="auto") within the
+                tolerances of tests/test_torch_pt.py, its jax.grad cases
+                within AD_GOLDEN_RTOL;
   5. parity   — one 512x512 pass with the kernels and one with the plain
                 versions forced in their place: equal `rays`, equal images;
                 then the golden configuration (tests/golden/
@@ -164,7 +189,8 @@ result is printed then):
                 the first launch of each kind (bounce 0), held bit-equal
                 and timed there; bound: 46 flops a test over K8's own
                 leaves, with K5's bound on the same rays beside it.
-Then the card's nvidia-smi line, one JSON line {"kernels": [...]}, and last
+Then the card's nvidia-smi line, one JSON line {"kernels": [...]} (each row
+also holds its launches per pass on phase 4g's lit paths), and last
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -242,6 +268,23 @@ _FLUSH = None
 AD_K3B_RTOL = 1e-4
 AD_GOLDEN_RTOL = 1e-5
 AD_PLAIN_RTOL = 1e-4
+# phase 4g, the lit passes: a 2048x1024 float32 sky (25 MB, a common 2K
+# HDRI's size), passes a batch of the lit CornellBox, and its lights: an
+# analytic disk and rect under the blocker panel, a point light, and
+# directional lights entering through the open side of each room
+ENV_W, ENV_H = 2048, 1024
+LIT_PASSES = 2  # a batch, both lit scenes (the lit CornellBox's pass is host-bound, ~1 s)
+# device kernel names of the route kernels, for their time inside a profiled lit pass
+LIT_IN_PASS = {"trace_closest": "closest_kernel", "trace_any": "any_kernel",
+               "gather_rows": "gather_rows_kernel", "trace_closest_frontier": "trace_kernel<true>",
+               "trace_any_frontier": "trace_kernel<false>", "cdf_pick_rows": "pick_kernel"}
+LIT_AREA = [dict(kind="disk", pos=(-0.45, 1.75, 0.25), normal=(0.15, -1.0, 0.1),
+                 color=(6.0, 5.0, 4.0), radius=0.25),
+            dict(kind="rect", pos=(0.45, 1.6, -0.35), normal=(-0.2, -1.0, 0.15),
+                 color=(3.0, 4.0, 5.0), u_extent=0.3, v_extent=0.2)]
+LIT_POINT = [((0.3, 1.2, 0.5), (1.5, 1.2, 0.9))]
+LIT_DIR = ((0.25, -0.5, -1.0), (0.8, 0.7, 0.6))
+LIT_SUN = ((0.3, -0.6, -1.0), (3.0, 2.8, 2.5))
 
 
 class SmokeFailure(AssertionError):
@@ -525,6 +568,304 @@ def mega_ops(events: list, n: int, n_mats: int, opts) -> dict:
 def lanes_close(got, want) -> tuple:
     """image_close on (3, N) lane blocks of the megakernel's output."""
     return image_close(got.t().cpu().numpy(), want.t().cpu().numpy())
+
+
+def sky_map(h: int, w: int, seed: int = 7):
+    """An (h, w, 3) float32 lat-long HDR sky from a fixed numpy seed: a
+    gradient above the horizon, a dim ground, noise, and a small bright sun
+    36 degrees from the zenith on the side the rooms open to (+z)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v = (np.arange(h, dtype=np.float32) + 0.5) / h  # 0 at the zenith
+    sky = np.stack([0.3 + 0.6 * v, 0.5 + 0.4 * v, 1.0 - 0.2 * v], axis=1)
+    img = (np.where((v < 0.5)[:, None, None], sky[:, None, :], 0.1)
+           + rng.random((h, w, 3), dtype=np.float32) * 0.05).astype(np.float32)
+    img[h // 5:h // 5 + h // 128, w // 8:w // 8 + w // 256] = (400.0, 380.0, 320.0)
+    return img
+
+
+def lit_cornell():
+    """The glossy CornellBox with the blocker panel of
+    tests/test_shadow_masks.py:24-52 under its ceiling light, flagged
+    FLAG_SHADOW_DIRECT_IGNORE: one shadow set (the direct one)."""
+    import numpy as np
+
+    from fermat_tpu_torch.scene.materials import FLAG_SHADOW_DIRECT_IGNORE, HostMaterial
+    from fermat_tpu_torch.scene.mesh import MeshStorage
+    from fermat_tpu_torch.scene.procedural import _quad, cornell_box
+
+    vs, tris, ids = [], [], []
+    _quad(vs, tris, ids, [-0.99, 1.9, 0.99], [0.99, 1.9, 0.99], [0.99, 1.9, -0.99],
+          [-0.99, 1.9, -0.99], 0)
+    m = HostMaterial("blocker")
+    m.diffuse = (0.2, 0.2, 0.2)
+    m.flags = FLAG_SHADOW_DIRECT_IGNORE
+    t = np.asarray(tris, np.int32)
+    return cornell_box(glossy_boxes=True).merge(MeshStorage(
+        vertices=np.asarray(vs, np.float32), triangles=t, normal_indices=np.full_like(t, -1),
+        uv_indices=np.full_like(t, -1), material_ids=np.asarray(ids, np.int32),
+        materials=[m]))
+
+
+def forced_plain(dev) -> list:
+    """patched() replacements that put every kernel's plain version in the
+    pass's place: the dense and frontier tracers, the light pick and the
+    row gathers."""
+    import torch
+
+    from fermat_tpu_torch.accel.traverse import Hit
+    from fermat_tpu_torch.integrators import pt
+    from fermat_tpu_torch.ops import cdf_gather
+    from fermat_tpu_torch.ops import frontier_trace as ft
+    from fermat_tpu_torch.ops import gather as gather_mod
+    from fermat_tpu_torch.ops import trace as trace_mod
+    from fermat_tpu_torch.scene import lights as lights_mod
+    from fermat_tpu_torch.scene import mesh as mesh_mod
+
+    def lanes(o, tmin, tmax):
+        n = o.x.shape[0]
+        return trace_mod._lanes(tmin, n, dev), trace_mod._lanes(tmax, n, dev)
+
+    def closest(tris, o, d, tmin, tmax, active=None):
+        return trace_mod._closest_plain(tris, o, d, *lanes(o, tmin, tmax), active)
+
+    def any_(tris, o, d, tmin, tmax, active=None):
+        return trace_mod._any_plain(tris, o, d, *lanes(o, tmin, tmax), active)
+
+    def closest_frontier(cl, o, d, tmin, tmax, active=None, with_uv=True):
+        t, tri = ft._closest_plain(cl, o, d, *lanes(o, tmin, tmax), active)
+        return Hit(t=t, tri=tri, u=torch.zeros_like(t), v=torch.zeros_like(t))
+
+    def any_frontier(cl, o, d, tmin, tmax, active=None):
+        return ft._any_plain(cl, o, d, *lanes(o, tmin, tmax), active)
+
+    return [(pt, "trace_closest", closest), (pt, "trace_any", any_),
+            (pt, "trace_closest_frontier", closest_frontier),
+            (pt, "trace_any_frontier", any_frontier),
+            (pt, "cdf_pick_rows", cdf_gather._pick_plain),
+            (mesh_mod, "gather_rows", gather_mod._gather_plain),
+            (lights_mod, "gather_rows", gather_mod._gather_plain)]
+
+
+def lit_phase(dev, smi: str, reset_counts, counts) -> dict:
+    """Phase 4g: the PT pass's full light model on the card (see the module
+    docstring). Returns the cells' numbers and their launches per pass."""
+    import numpy as np
+    import torch
+
+    from fermat_tpu_torch.core.math import Vec3
+    from fermat_tpu_torch.integrators import pt
+    from fermat_tpu_torch.ops import frontier_trace as ft
+    from fermat_tpu_torch.ops import pt_mega
+    from fermat_tpu_torch.ops import trace as trace_mod
+    from fermat_tpu_torch.render.context import RenderingContext
+    from fermat_tpu_torch.scene.lights import DirectionalLightDef
+    from fermat_tpu_torch.scene.materials import FLAG_SHADOW_INDIRECT_IGNORE
+    from fermat_tpu_torch.scene.procedural import big_room, big_room_camera, cornell_camera
+    from fermat_tpu_torch.scene.view import SceneView
+
+    t_phase = time.perf_counter()
+    bits = lambda t: t.contiguous().view(torch.int32)
+    emap = sky_map(ENV_H, ENV_W)
+    cells, launches = {}, {}
+
+    def drive(cell, ctx, passes, narrow=False):
+        """Warm-up, best of REPS batches, launches per pass, one profiled pass."""
+        ctx.render(1)
+        reset_counts()
+        best, rays = best_batches(ctx, passes, narrow=narrow)
+        per = {n: c / (passes * REPS) for n, c in counts().items() if c}
+        hdr = ctx.hdr_image()
+        check(np.isfinite(hdr).all() and float(hdr.mean()) > 0.001,
+              f"{cell}: image not finite or black (mean {hdr.mean()})")
+        n_kern, busy, top, each = profile_one_pass(ctx, narrow=narrow)
+        ms = best / passes * 1e3
+        # each route kernel's device time a launch inside the profiled pass (us)
+        in_pass = {n: 1e3 * sum(v) / len(v) for n, k in LIT_IN_PASS.items()
+                   for v in [launches_named(each, k)] if v}
+        cells[cell] = dict(ms=ms, mrays=rays / best / 1e6, rays=rays / passes, kernels=n_kern,
+                           busy_ms=busy, idle=1 - busy / ms, launches=per, in_pass_us=in_pass)
+        log(f"[4g lit] {cell} {ctx.res_x}x{ctx.res_y} mpl={MPL}: {ms:.2f} ms/pass, "
+            f"{rays / best / 1e6:.3f} Mrays/s ({rays / passes:.0f} rays/pass; best of {REPS} x "
+            f"{passes} passes) on {smi}; image mean {hdr.mean():.4f}; launches per pass: {per}")
+        log(f"[4g lit] {cell}: one pass under torch.profiler: {n_kern} device kernels, device "
+            f"busy {busy:.2f} ms of the {ms:.2f} ms pass (idle share {1 - busy / ms:.3f}); route "
+            "kernels' us a launch in it: " + ", ".join(f"{n} {v:.2f}" for n, v in in_pass.items())
+            + "; top: " + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
+        return per
+
+    def plain_parity(cell, view, opts, res_x, res_y, ss):
+        """One pass with the kernels (recording the first K1b launch on the
+        shadow set `ss`) and one with every plain version forced: rays equal,
+        every channel bit-equal. Then K1b on the set's soup and K5b on its
+        cluster table at that launch's rays, each bit-equal to its plain
+        version."""
+        rec, trace_any = [], pt.trace_any
+
+        def rec_any(tris, *a):
+            if tris is ss.tris and not rec:
+                rec.append(a)
+            return trace_any(tris, *a)
+
+        with patched([(pt, "trace_any", rec_any)]):
+            out_k = pt.render_pass(view, opts, res_x, res_y, 1000, 0)
+        before = counts()
+        with patched(forced_plain(dev)):
+            out_p = pt.render_pass(view, opts, res_x, res_y, 1000, 0)
+        torch.cuda.synchronize()
+        check(before == counts(), f"{cell}: the forced plain pass launched a kernel")
+        check(float(out_k.rays) == float(out_p.rays),
+              f"{cell}: kernel vs plain pass: rays {float(out_k.rays)} vs {float(out_p.rays)}")
+        for c in ("composited", "direct", "diffuse", "specular", "normal", "position"):
+            check(torch.equal(bits(getattr(out_k, c).stack()), bits(getattr(out_p, c).stack())),
+                  f"{cell}: kernel vs plain pass: {c} not bit-equal")
+        check(torch.equal(out_k.tri, out_p.tri), f"{cell}: kernel vs plain pass: first hits differ")
+        check(len(rec) == 1, f"{cell}: no K1b launch on the shadow set")
+        o, d, tmin, tmax, active = rec[0]
+        n = o.x.shape[0]
+        t0l, t1l = trace_mod._lanes(tmin, n, dev), trace_mod._lanes(tmax, n, dev)
+        k1 = trace_mod.trace_any(ss.tris, o, d, tmin, tmax, active)
+        p1 = trace_mod._any_plain(ss.tris, o, d, t0l, t1l, active)
+        k5 = ft.trace_any_frontier(ss.clusters, o, d, tmin, tmax, active)
+        p5 = ft._any_plain(ss.clusters, o, d, t0l, t1l, active)
+        torch.cuda.synchronize()
+        check(torch.equal(k1, p1), f"{cell}: K1b on the shadow set's soup differs from plain")
+        check(torch.equal(k5, p5), f"{cell}: K5b on the shadow set's table differs from plain")
+        log(f"[4g lit] {cell} {res_x}x{res_y}: kernels vs plain versions: rays equal "
+            f"({float(out_k.rays):.0f}), every channel, normal, position and first hit "
+            f"bit-equal; at the first shadow launch on the set ({ss.mesh.n_triangles} "
+            f"triangles, {int(active.sum())} of {n} lanes able): K1b on its soup and K5b on "
+            f"its cluster table each equal to plain ({int(k1.sum())} / {int(k5.sum())} "
+            f"occluded, {int((k1 != k5).sum())} lanes where K1b and K5b differ)")
+
+    # ---- the lit CornellBox: K1a, K1b (also over the shadow set), K2 ----
+    cstore, cam = lit_cornell(), cornell_camera()
+    sun = [DirectionalLightDef(*LIT_DIR)]
+    ctx = RenderingContext.create(cstore, cam, RES, RES, renderer="pt", max_path_length=MPL,
+                                  dir_lights=sun, point_lights=LIT_POINT, env_map=emap)
+    ctx.view = SceneView.build(cstore, cam, dev, dir_light_defs=sun, point_light_defs=LIT_POINT,
+                               env_map=emap, area_light_defs=LIT_AREA)
+    view = ctx.view
+    check(view.device.type == "cuda" and view.area_lights.count == 2
+          and view.shadow_sets[1] is None
+          and view.shadow_sets[0].mesh.n_triangles == view.mesh.n_triangles - 2,
+          "the lit CornellBox's view: lights or shadow sets not as built")
+    # the env map's texel choice on the card against the CPU's, on the same
+    # host-built CDF: the chosen texel's radiance bit-equal on every lane
+    gen = torch.Generator(device=dev).manual_seed(3)
+    u = torch.rand(2, 1 << 20, generator=gen, device=dev)
+    card = view.env_map.sample(u[0], u[1])
+    host = type(view.env_map)(*(t.cpu() for t in view.env_map)).sample(u[0].cpu(), u[1].cpu())
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(card[2], host[2])),
+          "env map sample: the card chose another texel than the CPU")
+    log(f"[4g lit] env map {ENV_W}x{ENV_H}: sample() on {u.shape[1]} lanes picks the same "
+        f"texel on the card as on the CPU; max |dir card - dir cpu| "
+        f"{max(float((a.cpu() - b).abs().max()) for a, b in zip(card[0], host[0])):.3g}, max "
+        f"pdf rel {float(((card[1].cpu() - host[1]).abs() / host[1]).max()):.3g}")
+    opts = pt.PTOptions(**ctx.renderer_options)
+    refused = False
+    try:
+        pt.render_pass(view, opts._replace(tracer="mega"), 16, 16, 0)
+    except NotImplementedError:
+        refused = True
+    check(refused and not pt_mega.mega_eligible(view, opts),
+          "tracer='mega' on the lit CornellBox did not raise NotImplementedError")
+    per = drive("lit CornellBox", ctx, LIT_PASSES)
+    # a strategy a bounce: mesh lights, the env map, 2 area, 1 point, 1 directional
+    check(per.get("trace_closest") == MPL and per.get("trace_any") == 6 * MPL
+          and per.get("gather_rows", 0) > 0 and set(per) == {"trace_closest", "trace_any",
+                                                            "gather_rows"},
+          f"lit CornellBox launches per pass: {per}")
+    launches["lit_cornell"] = per
+    plain_parity("lit CornellBox", view, opts, RES, RES, view.shadow_sets[0])
+
+    # ---- the lit big_room: K5a, K5b at bounce 0, K1b over the 36-triangle
+    # indirect shadow set at the later bounces, K4, K2 ----
+    room = big_room(BIG_BOXES)
+    for m in room.materials:
+        if m.name == "clutter":
+            m.flags |= FLAG_SHADOW_INDIRECT_IGNORE
+    bctx = RenderingContext.create(room, big_room_camera(), BIG_W, BIG_H, renderer="pt",
+                                   max_path_length=MPL, dir_lights=[DirectionalLightDef(*LIT_SUN)],
+                                   env_map=emap)
+    bview = bctx.view
+    ss = bview.shadow_sets[1]
+    check(bview.shadow_sets[0] is None and ss.mesh.n_triangles == 36,
+          "the lit big_room's indirect shadow set is not the 36-triangle room")
+    per = drive("lit big_room monolithic", bctx, LIT_PASSES)
+    # mesh lights, the env map and the sun a bounce; bounce 0 over the scene
+    # (K5b), the later bounces over the set (K1b); each frontier trace sorts
+    check(per.get("trace_closest_frontier") == MPL and per.get("trace_any_frontier") == 3
+          and per.get("trace_any") == 3 * (MPL - 1) and per.get("cdf_pick_rows") == MPL
+          and per.get("frontier_sort_key") == MPL + 3 and "trace_closest" not in per,
+          f"lit big_room launches per pass: {per}")
+    launches["lit_big_room"] = per
+    bctx.renderer_options["narrow"] = 1
+    bctx.restart()
+    per = drive("lit big_room narrow=1", bctx, LIT_PASSES, narrow=True)
+    check(all(per.get(n, 0) > 0 for n in ("trace_closest_frontier", "trace_any_frontier",
+                                          "trace_any", "cdf_pick_rows", "gather_rows")),
+          f"lit big_room narrow=1 launches per pass: {per}")
+    launches["lit_big_room_narrow"] = per
+    bctx.renderer_options.pop("narrow")
+    bctx.restart()
+    plain_parity("lit big_room", bview, pt.PTOptions(**bctx.renderer_options), PLAIN_W,
+                 PLAIN_H, ss)
+    del ctx, bctx, view, bview
+    torch.cuda.empty_cache()
+
+    # ---- the JAX golden of the light model on the card's kernel path ----
+    gz = np.load(ROOT / "tests" / "golden" / "torch_port_lights_24.npz")
+    gres, ginst, gseed = int(gz["res"]), int(gz["instance"]), int(gz["seed"])
+    gviews, report = {}, []
+    for name, (key, fields) in json.loads(str(gz["configs"])).items():
+        if key not in gviews:
+            p = f"{key}.view."
+            gviews[key] = SceneView.from_numpy({k[len(p):]: gz[k] for k in gz.files
+                                                if k.startswith(p)}, dev)
+        gopts = pt.PTOptions(lobes=tuple(bool(x) for x in gz[f"{name}.lobes"]),
+                             clearcoat=bool(gz[f"{name}.clearcoat"]), **fields)
+        for tracer in (gopts.tracer, "auto") if key == "D" else (gopts.tracer,):
+            out = pt.render_pass(gviews[key], gopts._replace(tracer=tracer), gres, gres, ginst,
+                                 gseed)
+            want = float(gz[f"{name}.rays"])
+            check(abs(float(out.rays) - want) <= 0.005 * want,
+                  f"lights golden {name} ({tracer}): rays {float(out.rays)} vs JAX {want}")
+            worst = 1.0
+            for c in ("composited", "direct", "diffuse", "specular"):
+                ok, near, mean_rel = image_close(getattr(out, c).stack().cpu().numpy(),
+                                                 gz[f"{name}.{c}"].reshape(-1, 3))
+                check(ok, f"lights golden {name} ({tracer}) {c}: {near:.4f} of pixels close, "
+                          f"mean rel {mean_rel:.2e}")
+                worst = min(worst, near)
+            report.append(f"{name} ({tracer}) rays {float(out.rays):.0f}/{want:.0f}, "
+                          f"pixels close >= {worst:.4f}")
+    g_report = []
+    for name, leaf in json.loads(str(gz["grads"])):
+        key = name.split("_")[0]
+        gopts = pt.PTOptions(lobes=tuple(bool(x) for x in gz[f"{name}.lobes"]),
+                             clearcoat=bool(gz[f"{name}.clearcoat"]),
+                             **json.loads(str(gz["configs"]))[name][1])
+        v = gviews[key]
+        if leaf == "env":
+            g_leaf = v.env.detach().clone().requires_grad_(True)
+            v = v._replace(env=g_leaf)
+        else:
+            g_leaf = v.mesh.materials.diffuse.stack().detach().clone().requires_grad_(True)
+            mats = v.mesh.materials._replace(
+                diffuse=Vec3(g_leaf[:, 0], g_leaf[:, 1], g_leaf[:, 2]))
+            v = v._replace(mesh=v.mesh._replace(materials=mats))
+        pt.render_pass(v, gopts, gres, gres, ginst, gseed).composited.stack().mean().backward()
+        want = gz[f"{name}.grad.{leaf}"]
+        rel = float(np.abs(g_leaf.grad.cpu().numpy() - want).max() / np.abs(want).max())
+        check(rel <= AD_GOLDEN_RTOL, f"lights golden d/d {leaf} on {name}: {rel:.3g} of max|g|")
+        g_report.append(f"{name} d/d {leaf} {rel:.2e}")
+    log(f"[4g lit] the light-model golden ({gres}x{gres}, JAX on the CPU) on the card's kernel "
+        f"path within the tolerances of tests/test_torch_pt.py: " + "; ".join(report)
+        + f"; jax.grad within {AD_GOLDEN_RTOL:g} of max|g|: " + ", ".join(g_report)
+        + f"; {time.perf_counter() - t_phase:.1f} s for the phase")
+    return {"cells": cells, "launches": launches}
 
 
 def main() -> int:
@@ -1296,23 +1637,14 @@ def main() -> int:
     del b_grad, prof
     torch.cuda.empty_cache()
 
+    # ---- 4g. the light model: the lit CornellBox and big_room, their golden ----
+    lit = lit_phase(dev, smi, reset_counts, counts)
+
     # ---- 5. parity on the card ----
     opts = pt.PTOptions(**ctx.renderer_options)
-
-    def plain_closest(tris, o, d, tmin, tmax, active=None):
-        n = o.x.shape[0]
-        return trace_mod._closest_plain(tris, o, d, lanes(tmin, n), lanes(tmax, n), active)
-
-    def plain_any(tris, o, d, tmin, tmax, active=None):
-        n = o.x.shape[0]
-        return trace_mod._any_plain(tris, o, d, lanes(tmin, n), lanes(tmax, n), active)
-
-    plain = [(pt, "trace_closest", plain_closest), (pt, "trace_any", plain_any),
-             (mesh_mod, "gather_rows", gather_mod._gather_plain),
-             (lights_mod, "gather_rows", gather_mod._gather_plain)]
     out_k = pt.render_pass(ctx.view, opts, RES, RES, 1000, 0)
     before = {n: k.launches for n, k in kernels.items()}
-    with patched(plain):
+    with patched(forced_plain(dev)):
         out_p = pt.render_pass(ctx.view, opts, RES, RES, 1000, 0)
     torch.cuda.synchronize()
     check(before == {n: k.launches for n, k in kernels.items()},
@@ -1473,24 +1805,10 @@ def main() -> int:
             f"{want:.0f}; first-hit triangle equal {tri_eq:.4f}; pixels close/mean rel: "
             + ", ".join(report))
 
-    def plain_closest_frontier(cl, o, d, tmin, tmax, active=None, with_uv=True):
-        n = o.x.shape[0]
-        t, tri = ft._closest_plain(cl, o, d, lanes(tmin, n), lanes(tmax, n), active)
-        return Hit(t=t, tri=tri, u=torch.zeros_like(t), v=torch.zeros_like(t))
-
-    def plain_any_frontier(cl, o, d, tmin, tmax, active=None):
-        n = o.x.shape[0]
-        return ft._any_plain(cl, o, d, lanes(tmin, n), lanes(tmax, n), active)
-
-    large_plain = [(pt, "trace_closest_frontier", plain_closest_frontier),
-                   (pt, "trace_any_frontier", plain_any_frontier),
-                   (pt, "cdf_pick_rows", cdf_gather._pick_plain),
-                   (mesh_mod, "gather_rows", gather_mod._gather_plain),
-                   (lights_mod, "gather_rows", gather_mod._gather_plain)]
     t0 = time.perf_counter()
     out_k = pt.render_pass(bview, bopts, PLAIN_W, PLAIN_H, 1000, 0)
     before = {n: k.launches for n, k in kernels.items()}
-    with patched(large_plain):
+    with patched(forced_plain(dev)):
         out_p = pt.render_pass(bview, bopts, PLAIN_W, PLAIN_H, 1000, 0)
     torch.cuda.synchronize()
     check(before == {n: k.launches for n, k in kernels.items()},
@@ -2182,6 +2500,15 @@ def main() -> int:
         + f"; AD step (frontier): {adr['big_room']['ms']:.2f} ms/step, "
           f"{adr['big_room']['mrays']:.3f} train Mrays/s, peak {adr['big_room']['peak'] / 2 ** 30:.2f}"
           f" GiB, idle {adr['big_room']['idle']:.3f}")
+    for row in rows:  # the kernel's launches per pass on each lit path of phase 4g
+        for cell, per in lit["launches"].items():
+            row[f"launches_per_pass_{cell}"] = per.get(row["name"], 0)
+        row["in_lit_pass_us"] = {c: v["in_pass_us"][row["name"]]
+                                 for c, v in lit["cells"].items()
+                                 if row["name"] in v["in_pass_us"]}
+    log("[summary] lit (4g) " + "; ".join(
+        f"{c}: {v['ms']:.2f} ms/pass, {v['mrays']:.3f} Mrays/s, busy {v['busy_ms']:.2f} ms, "
+        f"idle {v['idle']:.3f}" for c, v in lit["cells"].items()))
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

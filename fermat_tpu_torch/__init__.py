@@ -19,7 +19,11 @@ same table at any size. Every table fetch goes through the row gather
 (ops/gather.py). With tracer="mega", on scenes within the megakernel's caps
 (128 triangles, 32 materials, 32 emitters), a pass is one launch of the
 whole-pass megakernel, and the replay-gradient train step is another
-(ops/pt_mega.py). All twelve kernels are hand-written CUDA.
+(ops/pt_mega.py). The PT pass carries the JAX package's light model:
+mesh emitters, directional and point lights, analytic disk/rect area
+lights, a lat-long environment map with importance-sampled NEE and MIS, and
+the shadow sets of materials flagged FLAG_SHADOW_*_IGNORE. Every kernel is
+hand-written CUDA.
 """
 from __future__ import annotations
 

@@ -28,3 +28,20 @@ def power_heuristic(pdf_a, pdf_b):
     """a^2/(a^2+b^2) in the overflow-safe ratio form 1/(1+r^2)."""
     r = pdf_b / torch.clamp_min(pdf_a, 1e-32)
     return torch.where(pdf_a > 0.0, 1.0 / (1.0 + r * r), 0.0)
+
+
+def square_to_uniform_disk(u0, u1):
+    """Concentric (Shirley) disk mapping (sampling.py:39-53)."""
+    ox = 2.0 * u0 - 1.0
+    oy = 2.0 * u1 - 1.0
+    zero = (ox == 0.0) & (oy == 0.0)
+    use_x = torch.abs(ox) > torch.abs(oy)
+    r = torch.where(use_x, ox, oy)
+    theta = torch.where(
+        use_x,
+        (PI / 4.0) * (oy / torch.where(ox == 0.0, 1.0, ox)),
+        (PI / 2.0) - (PI / 4.0) * (ox / torch.where(oy == 0.0, 1.0, oy)),
+    )
+    r = torch.where(zero, 0.0, r)
+    theta = torch.where(zero, 0.0, theta)
+    return r * torch.cos(theta), r * torch.sin(theta)

@@ -3,11 +3,17 @@
 One progressive pass traces the full pixel grid as masked lanes: every
 per-bounce stage is a flat (N,)-lane tensor op, and the bounce loop is a
 plain Python loop (the JAX version peels bounce 0 and runs a fori_loop over
-the rest). Per bounce: closest trace -> one 52-column shade-row fetch (K2)
--> constant-environment miss term -> emissive hit with MIS (pdf_area fetch,
-K2) -> mesh-light NEE with f_split and a shadow any-hit -> BSDF sample ->
-Russian roulette -> channel routing -> hard zeroing of dead lanes. The
-G-buffer is taken at the first hit.
+the rest). Per bounce: closest trace -> the environment's miss term (the
+constant `env`, or the environment map MIS-weighted against the previous
+vertex's env NEE) -> one 52-column shade-row fetch (K2) -> emissive hit with
+MIS (pdf_area fetch, K2) -> NEE with f_split and a shadow any-hit per
+strategy: the mesh lights, the environment map, each analytic area light
+(weight 1: BSDF rays never see them), each point light and each directional
+light -> BSDF sample -> Russian roulette -> channel routing -> hard zeroing
+of dead lanes. The G-buffer is taken at the first hit. Each bounce takes its
+sampler dimensions from one stride: dims_per_bounce, at least 10 with an
+environment map (its NEE pair at +8) and at least 10 + 2 L with L area lights
+(light li's pair at +10 + 2 li).
 
 Scenes of at most 4096 triangles trace with the dense tracer (K1a/K1b) and
 sample lights from the full light table. Larger scenes trace over the
@@ -18,20 +24,25 @@ triangles, pick lights from the emissive subset with K4. tracer="cluster"
 same table at any size and return the barycentrics themselves.
 tracer="mega" runs the whole pass as one kernel launch (ops/pt_mega.py).
 `NarrowPass` runs the same bounces with live lanes compacted between them.
+NEE shadow rays of bounce 0 trace the view's direct shadow set and those of
+later bounces its indirect one, when the scene has them (materials flagged
+FLAG_SHADOW_*_IGNORE); a set's tracer is chosen from its own triangle count,
+so a large scene whose flagged triangles are most of it traces those shadow
+rays with the dense K1b.
 
 `render_pass` follows the caller's grad mode. Under torch.enable_grad(),
 with material tensors of the view that require grad (`materials.diffuse`,
-`materials.roughness`, ... as leaf tensors, see SceneView.from_numpy), the
-image is differentiable in them through torch.autograd: the detached
-estimator of the JAX package (GRADIENTS.md), with a `.detach()` at each of
-its stop_gradient sites. Geometry, ray directions, hit distances, sampling
-pdfs, MIS weights and the Russian-roulette probability carry no gradient;
-the tracers run on detached inputs. The shade fetch's backward is K2's
-(ops/gather.py). RenderingContext, NarrowPass and render_pass_narrow run
-under torch.no_grad(); tracer="mega" raises when a material tensor
-requires grad (its gradient is ops/pt_mega.render_grad_diffuse_mega), and
-so does an emissive tensor that requires grad (NEE samples a light table
-built on the host).
+`materials.roughness`, ... as leaf tensors, see SceneView.from_numpy) or an
+environment scale `env` that does, the image is differentiable in them
+through torch.autograd: the detached estimator of the JAX package
+(GRADIENTS.md), with a `.detach()` at each of its stop_gradient sites.
+Geometry, ray directions, hit distances, sampling pdfs, MIS weights and the
+Russian-roulette probability carry no gradient; the tracers run on detached
+inputs. The shade fetch's backward is K2's (ops/gather.py). RenderingContext,
+NarrowPass and render_pass_narrow run under torch.no_grad(); tracer="mega"
+raises when a material tensor requires grad (its gradient is
+ops/pt_mega.render_grad_diffuse_mega), and so does an emissive tensor that
+requires grad (NEE samples a light table built on the host).
 """
 from __future__ import annotations
 
@@ -124,7 +135,8 @@ def _trace_mode(n_triangles: int, opts: PTOptions, has_clusters: bool) -> str:
 
 class _Tracers(NamedTuple):
     closest: Callable  # (o, d, tmin, tmax, active) -> Hit
-    anyhit: Callable  # (o, d, tmin, tmax, active) -> occluded
+    shadow_direct: Callable  # (o, d, tmin, tmax, active) -> occluded; bounce 0's NEE
+    shadow_indirect: Callable  # the later bounces' NEE
     uv_from_ray: bool  # closest returns no barycentrics (shade_fetch_ray)
 
 
@@ -142,32 +154,56 @@ def _detach_hit(h: Hit) -> Hit:
 
 
 def _pick_tracers(view: SceneView, opts: PTOptions) -> _Tracers:
-    """The pass's closest and shadow tracers (pt.py:304-354), with detached
+    """The pass's closest and shadow tracers (pt.py:304-374), with detached
     inputs and hits. The module's tracer names are looked up at call time,
     so a caller can swap them. The cluster and binned tracers return the
     winner's u, v from the kernel, as in JAX (pt.py:311-325 sets no
     uv_from_ray)."""
     closest, anyhit, uv_from_ray = _raw_tracers(view, opts)
-    return _Tracers(lambda *a: _detach_hit(closest(*_detach_args(*a))),
-                    lambda *a: anyhit(*_detach_args(*a)), uv_from_ray)
+    direct, indirect = _pick_shadow_anyhits(view, opts, anyhit)
+    shadow = lambda f: lambda *a: f(*_detach_args(*a))
+    return _Tracers(lambda *a: _detach_hit(closest(*_detach_args(*a))), shadow(direct),
+                    shadow(indirect), uv_from_ray)
 
 
-def _raw_tracers(view: SceneView, opts: PTOptions) -> _Tracers:
+def _anyhit(mode: str, tris, cl) -> Callable:
+    """The occlusion tracer of one geometry: the dense soup `tris` or the
+    cluster table `cl`, by the route `mode`."""
+    if mode == "frontier":
+        return lambda o, d, t0, t1, a: trace_any_frontier(cl, o, d, t0, t1, a)
+    if mode == "cluster":
+        return lambda o, d, t0, t1, a: trace_any_cluster(cl, o, d, t0, t1, a)
+    if mode == "binned":
+        return lambda o, d, t0, t1, a: trace_any_binned(cl, o, d, t0, t1, a)
+    return lambda o, d, t0, t1, a: trace_any(tris, o, d, t0, t1, a)
+
+
+def _raw_tracers(view: SceneView, opts: PTOptions):
+    """(closest, anyhit, uv_from_ray) of the view's own geometry."""
     mode = _trace_mode(view.mesh.n_triangles, opts, view.clusters is not None)
     cl = view.clusters
+    tris = view.mesh.tri_soup() if mode == "dense" else None
+    anyhit = _anyhit(mode, tris, cl)
     if mode == "frontier":
-        return _Tracers(
-            lambda o, d, t0, t1, a: trace_closest_frontier(cl, o, d, t0, t1, a, with_uv=False),
-            lambda o, d, t0, t1, a: trace_any_frontier(cl, o, d, t0, t1, a), True)
+        return (lambda o, d, t0, t1, a: trace_closest_frontier(cl, o, d, t0, t1, a,
+                                                               with_uv=False), anyhit, True)
     if mode == "cluster":
-        return _Tracers(lambda o, d, t0, t1, a: trace_closest_cluster(cl, o, d, t0, t1, a),
-                        lambda o, d, t0, t1, a: trace_any_cluster(cl, o, d, t0, t1, a), False)
+        return lambda o, d, t0, t1, a: trace_closest_cluster(cl, o, d, t0, t1, a), anyhit, False
     if mode == "binned":
-        return _Tracers(lambda o, d, t0, t1, a: trace_closest_binned(cl, o, d, t0, t1, a),
-                        lambda o, d, t0, t1, a: trace_any_binned(cl, o, d, t0, t1, a), False)
-    tris = view.mesh.tri_soup()
-    return _Tracers(lambda o, d, t0, t1, a: trace_closest(tris, o, d, t0, t1, a),
-                    lambda o, d, t0, t1, a: trace_any(tris, o, d, t0, t1, a), False)
+        return lambda o, d, t0, t1, a: trace_closest_binned(cl, o, d, t0, t1, a), anyhit, False
+    return lambda o, d, t0, t1, a: trace_closest(tris, o, d, t0, t1, a), anyhit, False
+
+
+def _pick_shadow_anyhits(view: SceneView, opts: PTOptions, anyhit: Callable):
+    """(direct, indirect) NEE shadow tracers honouring the materials'
+    FLAG_SHADOW_*_IGNORE bits (pt.py:357-374): each over its shadow set,
+    with the route its own triangle count gives; the scene's own tracer
+    where the view has no such set."""
+    if view.shadow_sets is None:
+        return anyhit, anyhit
+    return tuple(anyhit if ss is None else
+                 _anyhit(_trace_mode(ss.mesh.n_triangles, opts, True), ss.tris, ss.clusters)
+                 for ss in view.shadow_sets)
 
 
 def _sample_lights_compact(compact: Tuple[Tensor, Tensor], ul0: Tensor, ul1: Tensor,
@@ -268,20 +304,64 @@ def _count(c: Carry, mask: Tensor) -> Carry:
     return c._replace(rays=c.rays + m.sum(), rays_lane=c.rays_lane + m)
 
 
+def _add_nee(c: Carry, first: bool, lit: Tensor, fd: Vec3, fg: Vec3, wX: Tensor,
+             wY: Tensor, wZ: Tensor) -> Carry:
+    """A NEE strategy's lit lanes into the accumulators: split routing at
+    bounce 0 (the diffuse part -> DIFFUSE, the glossy part -> SPECULAR), the
+    path's channel later."""
+    if first:
+        return c._replace(
+            l_diffuse=c.l_diffuse + select(lit, Vec3(fd.x * wX, fd.y * wY, fd.z * wZ)),
+            l_specular=c.l_specular + select(lit, Vec3(fg.x * wX, fg.y * wY, fg.z * wZ)),
+        )
+    contrib = Vec3((fd.x + fg.x) * wX, (fd.y + fg.y) * wY, (fd.z + fg.z) * wZ)
+    return _add_routed(c, contrib, lit, c.channel)
+
+
+def _stride(view: SceneView, opts: PTOptions) -> int:
+    """Sampler dimensions per bounce (pt.py:779-787): sample_2d pairs
+    dimensions by d >> 1, so the env NEE pair (+8) and each area light's
+    pair (+10 + 2 li) start on even offsets no other strategy shares."""
+    stride = opts.dims_per_bounce if view.env_map is None else max(opts.dims_per_bounce, 10)
+    if view.area_lights is not None and view.area_lights.count > 0:
+        stride = max(stride, 10 + 2 * view.area_lights.count)
+    return stride
+
+
 def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequence,
             tr: _Tracers, shade_tab: Tensor) -> Carry:
     first = b == 0
     n = c.alive.shape[0]  # the carry's width: NarrowPass runs narrower ones
     eps = opts.ray_eps
+    sh_anyhit = tr.shadow_direct if first else tr.shadow_indirect
     hit = tr.closest(c.o, c.d, eps, 3.0e38, c.alive)
     c = _count(c, c.alive)
     valid = c.alive & hit.hit_mask
     missed = c.alive & ~hit.hit_mask
-    # constant environment light: miss lanes pick up thr * env; no NEE
-    # strategy samples the env, so the weight is 1
+    is_direct = b == 1
     env = view.env
-    c = _add_routed(c, Vec3(c.thr.x * env[0], c.thr.y * env[1], c.thr.z * env[2]),
-                    missed, c.channel)
+    if view.env_map is None:
+        # constant environment light: miss lanes pick up thr * env; no NEE
+        # strategy samples it, so the weight is 1
+        c = _add_routed(c, Vec3(c.thr.x * env[0], c.thr.y * env[1], c.thr.z * env[2]),
+                        missed, c.channel)
+    else:
+        # the map's radiance scaled by env, MIS-weighted against the env NEE
+        # of the previous vertex (pt.py:598-635); camera rays have no
+        # competing strategy
+        e_l = view.env_map.eval(c.d)
+        e_l = Vec3(e_l.x * env[0], e_l.y * env[1], e_l.z * env[2])
+        if first:
+            w_env = torch.ones(n, dtype=torch.float32, device=c.prev_pdf.device)
+        else:
+            pdf_e = view.env_map.pdf(c.d).detach()  # pt.py:621
+            nee_mask = opts.direct_lighting_nee if is_direct else opts.indirect_lighting_nee
+            w_env = (power_heuristic(c.prev_pdf, pdf_e).detach() if nee_mask  # pt.py:622
+                     else torch.ones_like(pdf_e))
+            show_mask = opts.direct_lighting_bsdf if is_direct else opts.indirect_lighting_bsdf
+            w_env = w_env * float(show_mask)
+        c = _add_routed(c, Vec3(c.thr.x * e_l.x * w_env, c.thr.y * e_l.y * w_env,
+                                c.thr.z * e_l.z * w_env), missed, c.channel)
 
     tri_c = torch.clamp_min(hit.tri, 0)
     if tr.uv_from_ray:  # the tracer returned no barycentrics (pt.py:643-647)
@@ -297,6 +377,8 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
     t_b, b_b = orthonormal_basis(sn_f)
     wi_loc = to_local(wi, t_b, b_b, sn_f)
     params = BsdfParams.from_materials(mats)
+    split = lambda wo_loc: f_split(params, wi_loc, wo_loc, opts.lobes, opts.clearcoat,
+                                   opts.glossy_model)
 
     if first:  # G-buffer at the first hit
         c = c._replace(
@@ -311,7 +393,6 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
         )
 
     # ---- emissive hit (pathtracer_core.h shade_vertex head) ----
-    is_direct = b == 1
     show = opts.visible_lights if first else (
         opts.direct_lighting_bsdf or opts.indirect_lighting_bsdf)
     if show:
@@ -336,8 +417,9 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
         c = _add_routed(c, contrib, valid, c.channel)
 
     # ---- NEE: mesh lights ----
-    base_dim = (2 + b * opts.dims_per_bounce) & M32
+    base_dim = (2 + b * _stride(view, opts)) & M32
     nee_on = opts.direct_lighting_nee if first else opts.indirect_lighting_nee
+    bsdf_on = opts.direct_lighting_bsdf if first else opts.indirect_lighting_bsdf
     if nee_on:
         ul0, ul1, ul2 = seq.sample_3d(c.pix_u, base_dim)
         if view.lights.compact is not None:
@@ -350,10 +432,8 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
         wo = to_l * (1.0 / dist)
         cos_l = dot(ln, -wo)  # the light must face the shading point
         wo_loc = to_local(wo, t_b, b_b, sn_f)
-        fd, fg, bsdf_pdf = f_split(params, wi_loc, wo_loc, opts.lobes, opts.clearcoat,
-                                   opts.glossy_model)
+        fd, fg, bsdf_pdf = split(wo_loc)
         pdf_sa = (lpdf_a * dist2 / torch.clamp_min(torch.abs(cos_l), 1e-8)).detach()  # pt.py:841
-        bsdf_on = opts.direct_lighting_bsdf if first else opts.indirect_lighting_bsdf
         # pt.py:846
         w_mis = (power_heuristic(pdf_sa, bsdf_pdf).detach() if bsdf_on
                  else torch.ones_like(pdf_sa))
@@ -361,22 +441,90 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
         able = (valid & view.lights.has_lights & (cos_l > 1e-6) & (pdf_sa > 1e-12)
                 & ((fd.x + fd.y + fd.z + fg.x + fg.y + fg.z) > 0.0))
         so = _offset_origin(pos, gn, wo, eps)
-        occluded = tr.anyhit(so, wo, 0.0, dist * (1.0 - 1e-3), able)
+        occluded = sh_anyhit(so, wo, 0.0, dist * (1.0 - 1e-3), able)
         c = _count(c, able)
         lit = able & ~occluded
         scale = cos_s * w_mis / torch.clamp_min(pdf_sa, 1e-12)
-        wX = c.thr.x * lle.x * scale
-        wY = c.thr.y * lle.y * scale
-        wZ = c.thr.z * lle.z * scale
-        if first:
-            # split routing: diffuse part -> DIFFUSE, glossy -> SPECULAR
-            c = c._replace(
-                l_diffuse=c.l_diffuse + select(lit, Vec3(fd.x * wX, fd.y * wY, fd.z * wZ)),
-                l_specular=c.l_specular + select(lit, Vec3(fg.x * wX, fg.y * wY, fg.z * wZ)),
-            )
-        else:
-            contrib = Vec3((fd.x + fg.x) * wX, (fd.y + fg.y) * wY, (fd.z + fg.z) * wZ)
-            c = _add_routed(c, contrib, lit, c.channel)
+        c = _add_nee(c, first, lit, fd, fg, c.thr.x * lle.x * scale, c.thr.y * lle.y * scale,
+                     c.thr.z * lle.z * scale)
+
+    # ---- NEE: environment map (pt.py:893-949), importance-sampled from the
+    # luminance * sin(theta) CDF; MIS vs the BSDF rays that miss ----
+    if view.env_map is not None and nee_on:
+        ue0, ue1 = seq.sample_2d(c.pix_u, (base_dim + 8) & M32)
+        wo_e, pdf_e, le_e = view.env_map.sample(ue0, ue1)
+        pdf_e = pdf_e.detach()  # pt.py:899
+        le_e = Vec3(le_e.x * env[0], le_e.y * env[1], le_e.z * env[2])
+        wo_le = to_local(wo_e, t_b, b_b, sn_f)
+        fde, fge, bpdf_e = split(wo_le)
+        # pt.py:909
+        w_mis_e = (power_heuristic(pdf_e, bpdf_e).detach() if bsdf_on
+                   else torch.ones_like(pdf_e))
+        cos_se = torch.abs(wo_le.z)
+        able_e = (valid & (pdf_e > 1e-12)
+                  & ((fde.x + fde.y + fde.z + fge.x + fge.y + fge.z) > 0.0))
+        so_e = _offset_origin(pos, gn, wo_e, eps)
+        occ_e = sh_anyhit(so_e, wo_e, 0.0, 3.0e38, able_e)
+        c = _count(c, able_e)
+        scale_e = cos_se * w_mis_e / torch.clamp_min(pdf_e, 1e-12)
+        c = _add_nee(c, first, able_e & ~occ_e, fde, fge, c.thr.x * le_e.x * scale_e,
+                     c.thr.y * le_e.y * scale_e, c.thr.z * le_e.z * scale_e)
+
+    # ---- NEE: analytic area lights (pt.py:951-1006); BSDF rays never see
+    # them, so the weight is 1 ----
+    n_area = 0 if view.area_lights is None else view.area_lights.count
+    for li in range(n_area if nee_on else 0):
+        ua0, ua1 = seq.sample_2d(c.pix_u, (base_dim + 10 + 2 * li) & M32)
+        lpos, ln, lle, lpdf_a = view.area_lights.sample(li, ua0, ua1)
+        to_l = lpos - pos
+        dist2 = torch.clamp_min(dot(to_l, to_l), 1e-12)
+        dist = torch.sqrt(dist2)
+        wo = to_l * (1.0 / dist)
+        cos_l = dot(ln, -wo)
+        wo_loc = to_local(wo, t_b, b_b, sn_f)
+        fd, fg, _ = split(wo_loc)
+        pdf_sa = (lpdf_a * dist2 / torch.clamp_min(torch.abs(cos_l), 1e-8)).detach()  # pt.py:968
+        cos_s = torch.abs(wo_loc.z)
+        able = (valid & (cos_l > 1e-6) & (pdf_sa > 1e-12)
+                & ((fd.x + fd.y + fd.z + fg.x + fg.y + fg.z) > 0.0))
+        so = _offset_origin(pos, gn, wo, eps)
+        occluded = sh_anyhit(so, wo, 0.0, dist * (1.0 - 1e-3), able)
+        c = _count(c, able)
+        scale = cos_s / torch.clamp_min(pdf_sa, 1e-12)
+        c = _add_nee(c, first, able & ~occluded, fd, fg, c.thr.x * lle.x * scale,
+                     c.thr.y * lle.y * scale, c.thr.z * lle.z * scale)
+
+    # ---- NEE: point lights (delta; pt.py:1008-1046) ----
+    lp = view.point_lights
+    for li in range(0 if lp is None else lp.count):
+        to_l = Vec3(lp.px[li] - pos.x, lp.py[li] - pos.y, lp.pz[li] - pos.z)
+        dist2 = torch.clamp_min(dot(to_l, to_l), 1e-12)
+        dist = torch.sqrt(dist2)
+        wo = to_l * (1.0 / dist)
+        wo_loc = to_local(wo, t_b, b_b, sn_f)
+        fd, fg, _ = split(wo_loc)
+        cos_s = torch.abs(wo_loc.z)
+        able = valid & ((fd.x + fg.x + fd.y + fg.y + fd.z + fg.z) > 0.0)
+        so = _offset_origin(pos, gn, wo, eps)
+        occluded = sh_anyhit(so, wo, 0.0, dist * (1.0 - 1e-3), able)
+        c = _count(c, able)
+        inv_d2 = 1.0 / dist2
+        c = _add_nee(c, first, able & ~occluded, fd, fg, c.thr.x * lp.ix[li] * cos_s * inv_d2,
+                     c.thr.y * lp.iy[li] * cos_s * inv_d2, c.thr.z * lp.iz[li] * cos_s * inv_d2)
+
+    # ---- NEE: directional lights (pt.py:1048-1099); shadow rays to tmax 3e38 ----
+    dl = view.dir_lights
+    for li in range(0 if dl is None else dl.count):
+        wo = Vec3(-dl.dir_x[li].expand(n), -dl.dir_y[li].expand(n), -dl.dir_z[li].expand(n))
+        wo_loc = to_local(wo, t_b, b_b, sn_f)
+        fd, fg, _ = split(wo_loc)
+        cos_s = torch.abs(wo_loc.z)
+        able = valid & ((fd.x + fg.x + fd.y + fg.y + fd.z + fg.z) > 0.0)
+        so = _offset_origin(pos, gn, wo, eps)
+        occluded = sh_anyhit(so, wo, 0.0, 3.0e38, able)
+        c = _count(c, able)
+        c = _add_nee(c, first, able & ~occluded, fd, fg, c.thr.x * dl.col_x[li] * cos_s,
+                     c.thr.y * dl.col_y[li] * cos_s, c.thr.z * dl.col_z[li] * cos_s)
 
     # ---- BSDF scatter + Russian roulette (shade_vertex tail) ----
     ub0, ub1, ub2 = seq.sample_3d(c.pix_u, (base_dim + 3) & M32)

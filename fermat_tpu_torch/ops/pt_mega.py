@@ -130,11 +130,19 @@ def _n_emissive(view) -> int:
 
 
 def mega_eligible(view, opts) -> bool:
-    """The static gate of pallas_pt_mega.py:136-162 on the port's SceneView.
-    The port's view cannot hold an env map, textures, analytic lights or
-    shadow sets (SceneView.build raises on them), so those checks hold."""
+    """The static gate of pallas_pt_mega.py:136-162 on the port's SceneView:
+    the megakernel's scene has mesh emitters and a constant environment
+    only, so an environment map, point, directional or analytic area
+    lights, or shadow sets keep a view out (the port's view holds no
+    textures)."""
     n_t = view.mesh.n_triangles
     if n_t == 0 or n_t > MEGA_T_MAX:
+        return False
+    if view.env_map is not None or view.area_lights is not None:
+        return False
+    if view.point_lights is not None or view.dir_lights is not None:
+        return False
+    if view.shadow_sets is not None:
         return False
     if view.mesh.materials.roughness.shape[0] > MEGA_M_MAX:
         return False
@@ -201,6 +209,7 @@ def _require(ok: bool, what: str) -> None:
         raise NotImplementedError(
             f"tracer='mega': {what} is outside the megakernel's caps ({MEGA_T_MAX} "
             f"triangles, {MEGA_M_MAX} materials, {MEGA_L_MAX} emitters, mesh NEE, no "
+            "environment map, point, directional or area lights, no shadow sets, no "
             "queue compaction, no debug NEE switches); the kernel sizes its shared "
             "memory by them, so the view is refused rather than rendered")
 

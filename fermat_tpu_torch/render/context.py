@@ -1,6 +1,14 @@
 """RenderingContext — owns the scene, the framebuffer and the renderer
 registry (fermat_tpu/render/context.py).
 
+`create` takes the scene's lights as the JAX context does
+(context.py:266-285): directional lights (records with `direction` and
+`color`, scene.lights.DirectionalLightDef), point lights ((position,
+intensity) pairs), a lat-long environment map (an (H, W, 3) float32 image;
+`env_radiance` then scales it) and the constant `env_radiance`. Analytic
+area lights go through SceneView.build(area_light_defs=...). texture_dir
+raises NotImplementedError.
+
 The context runs on "cuda" unless the caller passes device="cpu"; with
 device="cuda" and no GPU it raises. The registry holds "pt" only; its
 options are PTOptions' fields (tracer="frontier", "cluster", "binned" or
@@ -64,13 +72,12 @@ class RenderingContext:
         if renderer not in _RENDERER_REGISTRY:
             raise NotImplementedError(
                 f"renderer {renderer!r} is not ported; registered: {sorted(_RENDERER_REGISTRY)}")
-        for name, value in (("dir_lights", dir_lights), ("point_lights", point_lights)):
-            if len(value):
-                raise NotImplementedError(f"{name}: analytic lights are a later slice")
-        if texture_dir is not None or env_map is not None:
-            raise NotImplementedError("textures and environment maps are a later slice")
+        if texture_dir is not None:
+            raise NotImplementedError("textures are a later slice")
         dev = resolve_device(device)
-        view = SceneView.build(storage, camera, dev, env_radiance=env_radiance)
+        view = SceneView.build(storage, camera, dev, env_radiance=env_radiance,
+                               dir_light_defs=dir_lights, point_light_defs=point_lights,
+                               env_map=env_map)
         renderer_options = dict(renderer_options)
         renderer_options.setdefault("lobes", scene_lobes(storage.materials))
         renderer_options.setdefault("clearcoat", scene_clearcoat(storage.materials))

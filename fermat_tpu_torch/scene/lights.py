@@ -1,4 +1,5 @@
-"""Mesh-emitter sampling (fermat_tpu/scene/lights.py:31-149).
+"""Mesh-emitter sampling (fermat_tpu/scene/lights.py:31-149) and the
+directional lights (lights.py:184-207).
 
 The tables are built on the host in numpy float32 with a sequential
 `np.cumsum` and then moved to the device: a parallel cumsum on the card
@@ -6,6 +7,7 @@ rounds differently, which can move a CDF step and flip a light pick.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -104,3 +106,38 @@ class MeshLightsView(NamedTuple):
     def pdf_area_of(self, tri: Tensor) -> Tensor:
         """Area pdf for MIS when a BSDF ray hits an emitter (lights.py:139-149)."""
         return gather_rows(self.pdf_area[:, None], torch.clamp_min(tri, 0))[:, 0]
+
+
+@dataclass
+class DirectionalLightDef:
+    """A directional light as the scene loaders give it
+    (scene/loaders/fa.py:34): the direction the light travels and its color."""
+
+    direction: Tuple[float, float, float]
+    color: Tuple[float, float, float]
+
+
+class DirectionalLightsView(NamedTuple):
+    """SoA directional lights (lights.py:184-207, lights.h:249)."""
+
+    dir_x: Tensor  # (L,) unit direction the light TRAVELS (towards the scene)
+    dir_y: Tensor
+    dir_z: Tensor
+    col_x: Tensor
+    col_y: Tensor
+    col_z: Tensor
+
+    @staticmethod
+    def build(defs, device) -> "DirectionalLightsView":
+        """defs: records with `direction` and `color` (DirectionalLightDef)."""
+        d = np.array([light.direction for light in defs], np.float32).reshape(-1, 3)
+        if d.shape[0]:
+            d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-20)
+        c = np.array([light.color for light in defs], np.float32).reshape(-1, 3)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return DirectionalLightsView(t(d[:, 0]), t(d[:, 1]), t(d[:, 2]),
+                                     t(c[:, 0]), t(c[:, 1]), t(c[:, 2]))
+
+    @property
+    def count(self) -> int:
+        return self.dir_x.shape[0]

@@ -79,6 +79,27 @@ class MeshStorage:
         self.materials = self.materials + list(other.materials)
         return self
 
+    def filtered(self, keep: np.ndarray) -> "MeshStorage":
+        """A copy with only the triangles where keep[t], vertices, normals,
+        uvs and materials shared (mesh.py:147-172): the occlusion geometry
+        of a shadow set."""
+        keep = np.asarray(keep, bool)
+        t = self.triangles[keep]
+
+        def rows(idx):
+            return idx[keep] if idx.shape[0] == self.n_triangles else np.full_like(t, -1)
+
+        return MeshStorage(
+            vertices=self.vertices,
+            triangles=t,
+            normals=self.normals,
+            normal_indices=rows(self.normal_indices),
+            uvs=self.uvs,
+            uv_indices=rows(self.uv_indices),
+            material_ids=self.material_ids[keep],
+            materials=self.materials,
+        )
+
     def device_view(self, device) -> "MeshView":
         """The kernel-facing SoA view (MeshView.h:96 analog), computed in
         numpy exactly as mesh.py:174-227 and then moved to `device`."""

@@ -189,3 +189,21 @@ def big_room_camera() -> Camera:
     """The camera of tools/bench_secondaries.py's big_room stage: eye
     (0, 3, 10), aim (0, 1.5, 0), up y and the default 60-degree fov."""
     return Camera.create((0.0, 3.0, 10.0), (0.0, 1.5, 0.0))
+
+
+def floor_quad(half: float = 1.0, albedo=(0.6, 0.6, 0.6)) -> MeshStorage:
+    """A single diffuse quad at y = 0 spanning [-half, half]^2
+    (procedural.py:194-212): the subject of furnace and analytic-light
+    checks. The JAX version's uv_indexed argument changes nothing there and
+    is left out."""
+    vs = [[-half, 0, half], [half, 0, half], [half, 0, -half], [-half, 0, -half]]
+    m = HostMaterial("floor")
+    m.diffuse = tuple(albedo)
+    t = np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)
+    return MeshStorage(
+        vertices=np.asarray(vs, np.float32),
+        triangles=t,
+        normal_indices=np.full_like(t, -1),
+        material_ids=np.zeros(2, np.int32),
+        materials=[m],
+    )

@@ -2,17 +2,23 @@
 (fermat_tpu/scene/view.py).
 
 The view holds the triangle soup, the mesh-light tables (with the emissive
-subset of scenes over 2048 triangles), the camera, a constant environment
-radiance and the cluster table of the cluster-table tracers
-(accel/cluster.py), which `build` makes at every size, as the JAX package
-does (view.py:115-117): tracer="auto" takes the dense tracer up to 4096
-triangles, and "frontier", "cluster" and "binned" serve any scene. There is
-no triangle BVH. Textures, environment maps, analytic, point and
-directional lights, and shadow sets raise NotImplementedError.
+subset of scenes over 2048 triangles), the camera, the environment radiance
+and the cluster table of the cluster-table tracers (accel/cluster.py), which
+`build` makes at every size, as the JAX package does (view.py:115-117):
+tracer="auto" takes the dense tracer up to 4096 triangles, and "frontier",
+"cluster" and "binned" serve any scene. There is no triangle BVH.
+
+The light model beside the mesh emitters (view.py:65-181): directional and
+point lights, analytic disk/rect area lights, a lat-long environment map
+(then `env` is an RGB scale on the map's radiance), and the shadow sets:
+for each shadow-ray mask bit that a material sets, the scene without that
+material's triangles, with its own triangle soup and cluster table, built
+once here. A field is None when the scene has no such light or set.
+Textures raise NotImplementedError.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +28,9 @@ from fermat_tpu_torch.accel.cluster import (DENSE_MAX_TRIANGLES, ClusterView, bu
                                             cluster_view)
 from fermat_tpu_torch.core.camera import Camera
 from fermat_tpu_torch.core.math import Vec3
-from fermat_tpu_torch.scene.lights import MeshLightsView
+from fermat_tpu_torch.scene.analytic_lights import AreaLightsView, PointLightsView
+from fermat_tpu_torch.scene.envmap import EnvMapView
+from fermat_tpu_torch.scene.lights import DirectionalLightsView, MeshLightsView
 from fermat_tpu_torch.scene.materials import (
     FLAG_SHADOW_DIRECT_IGNORE,
     FLAG_SHADOW_INDIRECT_IGNORE,
@@ -32,9 +40,9 @@ from fermat_tpu_torch.scene.mesh import MeshStorage, MeshView
 
 Tensor = torch.Tensor
 
-# key prefixes of a flattened fermat_tpu SceneView whose presence means a
-# feature outside this slice
-_UNSUPPORTED = ("env_map.", "area_lights.", "shadow_sets.")
+_AREA_COLUMNS = ("px", "py", "pz", "ux", "uy", "uz", "vx", "vy", "vz", "nx", "ny", "nz",
+                 "cx", "cy", "cz")
+_BOX_ROWS = ("lo_x", "lo_y", "lo_z", "hi_x", "hi_y", "hi_z")
 
 
 def _host_arrays(mesh: MeshView) -> dict:
@@ -48,12 +56,55 @@ def _host_arrays(mesh: MeshView) -> dict:
                 emissive_map=h(m.emissive_map))
 
 
+class ShadowSet(NamedTuple):
+    """Occlusion-only geometry of one shadow-ray mask bit (view.py:29-35, the
+    any-hit ignore set of optix_base_shadow_shaders.h:55-59): the scene
+    without the triangles whose material sets the bit."""
+
+    mesh: MeshView  # the kept triangles (vertices shared, MeshStorage.filtered)
+    tris: Tensor  # (9, T') their soup, the dense any-hit tracer's input
+    clusters: ClusterView  # their cluster table, the cluster-table tracers' input
+
+
+def _shadow_set(mesh: MeshView, clusters: Optional[ClusterView] = None) -> ShadowSet:
+    return ShadowSet(mesh, mesh.tri_soup(), build_clusters(mesh) if clusters is None
+                     else clusters)
+
+
+def _build_shadow_sets(storage: MeshStorage, dev) -> Optional[Tuple]:
+    """(direct, indirect) ShadowSet or None for the FLAG_SHADOW_DIRECT_IGNORE
+    and FLAG_SHADOW_INDIRECT_IGNORE bits, or None when no material sets
+    either (view.py:148-166). A set that would keep no triangle raises, as
+    the JAX build does (its BVH build asserts on an empty mesh)."""
+    if not storage.n_triangles:
+        return None
+    tri_flags = np.asarray([m.flags for m in storage.materials],
+                           np.int32)[np.asarray(storage.material_ids)]
+
+    def one(bit):
+        drop = (tri_flags & bit) != 0
+        if not drop.any():
+            return None
+        if drop.all():
+            raise ValueError(f"shadow mask bit {bit}: every triangle's material ignores it, "
+                             "so its shadow set is empty (the JAX build refuses it too)")
+        return _shadow_set(storage.filtered(~drop).device_view(dev))
+
+    sets = (one(FLAG_SHADOW_DIRECT_IGNORE), one(FLAG_SHADOW_INDIRECT_IGNORE))
+    return None if all(x is None for x in sets) else sets
+
+
 class SceneView(NamedTuple):
     mesh: MeshView
     lights: MeshLightsView
     camera: Camera
-    env: Tensor  # (3,) constant environment radiance (0 = none)
+    env: Tensor  # (3,) environment radiance (0 = none); with env_map an RGB scale on it
     clusters: Optional[ClusterView] = None  # every built view; from_numpy: large ones
+    dir_lights: Optional[DirectionalLightsView] = None
+    point_lights: Optional[PointLightsView] = None
+    shadow_sets: Optional[Tuple[Optional[ShadowSet], Optional[ShadowSet]]] = None
+    env_map: Optional[EnvMapView] = None
+    area_lights: Optional[AreaLightsView] = None
 
     @property
     def device(self) -> torch.device:
@@ -61,39 +112,58 @@ class SceneView(NamedTuple):
 
     @staticmethod
     def build(storage: MeshStorage, camera: Camera, device="cuda",
-              env_radiance=(0.0, 0.0, 0.0)) -> "SceneView":
+              env_radiance=(0.0, 0.0, 0.0), dir_light_defs=(), point_light_defs=(),
+              env_map=None, area_light_defs=()) -> "SceneView":
+        """The view of a host mesh (view.py:65-181). dir_light_defs: records
+        with `direction` and `color` (scene.lights.DirectionalLightDef);
+        point_light_defs: (position, intensity) pairs; env_map: an (H, W, 3)
+        float32 lat-long radiance image; area_light_defs: dicts of
+        scene.analytic_lights.AreaLightsView.build."""
         dev = resolve_device(device)
         for m in storage.materials:
             if any((m.diffuse_map_name, m.specular_map_name, m.emissive_map_name,
                     m.bump_map_name)):
                 raise NotImplementedError(
                     f"material {m.name!r} references a texture; textures are a later slice")
-            if m.flags & (FLAG_SHADOW_DIRECT_IGNORE | FLAG_SHADOW_INDIRECT_IGNORE):
-                raise NotImplementedError(
-                    f"material {m.name!r} sets shadow-ignore flags; shadow sets are a later slice")
         mesh = storage.device_view(dev)
+        # with a map, `env` scales its radiance: a zero default would black it out
+        if env_map is not None and tuple(env_radiance) == (0.0, 0.0, 0.0):
+            env_radiance = (1.0, 1.0, 1.0)
+        dir_light_defs, point_light_defs = list(dir_light_defs), list(point_light_defs)
         return SceneView(
             mesh=mesh,
             lights=MeshLightsView.build(_host_arrays(mesh), dev),
             camera=camera.to(dev),
             env=torch.tensor(env_radiance, dtype=torch.float32, device=dev),
             clusters=build_clusters(mesh),
+            dir_lights=(DirectionalLightsView.build(dir_light_defs, dev) if dir_light_defs
+                        else None),
+            point_lights=(PointLightsView.build(point_light_defs, dev) if point_light_defs
+                          else None),
+            shadow_sets=_build_shadow_sets(storage, dev),
+            env_map=None if env_map is None else EnvMapView.build(env_map, dev),
+            area_lights=(AreaLightsView.build(list(area_light_defs), dev) if area_light_defs
+                         else None),
         )
 
     @staticmethod
     def from_numpy(arrays: Dict[str, np.ndarray], device) -> "SceneView":
         """The port's view from the leaves of a fermat_tpu SceneView, keyed by
-        field path ("mesh.p0.x", "lights.cdf", "camera.eye.x", "env", ...).
+        field path ("mesh.p0.x", "lights.cdf", "camera.eye.x", "env",
+        "env_map.cdf", "shadow_sets[0].mesh.p0.x", ...).
 
         A scene over 4096 triangles takes its cluster table from the
         "clusters.*" leaves (tri and the six box rows) when they are there
         and builds it with accel/cluster.build_clusters otherwise; smaller
         scenes carry none, so that such a view holds exactly the JAX view's
-        leaves (`build` makes the table at every size). Leaves this slice
-        does not read (the BVH, the VPL set of nee="vpl", the cluster table
-        of a small scene) are ignored; a texture atlas with real texels,
-        environment maps, analytic/point/directional lights and shadow sets
-        raise NotImplementedError.
+        leaves (`build` makes the table at every size). A shadow set takes
+        its mesh and its cluster table from its own leaves at any size. The
+        light leaves come across as they are: the environment map's weights,
+        CDF and total (not rebuilt), the analytic area lights, and the
+        point and directional lights (None when the JAX view holds none).
+        Leaves this slice does not read (the BVHs, the VPL set of
+        nee="vpl", the cluster table of a small scene) are ignored; a
+        texture atlas with real texels raises NotImplementedError.
 
         The view's tensors are plain copies of the arrays, none requiring
         grad. To differentiate a pass in material fields, replace them by
@@ -101,15 +171,11 @@ class SceneView(NamedTuple):
             d = view.mesh.materials.diffuse.stack().clone().requires_grad_()
             mats = view.mesh.materials._replace(diffuse=Vec3(d[:, 0], d[:, 1], d[:, 2]))
             view = view._replace(mesh=view.mesh._replace(materials=mats))
-        (roughness, an (M,) tensor, likewise); render_pass under
-        torch.enable_grad() then gives d.grad by backward().
+        (roughness, an (M,) tensor, likewise; the environment scale `env` as
+        view._replace(env=leaf)); render_pass under torch.enable_grad() then
+        gives the leaf's .grad by backward().
         """
         dev = resolve_device(device)
-        for k, a in arrays.items():
-            if k.startswith(_UNSUPPORTED):
-                raise NotImplementedError(f"{k}: feature outside this slice")
-            if k.startswith(("dir_lights.", "point_lights.")) and np.size(a):
-                raise NotImplementedError(f"{k}: point/directional lights are a later slice")
         if np.shape(arrays.get("textures.texels", np.zeros((1, 4))))[0] > 1:
             raise NotImplementedError("textures are a later slice")
 
@@ -119,37 +185,66 @@ class SceneView(NamedTuple):
             return np.array(arrays[key])
 
         t = lambda key: torch.from_numpy(host(key)).to(dev)
-
         v3 = lambda p: Vec3(t(p + ".x"), t(p + ".y"), t(p + ".z"))
-        mt = "mesh.materials."
-        materials = MaterialTable(
-            diffuse=v3(mt + "diffuse"), specular=v3(mt + "specular"),
-            emissive=v3(mt + "emissive"), diffuse_trans=v3(mt + "diffuse_trans"),
-            reflectivity=v3(mt + "reflectivity"), roughness=t(mt + "roughness"),
-            ior=t(mt + "ior"), opacity=t(mt + "opacity"), flags=t(mt + "flags"),
-            diffuse_map=t(mt + "diffuse_map"), specular_map=t(mt + "specular_map"),
-            emissive_map=t(mt + "emissive_map"), bump_map=t(mt + "bump_map"),
-        )
-        mesh = MeshView(
-            p0=v3("mesh.p0"), e1=v3("mesh.e1"), e2=v3("mesh.e2"), gn=v3("mesh.gn"),
-            n0=v3("mesh.n0"), n1=v3("mesh.n1"), n2=v3("mesh.n2"),
-            uv0=t("mesh.uv0"), uv1=t("mesh.uv1"), uv2=t("mesh.uv2"),
-            material_id=t("mesh.material_id"), lod_base=t("mesh.lod_base"),
-            materials=materials,
-        )
+
+        def mesh_view(p):
+            mt = p + "materials."
+            materials = MaterialTable(
+                diffuse=v3(mt + "diffuse"), specular=v3(mt + "specular"),
+                emissive=v3(mt + "emissive"), diffuse_trans=v3(mt + "diffuse_trans"),
+                reflectivity=v3(mt + "reflectivity"), roughness=t(mt + "roughness"),
+                ior=t(mt + "ior"), opacity=t(mt + "opacity"), flags=t(mt + "flags"),
+                diffuse_map=t(mt + "diffuse_map"), specular_map=t(mt + "specular_map"),
+                emissive_map=t(mt + "emissive_map"), bump_map=t(mt + "bump_map"),
+            )
+            return MeshView(
+                p0=v3(p + "p0"), e1=v3(p + "e1"), e2=v3(p + "e2"), gn=v3(p + "gn"),
+                n0=v3(p + "n0"), n1=v3(p + "n1"), n2=v3(p + "n2"),
+                uv0=t(p + "uv0"), uv1=t(p + "uv1"), uv2=t(p + "uv2"),
+                material_id=t(p + "material_id"), lod_base=t(p + "lod_base"),
+                materials=materials,
+            )
+
+        def clusters_of(p, mesh):
+            if p + "clusters.tri" not in arrays:
+                return build_clusters(mesh)
+            boxes = np.concatenate([host(f"{p}clusters.{k}").reshape(1, -1)
+                                    for k in _BOX_ROWS])
+            return cluster_view(host(p + "clusters.tri"), boxes, mesh)
+
+        def soa(p, fields, cls):
+            """A point or directional light view, None when it holds none."""
+            if not np.size(arrays.get(p + fields[0], ())):
+                return None
+            return cls(*(t(p + f) for f in fields))
+
+        mesh = mesh_view("mesh.")
         lights = MeshLightsView.from_arrays(
             *(host(f"lights.{k}") for k in ("cdf", "pdf_area", "has_lights", "rows")), dev)
         camera = Camera(v3("camera.eye"), v3("camera.aim"), v3("camera.up"),
                         t("camera.fov"))
-        clusters = None
-        if mesh.n_triangles > DENSE_MAX_TRIANGLES:
-            if "clusters.tri" in arrays:
-                boxes = np.concatenate([host(f"clusters.{k}").reshape(1, -1)
-                                        for k in ("lo_x", "lo_y", "lo_z", "hi_x", "hi_y",
-                                                  "hi_z")])
-                clusters = cluster_view(host("clusters.tri"), boxes, mesh)
+        clusters = clusters_of("", mesh) if mesh.n_triangles > DENSE_MAX_TRIANGLES else None
+        sets = []
+        for k in range(2):
+            p = f"shadow_sets[{k}]."
+            if p + "mesh.p0.x" in arrays:
+                smesh = mesh_view(p + "mesh.")
+                sets.append(_shadow_set(smesh, clusters_of(p, smesh)))
             else:
-                clusters = build_clusters(mesh)
-        return SceneView(mesh=mesh, lights=lights, camera=camera, env=t("env"),
-                         clusters=clusters)
-
+                sets.append(None)
+        env_map = None
+        if "env_map.img" in arrays:
+            env_map = EnvMapView.from_arrays(*(host(f"env_map.{k}") for k in
+                                               ("img", "weight", "cdf", "total")), dev)
+        area = None
+        if np.size(arrays.get("area_lights.kind", ())):
+            area = AreaLightsView.from_arrays(
+                host("area_lights.kind"), [host(f"area_lights.{k}") for k in _AREA_COLUMNS],
+                host("area_lights.ru"), host("area_lights.rv"), dev)
+        return SceneView(
+            mesh=mesh, lights=lights, camera=camera, env=t("env"), clusters=clusters,
+            dir_lights=soa("dir_lights.", DirectionalLightsView._fields, DirectionalLightsView),
+            point_lights=soa("point_lights.", PointLightsView._fields, PointLightsView),
+            shadow_sets=None if all(x is None for x in sets) else tuple(sets),
+            env_map=env_map, area_lights=area,
+        )

@@ -767,3 +767,118 @@ def test_ad_gradient_on_card_matches_the_replay_gradient(dev):
     scale = float(g.abs().max())
     assert scale > 0.0
     assert float((leaf.grad - g).abs().max()) <= 1e-3 * scale
+
+
+def _lit_views(dev):
+    """The glossy CornellBox with a blocker panel flagged
+    FLAG_SHADOW_DIRECT_IGNORE, an analytic disk and rect, a point and a
+    directional light and a 32x64 sky (its direct shadow set: 36 triangles);
+    big_room(400) with the clutter flagged FLAG_SHADOW_INDIRECT_IGNORE, the
+    sky and a directional sun (its indirect shadow set: the 36-triangle
+    room)."""
+    from fermat_tpu_torch.scene.lights import DirectionalLightDef
+    from fermat_tpu_torch.scene.materials import (FLAG_SHADOW_DIRECT_IGNORE,
+                                                  FLAG_SHADOW_INDIRECT_IGNORE, HostMaterial)
+    from fermat_tpu_torch.scene.mesh import MeshStorage
+    from fermat_tpu_torch.scene.procedural import _quad, big_room_camera
+
+    rng = np.random.default_rng(11)
+    sky = (rng.random((32, 64, 3)) * 0.5 + 0.2).astype(np.float32)
+    sky[5:7, 8:10] = 60.0
+    vs, tris, ids = [], [], []
+    _quad(vs, tris, ids, [-0.99, 1.9, 0.99], [0.99, 1.9, 0.99], [0.99, 1.9, -0.99],
+          [-0.99, 1.9, -0.99], 0)
+    m = HostMaterial("blocker")
+    m.diffuse, m.flags = (0.2, 0.2, 0.2), FLAG_SHADOW_DIRECT_IGNORE
+    t = np.asarray(tris, np.int32)
+    box = cornell_box(glossy_boxes=True).merge(MeshStorage(
+        vertices=np.asarray(vs, np.float32), triangles=t, normal_indices=np.full_like(t, -1),
+        uv_indices=np.full_like(t, -1), material_ids=np.asarray(ids, np.int32), materials=[m]))
+    sun = [DirectionalLightDef((0.25, -0.5, -1.0), (0.8, 0.7, 0.6))]
+    cornell = SceneView.build(
+        box, cornell_camera(), dev, dir_light_defs=sun, env_map=sky,
+        point_light_defs=[((0.3, 1.2, 0.5), (1.5, 1.2, 0.9))],
+        area_light_defs=[dict(kind="disk", pos=(-0.45, 1.75, 0.25), normal=(0.15, -1.0, 0.1),
+                              color=(6.0, 5.0, 4.0), radius=0.25),
+                         dict(kind="rect", pos=(0.45, 1.6, -0.35), normal=(-0.2, -1.0, 0.15),
+                              color=(3.0, 4.0, 5.0), u_extent=0.3, v_extent=0.2)])
+    room = big_room(400)
+    for mat in room.materials:
+        if mat.name == "clutter":
+            mat.flags = FLAG_SHADOW_INDIRECT_IGNORE
+    lit_room = SceneView.build(room, big_room_camera(), dev, dir_light_defs=sun, env_map=sky)
+    return cornell, lit_room
+
+
+@pytest.mark.cuda
+def test_shadow_set_tracers_match_plain_on_card(dev):
+    """K1b over each shadow set's own soup and K5b over its own cluster
+    table, against their plain versions and each other."""
+    cornell, room = _lit_views(dev)
+    for ss in (cornell.shadow_sets[0], room.shadow_sets[1]):
+        assert ss.mesh.n_triangles == 36 and ss.tris.shape == (9, 36)
+        o, d, active, tmax = _rays(65536, -1.0, 1.0, dev, seed=13)
+        o = Vec3(o.x, o.y + 1.0, o.z)
+        n = 65536
+        t0 = trace_mod._lanes(0.0, n, dev)
+        occ = trace_mod.trace_any(ss.tris, o, d, 0.0, tmax, active)
+        occ5 = ft.trace_any_frontier(ss.clusters, o, d, 0.0, tmax, active)
+        ref = trace_mod._any_plain(ss.tris, o, d, t0, tmax, active)
+        ref5 = ft._any_plain(ss.clusters, o, d, t0, tmax, active)
+        torch.cuda.synchronize()
+        assert torch.equal(occ, ref) and torch.equal(occ5, ref5) and torch.equal(occ, occ5)
+        assert occ.any() and not occ.all()
+
+
+def _forced_plain(dev):
+    """monkeypatch targets that put every kernel's plain version in the pass."""
+    from fermat_tpu_torch.accel.traverse import Hit
+    from fermat_tpu_torch.scene import lights as lights_mod
+    from fermat_tpu_torch.scene import mesh as mesh_mod
+
+    lanes = lambda o, a, b: (trace_mod._lanes(a, o.x.shape[0], dev),
+                             trace_mod._lanes(b, o.x.shape[0], dev))
+
+    def closest_frontier(cl, o, d, t0, t1, active=None, with_uv=True):
+        t, tri = ft._closest_plain(cl, o, d, *lanes(o, t0, t1), active)
+        return Hit(t=t, tri=tri, u=torch.zeros_like(t), v=torch.zeros_like(t))
+
+    return [(tpt, "trace_closest",
+             lambda tr, o, d, t0, t1, a=None: trace_mod._closest_plain(tr, o, d,
+                                                                      *lanes(o, t0, t1), a)),
+            (tpt, "trace_any",
+             lambda tr, o, d, t0, t1, a=None: trace_mod._any_plain(tr, o, d,
+                                                                  *lanes(o, t0, t1), a)),
+            (tpt, "trace_closest_frontier", closest_frontier),
+            (tpt, "trace_any_frontier",
+             lambda cl, o, d, t0, t1, a=None: ft._any_plain(cl, o, d, *lanes(o, t0, t1), a)),
+            (tpt, "cdf_pick_rows", cdf_gather._pick_plain),
+            (mesh_mod, "gather_rows", gather_mod._gather_plain),
+            (lights_mod, "gather_rows", gather_mod._gather_plain)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,tracer", [("cornell", "auto"), ("big_room400", "auto"),
+                                          ("big_room400", "frontier")])
+def test_lit_pass_kernels_match_plain_on_card(dev, scene, tracer, monkeypatch):
+    """A lit 64x64 pass with the kernels against the same pass with every
+    plain version forced: rays equal, every channel bit-equal. big_room with
+    tracer="auto" traces its indirect shadow set with K1b, with "frontier"
+    with K5b."""
+    cornell, room = _lit_views(dev)
+    view = cornell if scene == "cornell" else room
+    opts = tpt.PTOptions(max_path_length=4, tracer=tracer)
+    before = (trace_mod.ANY.launches, ft.ANY.launches)
+    got = tpt.render_pass(view, opts, 64, 64, 3, 0)
+    torch.cuda.synchronize()
+    assert trace_mod.ANY.launches > before[0] or tracer == "frontier"
+    for mod, name, value in _forced_plain(dev):
+        monkeypatch.setattr(mod, name, value)
+    after = (trace_mod.ANY.launches, ft.ANY.launches)
+    want = tpt.render_pass(view, opts, 64, 64, 3, 0)
+    torch.cuda.synchronize()
+    assert (trace_mod.ANY.launches, ft.ANY.launches) == after
+    assert float(got.rays) == float(want.rays) and torch.equal(got.tri, want.tri)
+    for c in ("composited", "direct", "diffuse", "specular"):
+        assert torch.equal(_bits(getattr(got, c).stack()), _bits(getattr(want, c).stack())), c
+    assert float(got.composited.stack().mean()) > 0.0

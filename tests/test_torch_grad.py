@@ -22,6 +22,11 @@ instances) with respect to:
 The views of "cornell" and "rough" are stored beside them, so the port reads
 JAX's leaves.
 
+The lit cases (test_lit_grad_matches_jax_golden) read their jax.grad from
+tests/golden/torch_port_lights_24.npz, which tests/test_torch_lights.py
+writes: the (M, 3) diffuse on its configurations B_nee and C and the (3,)
+env scale on B_nee.
+
 Tolerance: the port's gradient within 1e-5 of max|g| of JAX's (the same
 estimator with the same detaches; it differs only by float rounding: XLA:CPU
 contracts a*b+c into FMAs and sums in another order; measured at most
@@ -219,6 +224,39 @@ def test_mega_refuses_a_material_that_requires_grad(cornell_built):
         tpt.render_pass(v, opts, 4, 4, 0)
     with torch.no_grad():  # no gradient asked for: the megakernel renders
         assert tpt.render_pass(v, opts, 4, 4, 0).composited.x.shape == (16,)
+
+
+LIGHTS = os.path.join(ROOT, "tests", "golden", "torch_port_lights_24.npz")
+# the lit gradient cases of tests/golden/torch_port_lights_24.npz (written by
+# tests/test_torch_lights.py): configuration -> (its scene, PTOptions fields)
+LIT_CASES = {"B_nee": ("B", dict(max_path_length=2)), "C": ("C", dict(max_path_length=4))}
+
+
+@pytest.mark.parametrize("name,leaf", [("B_nee", "diffuse"), ("B_nee", "env"),
+                                       ("C", "diffuse")])
+def test_lit_grad_matches_jax_golden(name, leaf):
+    """Through the light model's strategies: jax.grad of the mean composited
+    image of one 24x24 pass with respect to the (M, 3) diffuse on the env-lit
+    floor (B_nee) and the CornellBox with area, point and directional lights
+    (C), and to the (3,) env scale on B_nee (both env strategies, the miss
+    pickup and the env NEE, carry it), within 1e-5 of max|g|."""
+    z = np.load(LIGHTS)
+    scene, kw = LIT_CASES[name]
+    view = _stored_view(z, f"{scene}.view.")
+    opts = tpt.PTOptions(lobes=tuple(bool(x) for x in z[f"{name}.lobes"]),
+                         clearcoat=bool(z[f"{name}.clearcoat"]), **kw)
+    if leaf == "env":
+        g_leaf = view.env.clone().requires_grad_(True)
+        view = view._replace(env=g_leaf)
+    else:
+        view, g_leaf = with_leaf(view, leaf)
+    loss = tpt.render_pass(view, opts, 24, 24, 0, SEED).composited.stack().mean()
+    loss.backward()
+    want = z[f"{name}.grad.{leaf}"]
+    scale = float(np.abs(want).max())
+    assert scale > 0.0
+    np.testing.assert_allclose(float(loss.detach()), float(z[f"{name}.loss"]), rtol=1e-4)
+    np.testing.assert_allclose(g_leaf.grad.numpy(), want, rtol=0, atol=1e-5 * scale)
 
 
 def write_golden() -> None:

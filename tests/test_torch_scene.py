@@ -70,10 +70,29 @@ def test_from_numpy_round_trips_exactly(views):
         np.testing.assert_array_equal(a, arrays[k], err_msg=k)
 
 
+# leaves of light features the port takes across: an environment map's, a
+# directional light's (keyed by the leaf that named the case when they were
+# still refused)
+_LIGHT_LEAVES = {
+    "env_map.pdf": {"env_map.img": np.ones((4, 8, 3), np.float32),
+                    "env_map.weight": np.ones(32, np.float32),
+                    "env_map.cdf": np.arange(1, 33, dtype=np.float32),
+                    "env_map.total": np.float32(32.0)},
+    "dir_lights.dir_x": {f"dir_lights.{k}": np.ones(1, np.float32)
+                         for k in ("dir_x", "dir_y", "dir_z", "col_x", "col_y", "col_z")},
+    "textures.texels": {},
+}
+
+
 @pytest.mark.parametrize("extra", ["env_map.pdf", "dir_lights.dir_x", "textures.texels"])
 def test_from_numpy_rejects_features_outside_the_slice(views, extra):
-    arrays = dict(jax_view_arrays(views[0]))
-    arrays[extra] = np.ones((4, 4), np.float32)
+    """Textures are outside the slice: an atlas with real texels is refused,
+    also beside light leaves that the port takes across."""
+    arrays = {**jax_view_arrays(views[0]), **_LIGHT_LEAVES[extra]}
+    view = TView.from_numpy(arrays, "cpu")
+    assert (view.env_map is not None) == (extra == "env_map.pdf")
+    assert (view.dir_lights is not None) == (extra == "dir_lights.dir_x")
+    arrays["textures.texels"] = np.ones((4, 4), np.float32)
     with pytest.raises(NotImplementedError):
         TView.from_numpy(arrays, "cpu")
 
