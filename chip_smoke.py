@@ -110,6 +110,33 @@ result is printed then):
                 configurations A-D, D also with tracer="auto") within the
                 tolerances of tests/test_torch_pt.py, its jax.grad cases
                 within AD_GOLDEN_RTOL;
+  4h. textured — textured surfaces and emitters, their gradients and the
+                blue-noise sampler: the glossy CornellBox with seeded 8-bit
+                TGA maps (procedural.write_cornell_textures at 1024 texels:
+                diffuse on the walls and floor, the white one 999x767, a
+                specular map on the boxes, an emissive map on the light;
+                a 204 MiB atlas), 512x512, 6 bounces, bilinear, trilinear
+                and sampler="bluenoise" (K1a, K1b, K2 also for the atlas's
+                metadata rows and the shift table); the bathroom stand-in
+                (procedural.bathroom_standin(8300), 99,612 triangles, 12
+                seeded materials with 16 1024-texel TGAs, a 768 MiB atlas),
+                1600x896, 6 bounces, monolithic and narrow=1 (K5a, K5b, K4,
+                K2): ms/pass, Mrays/s (best of 3 batches of 2 passes after a
+                warm-up), launches per pass, one profiled pass each, the
+                atlas's bytes and the cell's peak memory; tracer="mega" on
+                the textured CornellBox raises; one pass with the kernels
+                and one with the plain versions forced (the CornellBox at
+                512x512 bilinear and trilinear with blue noise, the
+                bathroom at 400x224): rays equal, every channel, both
+                albedos and the first hits bit-equal; the blue-noise
+                sequence on 1,048,576 lanes equal to the CPU's; one AD step
+                d loss / d texels at 512x512 (ms/step, peak memory); the
+                texture golden (tests/golden/torch_port_textures_24.npz,
+                JAX on the CPU, T_A-T_E) within the tolerances of
+                tests/test_torch_pt.py and its jax.grad cases (the texels
+                of T_C, at JAX's first-hit uv, and of C2; the emissive
+                through a light table built on the card) within
+                AD_GOLDEN_RTOL;
   5. parity   — one 512x512 pass with the kernels and one with the plain
                 versions forced in their place: equal `rays`, equal images;
                 then the golden configuration (tests/golden/
@@ -190,7 +217,8 @@ result is printed then):
                 and timed there; bound: 46 flops a test over K8's own
                 leaves, with K5's bound on the same rays beside it.
 Then the card's nvidia-smi line, one JSON line {"kernels": [...]} (each row
-also holds its launches per pass on phase 4g's lit paths), and last
+also holds its launches per pass on phase 4g's lit and 4h's textured paths
+and its device time a launch inside their profiled passes), and last
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -285,6 +313,10 @@ LIT_AREA = [dict(kind="disk", pos=(-0.45, 1.75, 0.25), normal=(0.15, -1.0, 0.1),
 LIT_POINT = [((0.3, 1.2, 0.5), (1.5, 1.2, 0.9))]
 LIT_DIR = ((0.25, -0.5, -1.0), (0.8, 0.7, 0.6))
 LIT_SUN = ((0.3, -0.6, -1.0), (3.0, 2.8, 2.5))
+# phase 4h, the textured passes: the maps' size (bathroom2's textures are
+# 1024 and 2048 texels a side) and passes a batch
+TEX_SIZE = 1024
+TEX_PASSES = 2
 
 
 class SmokeFailure(AssertionError):
@@ -620,8 +652,10 @@ def forced_plain(dev) -> list:
     from fermat_tpu_torch.ops import frontier_trace as ft
     from fermat_tpu_torch.ops import gather as gather_mod
     from fermat_tpu_torch.ops import trace as trace_mod
+    from fermat_tpu_torch.core import rng as rng_mod
     from fermat_tpu_torch.scene import lights as lights_mod
     from fermat_tpu_torch.scene import mesh as mesh_mod
+    from fermat_tpu_torch.scene import textures as textures_mod
 
     def lanes(o, tmin, tmax):
         n = o.x.shape[0]
@@ -645,7 +679,47 @@ def forced_plain(dev) -> list:
             (pt, "trace_any_frontier", any_frontier),
             (pt, "cdf_pick_rows", cdf_gather._pick_plain),
             (mesh_mod, "gather_rows", gather_mod._gather_plain),
-            (lights_mod, "gather_rows", gather_mod._gather_plain)]
+            (lights_mod, "gather_rows", gather_mod._gather_plain),
+            (textures_mod, "gather_rows", gather_mod._gather_plain),
+            (rng_mod, "gather_rows", gather_mod._gather_plain)]
+
+
+def drive_cell(tag: str, cell: str, ctx, passes: int, smi: str, reset_counts, counts,
+               narrow: bool = False) -> dict:
+    """Phases 4g and 4h: a warm-up pass, best of REPS batches of `passes`,
+    launches per pass, one profiled pass (busy, idle share, the route
+    kernels' time a launch in it) and the peak memory allocated above the
+    cell's start (earlier phases' tensors stay allocated)."""
+    import numpy as np
+    import torch
+
+    dev = ctx.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ctx.render(1)
+    reset_counts()
+    best, rays = best_batches(ctx, passes, narrow=narrow)
+    per = {n: c / (passes * REPS) for n, c in counts().items() if c}
+    hdr = ctx.hdr_image()
+    check(np.isfinite(hdr).all() and float(hdr.mean()) > 0.001,
+          f"{cell}: image not finite or black (mean {hdr.mean()})")
+    n_kern, busy, top, each = profile_one_pass(ctx, narrow=narrow)
+    ms = best / passes * 1e3
+    # each route kernel's device time a launch inside the profiled pass (us)
+    in_pass = {n: 1e3 * sum(v) / len(v) for n, k in LIT_IN_PASS.items()
+               for v in [launches_named(each, k)] if v}
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    log(f"[{tag}] {cell} {ctx.res_x}x{ctx.res_y} mpl={MPL}: {ms:.2f} ms/pass, "
+        f"{rays / best / 1e6:.3f} Mrays/s ({rays / passes:.0f} rays/pass; best of {REPS} x "
+        f"{passes} passes) on {smi}; image mean {hdr.mean():.4f}; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB above the cell's start; launches per pass: {per}")
+    log(f"[{tag}] {cell}: one pass under torch.profiler: {n_kern} device kernels, device "
+        f"busy {busy:.2f} ms of the {ms:.2f} ms pass (idle share {1 - busy / ms:.3f}); route "
+        "kernels' us a launch in it: " + ", ".join(f"{n} {v:.2f}" for n, v in in_pass.items())
+        + "; top: " + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
+    return dict(ms=ms, mrays=rays / best / 1e6, rays=rays / passes, kernels=n_kern,
+                busy_ms=busy, idle=1 - busy / ms, launches=per, in_pass_us=in_pass,
+                peak_bytes=peak)
 
 
 def lit_phase(dev, smi: str, reset_counts, counts) -> dict:
@@ -671,29 +745,8 @@ def lit_phase(dev, smi: str, reset_counts, counts) -> dict:
     cells, launches = {}, {}
 
     def drive(cell, ctx, passes, narrow=False):
-        """Warm-up, best of REPS batches, launches per pass, one profiled pass."""
-        ctx.render(1)
-        reset_counts()
-        best, rays = best_batches(ctx, passes, narrow=narrow)
-        per = {n: c / (passes * REPS) for n, c in counts().items() if c}
-        hdr = ctx.hdr_image()
-        check(np.isfinite(hdr).all() and float(hdr.mean()) > 0.001,
-              f"{cell}: image not finite or black (mean {hdr.mean()})")
-        n_kern, busy, top, each = profile_one_pass(ctx, narrow=narrow)
-        ms = best / passes * 1e3
-        # each route kernel's device time a launch inside the profiled pass (us)
-        in_pass = {n: 1e3 * sum(v) / len(v) for n, k in LIT_IN_PASS.items()
-                   for v in [launches_named(each, k)] if v}
-        cells[cell] = dict(ms=ms, mrays=rays / best / 1e6, rays=rays / passes, kernels=n_kern,
-                           busy_ms=busy, idle=1 - busy / ms, launches=per, in_pass_us=in_pass)
-        log(f"[4g lit] {cell} {ctx.res_x}x{ctx.res_y} mpl={MPL}: {ms:.2f} ms/pass, "
-            f"{rays / best / 1e6:.3f} Mrays/s ({rays / passes:.0f} rays/pass; best of {REPS} x "
-            f"{passes} passes) on {smi}; image mean {hdr.mean():.4f}; launches per pass: {per}")
-        log(f"[4g lit] {cell}: one pass under torch.profiler: {n_kern} device kernels, device "
-            f"busy {busy:.2f} ms of the {ms:.2f} ms pass (idle share {1 - busy / ms:.3f}); route "
-            "kernels' us a launch in it: " + ", ".join(f"{n} {v:.2f}" for n, v in in_pass.items())
-            + "; top: " + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
-        return per
+        cells[cell] = drive_cell("4g lit", cell, ctx, passes, smi, reset_counts, counts, narrow)
+        return cells[cell]["launches"]
 
     def plain_parity(cell, view, opts, res_x, res_y, ss):
         """One pass with the kernels (recording the first K1b launch on the
@@ -862,6 +915,259 @@ def lit_phase(dev, smi: str, reset_counts, counts) -> dict:
         check(rel <= AD_GOLDEN_RTOL, f"lights golden d/d {leaf} on {name}: {rel:.3g} of max|g|")
         g_report.append(f"{name} d/d {leaf} {rel:.2e}")
     log(f"[4g lit] the light-model golden ({gres}x{gres}, JAX on the CPU) on the card's kernel "
+        f"path within the tolerances of tests/test_torch_pt.py: " + "; ".join(report)
+        + f"; jax.grad within {AD_GOLDEN_RTOL:g} of max|g|: " + ", ".join(g_report)
+        + f"; {time.perf_counter() - t_phase:.1f} s for the phase")
+    return {"cells": cells, "launches": launches}
+
+
+def atlas_bytes(atlas) -> int:
+    """Device bytes of a texture atlas: texels, tables and the RGBA8 mirror."""
+    return sum(t.numel() * t.element_size() for t in atlas if t is not None)
+
+
+def first_hit_uv(shade, uv, hit):
+    """scene.mesh._shade `shade` with bounce 0's uv replaced by `uv` (N, 2)
+    on the lanes where `hit` is set: the first call in a pass shades the
+    camera rays' hits."""
+    import torch
+
+    calls = []
+
+    def wrapped(r, u, v):
+        sh = shade(r, u, v)
+        calls.append(r.shape[0])
+        if len(calls) > 1:
+            return sh
+        if r.shape[0] != uv.shape[0]:
+            raise ValueError(f"first_hit_uv: {r.shape[0]} lanes, {uv.shape[0]} uv rows")
+        return sh._replace(uv=torch.where(hit[:, None], uv, sh.uv))
+
+    return wrapped
+
+
+def textured_phase(dev, smi: str, reset_counts, counts) -> dict:
+    """Phase 4h: textured surfaces and emitters, the texel and emitter
+    gradients and the blue-noise sampler on the card (see the module
+    docstring). Returns the cells' numbers and their launches per pass."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fermat_tpu_torch.core.math import Vec3
+    from fermat_tpu_torch.core.rng import BlueNoiseSequence
+    from fermat_tpu_torch.integrators import pt
+    from fermat_tpu_torch.ops import pt_mega
+    from fermat_tpu_torch.render.context import RenderingContext
+    from fermat_tpu_torch.scene import mesh as mesh_mod
+    from fermat_tpu_torch.scene import procedural as proc
+    from fermat_tpu_torch.scene.lights import MeshLightsView
+    from fermat_tpu_torch.scene.view import SceneView
+
+    t_phase = time.perf_counter()
+    bits = lambda t: t.contiguous().view(torch.int32)
+    cells, launches = {}, {}
+    tmp = tempfile.TemporaryDirectory()
+
+    def drive(cell, ctx, narrow=False):
+        """drive_cell, and the atlas's device bytes."""
+        cells[cell] = drive_cell("4h textured", cell, ctx, TEX_PASSES, smi, reset_counts,
+                                 counts, narrow)
+        cells[cell]["atlas_bytes"] = atlas_bytes(ctx.view.textures)
+        return cells[cell]["launches"]
+
+    def plain_parity(cell, view, opts, res_x, res_y):
+        """One pass with the kernels and one with every plain version forced:
+        rays equal, every channel, albedo and first hit bit-equal."""
+        out_k = pt.render_pass(view, opts, res_x, res_y, 1000, 0)
+        before = counts()
+        with patched(forced_plain(dev)):
+            out_p = pt.render_pass(view, opts, res_x, res_y, 1000, 0)
+        torch.cuda.synchronize()
+        check(before == counts(), f"{cell}: the forced plain pass launched a kernel")
+        check(float(out_k.rays) == float(out_p.rays),
+              f"{cell}: kernel vs plain pass: rays {float(out_k.rays)} vs {float(out_p.rays)}")
+        for c in ("composited", "direct", "diffuse", "specular", "diffuse_albedo",
+                  "specular_albedo", "normal"):
+            check(torch.equal(bits(getattr(out_k, c).stack()), bits(getattr(out_p, c).stack())),
+                  f"{cell}: kernel vs plain pass: {c} not bit-equal")
+        check(torch.equal(out_k.tri, out_p.tri), f"{cell}: kernel vs plain pass: first hits differ")
+        log(f"[4h textured] {cell} {res_x}x{res_y} ({opts.texture_filter}, {opts.sampler}): "
+            f"kernels vs plain versions: rays equal ({float(out_k.rays):.0f}), every channel, "
+            "both albedos, normal and first hit bit-equal")
+
+    # ---- the textured CornellBox: K1a, K1b, K2 (also the atlas's metadata) ----
+    t0 = time.perf_counter()
+    names = proc.write_cornell_textures(tmp.name, size=TEX_SIZE)
+    cstore = proc.set_texture_names(proc.cornell_box(glossy_boxes=True), names)
+    ctx = RenderingContext.create(cstore, proc.cornell_camera(), RES, RES, renderer="pt",
+                                  max_path_length=MPL, texture_dir=tmp.name)
+    view = ctx.view
+    check(view.has_textures and bool(view.textured_emitters) and view.textures.count == 5
+          and view.textures.packed_q is not None,
+          "the textured CornellBox's view: atlas or textured emitters not as built")
+    log(f"[4h textured] CornellBox: 5 seeded 8-bit TGAs (the white one "
+        f"{int(view.textures.width[0, 0])}x{int(view.textures.height[0, 0])} after padding "
+        f"from non-power-of-two), atlas {view.textures.texels.shape[0]} texels, "
+        f"{atlas_bytes(view.textures) / 2 ** 20:.2f} MiB with its RGBA8 mirror; view built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    opts = pt.PTOptions(**ctx.renderer_options)
+    refused = False
+    try:
+        pt.render_pass(view, opts._replace(tracer="mega"), 16, 16, 0)
+    except NotImplementedError:
+        refused = True
+    check(refused and not pt_mega.mega_eligible(view, opts),
+          "tracer='mega' on the textured CornellBox did not raise NotImplementedError")
+    for cell, extra in (("textured CornellBox bilinear", {}),
+                        ("textured CornellBox trilinear", {"texture_filter": "trilinear"}),
+                        ("textured CornellBox bluenoise", {"sampler": "bluenoise"})):
+        ctx.renderer_options.update(extra)
+        ctx.restart()
+        per = drive(cell, ctx)
+        check(per.get("trace_closest") == MPL and per.get("trace_any") == MPL
+              and per.get("gather_rows", 0) > 0
+              and set(per) == {"trace_closest", "trace_any", "gather_rows"},
+              f"{cell} launches per pass: {per}")
+        launches[cell.replace("textured CornellBox ", "textured_cornell_")] = per
+        for k in extra:
+            ctx.renderer_options.pop(k)
+    plain_parity("textured CornellBox", view, opts, RES, RES)
+    plain_parity("textured CornellBox", view,
+                 opts._replace(texture_filter="trilinear", sampler="bluenoise"), RES, RES)
+
+    # the blue-noise sequence on the card against the CPU's, 2^20 lanes
+    seq = BlueNoiseSequence.create(seed=0, instance=5, res_x=1024)
+    pix = torch.arange(1 << 20, dtype=torch.int64)
+    for dim in (0, 2, 5):
+        for a, b in zip(seq.sample_3d(pix.to(dev), dim), seq.sample_3d(pix, dim)):
+            check(torch.equal(bits(a.cpu()), bits(b)),
+                  f"bluenoise sample_3d at dimension {dim}: the card differs from the CPU")
+    log(f"[4h textured] bluenoise sample_3d on {pix.shape[0]} lanes (dimensions 0, 2, 5): the "
+        "card's values equal the CPU's bit for bit")
+
+    # ---- one textured AD step: d loss / d texels at 512x512 ----
+    def tex_step(inst):
+        x = view.textures.texels.detach().clone().requires_grad_(True)
+        v = view._replace(textures=view.textures._replace(texels=x))
+        img = pt.render_pass(v, opts, RES, RES, inst, 0).composited.stack()
+        (img * img).mean().backward()
+        return x.grad
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    tex_step(0)
+    steps = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g = tex_step(1 + i)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check(bool(torch.isfinite(g).all()) and float(g[:, :3].abs().max()) > 0.0,
+          "textured AD step: the texel gradient is not finite or all zero")
+    cells["textured CornellBox AD step (texels)"] = dict(ms=min(steps) * 1e3, peak_bytes=peak)
+    log(f"[4h textured] AD step d loss / d texels ({view.textures.texels.shape[0]} x 4), 512x512, "
+        f"{MPL} bounces: {min(steps) * 1e3:.2f} ms/step (best of 2 after a warm-up), peak "
+        f"{peak / 2 ** 30:.2f} GiB above the step's start; max|g| {float(g.abs().max()):.4g}, "
+        f"{int((g[:, :3] != 0).any(1).sum())} texels with a gradient")
+    del ctx, view, g
+    torch.cuda.empty_cache()
+
+    # ---- the bathroom-class stand-in: K5a, K5b, K4, K2 ----
+    t0 = time.perf_counter()
+    bdir = Path(tmp.name) / "bathroom"
+    proc.write_standin_assets(str(bdir), size=TEX_SIZE)
+    bstore, bcam, btex = proc.bathroom_standin(BIG_BOXES, 3, str(bdir))
+    bctx = RenderingContext.create(bstore, bcam, BIG_W, BIG_H, renderer="pt",
+                                   max_path_length=MPL, texture_dir=btex)
+    bview = bctx.view
+    check(bview.mesh.n_triangles == 99_612 and bview.has_textures
+          and not bool(bview.textured_emitters) and bview.textures.count == 16
+          and bview.lights.compact is not None,
+          "the bathroom stand-in's view: triangles, atlas or light table not as built")
+    log(f"[4h textured] bathroom stand-in: {bview.mesh.n_triangles} triangles, 12 materials, "
+        f"16 seeded {TEX_SIZE}x{TEX_SIZE} TGAs, atlas {bview.textures.texels.shape[0]} texels, "
+        f"{atlas_bytes(bview.textures) / 2 ** 20:.2f} MiB; view built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    per = drive("bathroom monolithic", bctx)
+    check(per.get("trace_closest_frontier") == MPL and per.get("trace_any_frontier") == MPL
+          and per.get("cdf_pick_rows") == MPL and per.get("gather_rows", 0) > 0
+          and "trace_closest" not in per, f"bathroom launches per pass: {per}")
+    launches["bathroom"] = per
+    bctx.renderer_options["narrow"] = 1
+    bctx.restart()
+    per = drive("bathroom narrow=1", bctx, narrow=True)
+    check(all(per.get(n, 0) > 0 for n in ("trace_closest_frontier", "trace_any_frontier",
+                                          "cdf_pick_rows", "gather_rows")),
+          f"bathroom narrow=1 launches per pass: {per}")
+    launches["bathroom_narrow"] = per
+    bctx.renderer_options.pop("narrow")
+    bctx.restart()
+    plain_parity("bathroom", bview, pt.PTOptions(**bctx.renderer_options), PLAIN_W, PLAIN_H)
+    del bctx, bview
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    # ---- the texture golden on the card's kernel path ----
+    gz = np.load(ROOT / "tests" / "golden" / "torch_port_textures_24.npz")
+    gres, ginst, gseed = int(gz["res"]), int(gz["instance"]), int(gz["seed"])
+    configs = json.loads(str(gz["configs"]))
+    gviews, report = {}, []
+    for key in sorted({k for k, _ in configs.values()}):
+        p = f"{key}.view."
+        gviews[key] = SceneView.from_numpy({k[len(p):]: gz[k] for k in gz.files
+                                            if k.startswith(p)}, dev)
+    gopts = lambda name: pt.PTOptions(lobes=tuple(bool(x) for x in gz[f"{name}.lobes"]),
+                                      clearcoat=bool(gz[f"{name}.clearcoat"]), **configs[name][1])
+    for name, (key, _) in configs.items():
+        if f"{name}.rays" not in gz.files:
+            continue  # a gradient's configuration only
+        out = pt.render_pass(gviews[key], gopts(name), gres, gres, ginst, gseed)
+        want = float(gz[f"{name}.rays"])
+        check(abs(float(out.rays) - want) <= 0.005 * want,
+              f"textures golden {name}: rays {float(out.rays)} vs JAX {want}")
+        same = float((out.tri.cpu().numpy() == gz[f"{name}.tri"]).mean())
+        check(same >= (0.99 if key == "D" else 1.0), f"textures golden {name}: first hits {same}")
+        worst = 1.0
+        for c in ("composited", "direct", "diffuse", "specular"):
+            ok, near, mean_rel = image_close(getattr(out, c).stack().cpu().numpy(),
+                                             gz[f"{name}.{c}"].reshape(-1, 3))
+            check(ok, f"textures golden {name} {c}: {near:.4f} of pixels close, "
+                      f"mean rel {mean_rel:.2e}")
+            worst = min(worst, near)
+        report.append(f"{name} rays {float(out.rays):.0f}/{want:.0f}, first hits {same:.4f}, "
+                      f"pixels close >= {worst:.4f}")
+    g_report = []
+    shade = mesh_mod._shade
+    for name, leaf, at_jax_uv in json.loads(str(gz["grads"])):
+        v = gviews[configs[name][0]]
+        # T_C's gradient is held at JAX's own first-hit uv: JAX's uv on the
+        # light's grazing hits lies 1.3e-6 from the float64 value, the
+        # port's 2.8e-7 (tests/test_torch_textures.py)
+        mesh_mod._shade = shade if not at_jax_uv else first_hit_uv(
+            shade, torch.from_numpy(gz[f"{name}.uv"].reshape(-1, 2)).to(dev),
+            torch.from_numpy(gz[f"{name}.tri"] >= 0).to(dev))
+        if leaf == "texels":
+            x = v.textures.texels.detach().clone().requires_grad_(True)
+            v = v._replace(textures=v.textures._replace(texels=x))
+        else:
+            x = v.mesh.materials.emissive.stack().detach().clone().requires_grad_(True)
+            mesh = v.mesh._replace(materials=v.mesh.materials._replace(
+                emissive=Vec3(x[:, 0], x[:, 1], x[:, 2])))
+            v = v._replace(mesh=mesh, lights=MeshLightsView.build_on_device(mesh))
+        try:
+            pt.render_pass(v, gopts(name), gres, gres, ginst, gseed).composited.stack().mean() \
+                .backward()
+        finally:
+            mesh_mod._shade = shade
+        want = gz[f"{name}.grad.{leaf}"]
+        rel = float(np.abs(x.grad.cpu().numpy() - want).max() / np.abs(want).max())
+        check(rel <= AD_GOLDEN_RTOL, f"textures golden d/d {leaf} on {name}: {rel:.3g} of max|g|")
+        g_report.append(f"{name} d/d {leaf} {rel:.2e}")
+    log(f"[4h textured] the texture golden ({gres}x{gres}, JAX on the CPU) on the card's kernel "
         f"path within the tolerances of tests/test_torch_pt.py: " + "; ".join(report)
         + f"; jax.grad within {AD_GOLDEN_RTOL:g} of max|g|: " + ", ".join(g_report)
         + f"; {time.perf_counter() - t_phase:.1f} s for the phase")
@@ -1639,6 +1945,9 @@ def main() -> int:
 
     # ---- 4g. the light model: the lit CornellBox and big_room, their golden ----
     lit = lit_phase(dev, smi, reset_counts, counts)
+
+    # ---- 4h. textures, their gradients and the blue-noise sampler ----
+    tex = textured_phase(dev, smi, reset_counts, counts)
 
     # ---- 5. parity on the card ----
     opts = pt.PTOptions(**ctx.renderer_options)
@@ -2500,15 +2809,20 @@ def main() -> int:
         + f"; AD step (frontier): {adr['big_room']['ms']:.2f} ms/step, "
           f"{adr['big_room']['mrays']:.3f} train Mrays/s, peak {adr['big_room']['peak'] / 2 ** 30:.2f}"
           f" GiB, idle {adr['big_room']['idle']:.3f}")
-    for row in rows:  # the kernel's launches per pass on each lit path of phase 4g
-        for cell, per in lit["launches"].items():
+    for row in rows:  # the kernel's launches per pass on each lit (4g) and textured (4h) path
+        for cell, per in (*lit["launches"].items(), *tex["launches"].items()):
             row[f"launches_per_pass_{cell}"] = per.get(row["name"], 0)
-        row["in_lit_pass_us"] = {c: v["in_pass_us"][row["name"]]
-                                 for c, v in lit["cells"].items()
-                                 if row["name"] in v["in_pass_us"]}
+        for key, ph in (("in_lit_pass_us", lit), ("in_textured_pass_us", tex)):
+            row[key] = {c: v["in_pass_us"][row["name"]] for c, v in ph["cells"].items()
+                        if row["name"] in v.get("in_pass_us", {})}
     log("[summary] lit (4g) " + "; ".join(
         f"{c}: {v['ms']:.2f} ms/pass, {v['mrays']:.3f} Mrays/s, busy {v['busy_ms']:.2f} ms, "
         f"idle {v['idle']:.3f}" for c, v in lit["cells"].items()))
+    log("[summary] textured (4h) " + "; ".join(
+        f"{c}: {v['ms']:.2f} ms" + (f"/pass, {v['mrays']:.3f} Mrays/s, busy {v['busy_ms']:.2f} ms,"
+                                     f" idle {v['idle']:.3f}, atlas {v['atlas_bytes']} B"
+                                     if "mrays" in v else "/step")
+        + f", peak {v['peak_bytes'] / 2 ** 30:.2f} GiB" for c, v in tex["cells"].items()))
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

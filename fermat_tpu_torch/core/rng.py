@@ -1,5 +1,7 @@
-"""Counter-based RNG and the Owen-scrambled Sobol sampler
-(fermat_tpu/core/rng.py:33-187), bit-identical to the JAX version.
+"""Counter-based RNG and the samplers (fermat_tpu/core/rng.py:33-301),
+bit-identical to the JAX version: the Owen-scrambled Sobol sequence
+(TiledSequence, sampler="owen"), the blue-noise-dithered one
+(BlueNoiseSequence, sampler="bluenoise") and the counter-hash WhiteSequence.
 
 PyTorch has no usable uint32 add, multiply or shift on every device, so a
 uint32 value lives in an int64 tensor (or a Python int) in [0, 2^32) and
@@ -10,9 +12,13 @@ intermediate leaves int64's range.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Tuple, Union
 
+import numpy as np
 import torch
+
+from fermat_tpu_torch.ops.gather import gather_rows
 
 Tensor = torch.Tensor
 U32 = Union[Tensor, int]
@@ -43,6 +49,20 @@ def hash_combine(a: U32, b: U32) -> U32:
     a = a & M32
     b = b & M32
     return hash_u32(a ^ ((b + 0x9E3779B9 + ((a << 6) & M32) + (a >> 2)) & M32))
+
+
+def pcg_2d(a: U32, b: U32) -> Tuple[U32, U32]:
+    """pcg2d (Jarzynski & Olano 2020): two decorrelated words from two
+    correlated ones (rng.py:51-66)."""
+    v0 = (_mul32(a & M32, 1664525) + 1013904223) & M32
+    v1 = (_mul32(b & M32, 1664525) + 1013904223) & M32
+    v0 = (v0 + _mul32(v1, 1664525)) & M32
+    v1 = (v1 + _mul32(v0, 1664525)) & M32
+    v0 = v0 ^ (v0 >> 16)
+    v1 = v1 ^ (v1 >> 16)
+    v0 = (v0 + _mul32(v1, 1664525)) & M32
+    v1 = (v1 + _mul32(v0, 1664525)) & M32
+    return v0 ^ (v0 >> 16), v1 ^ (v1 >> 16)
 
 
 def uniform_from_bits(bits: Tensor) -> Tensor:
@@ -82,18 +102,19 @@ def owen_scramble(x: U32, seed: U32) -> U32:
     return reverse_bits32(_laine_karras(reverse_bits32(x), seed))
 
 
-def sobol02_u32(index: Tensor) -> Tuple[Tensor, Tensor]:
-    """Integer Sobol (0,2) pair at `index` (unscrambled), as u32 fractions.
+def sobol02_u32(index: U32) -> Tuple[U32, U32]:
+    """Integer Sobol (0,2) pair at `index` (unscrambled), as u32 fractions,
+    of an int64 tensor or a Python int.
 
     Dim 1 is the 32-step XOR ladder of rng.py:132-137; every value stays in
     [0, 2^32), so the ladder wraps exactly like uint32.
     """
     i = index & M32
     d0 = reverse_bits32(i)
-    d1 = torch.zeros_like(i)
+    d1 = 0
     v = 1 << 31
     for _ in range(32):
-        d1 = torch.where((i & 1) != 0, d1 ^ v, d1)
+        d1 = d1 ^ ((i & 1) * v)
         i = i >> 1
         v = v ^ (v >> 1)
     return d0, d1
@@ -138,3 +159,96 @@ class TiledSequence(NamedTuple):
         k = hash_combine(self.seed, hash_combine(pixel & M32, ((dim & M32) + 2) & M32))
         u2 = uniform_from_bits(hash_combine(k, self.instance))
         return u0, u1, u2
+
+
+# the JAX package's 64x64x2 blue-noise shift table, read from its data
+# directory (rng.py:189-205); one float32 copy per device
+_BLUENOISE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "fermat_tpu", "data", "bluenoise64.npz")
+_BLUENOISE_TABLES = {}
+
+
+def bluenoise_table(device) -> Tensor:
+    """(4096, 2) float32 shift table, flat 64 x 64 x 2."""
+    dev = torch.device(device)
+    if dev not in _BLUENOISE_TABLES:
+        shift = np.load(_BLUENOISE)["shift"].astype(np.float32).reshape(64 * 64, 2)
+        _BLUENOISE_TABLES[dev] = torch.from_numpy(shift).to(dev)
+    return _BLUENOISE_TABLES[dev]
+
+
+def _wrap(u: Tensor) -> Tensor:
+    return torch.clamp_max(torch.where(u >= 1.0, u - 1.0, u), 0.99999994)
+
+
+class BlueNoiseSequence(NamedTuple):
+    """Blue-noise-dithered QMC sampler (rng.py:208-275): every pixel takes
+    the same Owen-scrambled Sobol point per (instance, dimension pair),
+    Cranley-Patterson shifted by its texel of a tiled 64x64 blue-noise
+    table, offset per dimension pair by a hash. The table fetch is the row
+    gather (K2 on the card), as JAX's is. Dimensions are Python ints."""
+
+    seed: int
+    instance: int
+    res_x: int  # pixel id -> (x, y)
+
+    @staticmethod
+    def create(seed: int = 0, instance: int = 0, res_x: int = 1) -> "BlueNoiseSequence":
+        return BlueNoiseSequence(int(seed) & M32, int(instance) & M32, int(res_x))
+
+    def set_instance(self, instance: int) -> "BlueNoiseSequence":
+        return self._replace(instance=int(instance) & M32)
+
+    def _shift(self, pixel: Tensor, dim: U32):
+        pix = pixel & M32
+        rx = max(self.res_x, 1)
+        h = hash_combine(self.seed ^ 0xB1E0, (dim & M32) >> 1)
+        tx = (pix % rx + (h & 63)) & 63
+        ty = (pix // rx + ((h >> 6) & 63)) & 63
+        s = gather_rows(bluenoise_table(pix.device), (ty * 64 + tx).to(torch.int32))
+        return s[:, 0], s[:, 1]
+
+    def sample_2d(self, pixel: Tensor, dim: U32) -> Tuple[Tensor, Tensor]:
+        # the shared point depends on the dimension pair alone, so it is
+        # computed once, on the host, by the functions above: the integer
+        # steps on Python ints, the float conversion on 0-d CPU tensors
+        idx_seed = hash_combine(self.seed, (dim & M32) >> 1)
+        s0, s1 = sobol02_u32(owen_scramble(self.instance, idx_seed))
+        b0 = uniform_from_bits(torch.tensor(owen_scramble(s0, hash_combine(idx_seed, 0x68BC21EB))))
+        b1 = uniform_from_bits(torch.tensor(owen_scramble(s1, hash_combine(idx_seed, 0x02E5BE93))))
+        sx, sy = self._shift(pixel, dim)
+        return _wrap(b0 + sx), _wrap(b1 + sy)
+
+    def sample_1d(self, pixel: Tensor, dim: U32) -> Tensor:
+        return self.sample_2d(pixel, dim)[0]
+
+    def sample_3d(self, pixel: Tensor, dim: U32):
+        u0, u1 = self.sample_2d(pixel, dim)
+        k = hash_combine(self.seed, hash_combine(pixel & M32, ((dim & M32) + 2) & M32))
+        return u0, u1, uniform_from_bits(hash_combine(k, self.instance))
+
+
+class WhiteSequence(NamedTuple):
+    """Pure counter-hash sampler (rng.py:277-301, the LFSRRandomStream analog)."""
+
+    seed: int
+    instance: int
+
+    @staticmethod
+    def create(seed: int = 0, instance: int = 0) -> "WhiteSequence":
+        return WhiteSequence(int(seed) & M32, int(instance) & M32)
+
+    def set_instance(self, instance: int) -> "WhiteSequence":
+        return self._replace(instance=int(instance) & M32)
+
+    def sample_2d(self, pixel: Tensor, dim: U32) -> Tuple[Tensor, Tensor]:
+        k = hash_combine(self.seed, hash_combine(pixel & M32, dim & M32))
+        a, b = pcg_2d(k, self.instance)
+        return uniform_from_bits(a), uniform_from_bits(b)
+
+    def sample_1d(self, pixel: Tensor, dim: U32) -> Tensor:
+        return self.sample_2d(pixel, dim)[0]
+
+    def sample_3d(self, pixel: Tensor, dim: U32):
+        u0, u1 = self.sample_2d(pixel, dim)
+        return u0, u1, self.sample_1d(pixel, ((dim & M32) + 2) & M32)

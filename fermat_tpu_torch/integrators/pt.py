@@ -41,8 +41,20 @@ Russian-roulette probability carry no gradient; the tracers run on detached
 inputs. The shade fetch's backward is K2's (ops/gather.py). RenderingContext,
 NarrowPass and render_pass_narrow run under torch.no_grad(); tracer="mega"
 raises when a material tensor requires grad (its gradient is
-ops/pt_mega.render_grad_diffuse_mega), and so does an emissive tensor that
-requires grad (NEE samples a light table built on the host).
+ops/pt_mega.render_grad_diffuse_mega). An emissive tensor that requires grad
+needs a light table built on the device from the same tensors
+(MeshLightsView.build_on_device), so that NEE's Le carries its gradient; a
+table that does not follow it raises. The texels take their gradient through
+the atlas's `_replace(texels=leaf)`, which drops the RGBA8 mirror.
+
+Textured views (view.textures not None) modulate the diffuse and specular
+albedos at each hit by their maps before the G-buffer is taken, bilinear at
+level 0 (texture_filter="bilinear", the reference's lookup) or trilinear at
+a ray-cone LOD (the carry's cone_width, grown by t * cone_spread a bounce);
+an emitter's emissive map scales its Le at a hit and at an NEE sample, on
+the full light table and on the emissive subset, when the view's emitters
+carry maps (SceneView.textured_emitters). sampler="bluenoise" takes the
+blue-noise-dithered sequence (core/rng.BlueNoiseSequence).
 """
 from __future__ import annotations
 
@@ -56,7 +68,7 @@ from fermat_tpu_torch.bsdf.composite import sample as bsdf_sample
 from fermat_tpu_torch.core.camera import generate_camera_rays
 from fermat_tpu_torch.core.math import (Vec3, dot, orthonormal_basis, select, to_local,
                                         to_world)
-from fermat_tpu_torch.core.rng import M32, TiledSequence
+from fermat_tpu_torch.core.rng import M32, BlueNoiseSequence, TiledSequence
 from fermat_tpu_torch.core.sampling import power_heuristic, square_to_uniform_triangle
 from fermat_tpu_torch.ops import pt_mega
 from fermat_tpu_torch.ops.binned_trace import trace_any_binned, trace_closest_binned
@@ -64,6 +76,8 @@ from fermat_tpu_torch.ops.cdf_gather import cdf_pick_rows
 from fermat_tpu_torch.ops.cluster_trace import trace_any_cluster, trace_closest_cluster
 from fermat_tpu_torch.ops.frontier_trace import trace_any_frontier, trace_closest_frontier
 from fermat_tpu_torch.ops.trace import trace_any, trace_closest
+from fermat_tpu_torch.scene.lights import row_sample, row_uv
+from fermat_tpu_torch.scene.textures import modulate
 from fermat_tpu_torch.scene.view import DENSE_MAX_TRIANGLES, SceneView
 
 Tensor = torch.Tensor
@@ -210,18 +224,22 @@ def _sample_lights_compact(compact: Tuple[Tensor, Tensor], ul0: Tensor, ul1: Ten
                            ul2: Tensor):
     """lights.sample() over the emissive subset (pt.py:169-211): the pick and
     the row fetch are one K4 call; the same triangle as a pick over all rows.
-    Returns (pos, n, Le, pdf_area)."""
+    Returns (pos, n, Le, pdf_area, (uv_u, uv_v, emissive map))."""
     rows, cdf = compact
     r = cdf_pick_rows(rows, cdf, ul2.detach()).detach()  # pt.py:195-196
     b0, b1 = square_to_uniform_triangle(ul0, ul1)
-    vec = lambda ci: Vec3(r[:, ci], r[:, ci + 1], r[:, ci + 2])
-    p0, e1, e2, nrm, le = vec(0), vec(3), vec(6), vec(9), vec(12)
-    return p0 + e1 * b0 + e2 * b1, nrm, le, r[:, 15]
+    return (*row_sample(r, b0, b1), row_uv(r, b0, b1))
+
+
+_CHOICES = {"sampler": ("owen", "bluenoise"), "texture_filter": ("bilinear", "trilinear")}
 
 
 def _check_options(opts: PTOptions) -> None:
+    for name, ported in _CHOICES.items():
+        if getattr(opts, name) not in ported:
+            raise NotImplementedError(
+                f"PTOptions.{name}={getattr(opts, name)!r}: ported are {ported}")
     later = {
-        "sampler": (opts.sampler, "owen"),
         "nee": (opts.nee, "mesh"),
         "glossy_model": (opts.glossy_model, "ggx"),
         "queue_compaction": (opts.queue_compaction, False),
@@ -277,6 +295,7 @@ class Carry(NamedTuple):
     g_spec_albedo: Vec3
     rays: Tensor  # scalar f32 — total traced rays (closest + shadow)
     rays_lane: Tensor  # (N,) f32
+    cone_width: Tensor  # (N,) f32 ray-cone footprint radius (the trilinear LOD)
     pix_u: Tensor  # pixel id per lane (int64 holding uint32)
     lane0: Tensor  # original lane (pixel-grid) index, int32: NarrowPass folds by it
 
@@ -328,8 +347,27 @@ def _stride(view: SceneView, opts: PTOptions) -> int:
     return stride
 
 
-def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequence,
-            tr: _Tracers, shade_tab: Tensor) -> Carry:
+def _textured(view: SceneView, opts: PTOptions, sh, params: BsdfParams, cone_w: Tensor):
+    """The hit's diffuse and specular albedos modulated by their maps
+    (pt.py:663-687): bilinear at level 0, or trilinear at the ray-cone LOD
+    lod_base + log2(cone width) + log2(the diffuse map's width), which the
+    specular lookup shares."""
+    tex, mats, uv = view.textures, sh.mats, sh.uv
+    if opts.texture_filter == "trilinear":
+        res0 = tex.width[torch.clamp_min(mats.diffuse_map, 0).long(), 0].to(torch.float32)
+        lod = (sh.lod_base + torch.log2(torch.clamp_min(cone_w, 1e-8))
+               + torch.log2(torch.clamp_min(res0, 1.0)))
+        rgba_d = tex.sample(mats.diffuse_map, uv[:, 0], uv[:, 1], lod)
+        rgba_s = tex.sample(mats.specular_map, uv[:, 0], uv[:, 1], lod)
+    else:
+        rgba_d = tex.sample_bilinear0(mats.diffuse_map, uv[:, 0], uv[:, 1])
+        rgba_s = tex.sample_bilinear0(mats.specular_map, uv[:, 0], uv[:, 1])
+    return params._replace(diffuse=modulate(params.diffuse, rgba_d),
+                           specular=modulate(params.specular, rgba_s))
+
+
+def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq, tr: _Tracers,
+            shade_tab: Tensor, cone_spread: Tensor) -> Carry:
     first = b == 0
     n = c.alive.shape[0]  # the carry's width: NarrowPass runs narrower ones
     eps = opts.ray_eps
@@ -377,6 +415,14 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
     t_b, b_b = orthonormal_basis(sn_f)
     wi_loc = to_local(wi, t_b, b_b, sn_f)
     params = BsdfParams.from_materials(mats)
+    # textured emitters (pt.py:731-741, 806-821): statically skipped when no
+    # emitter carries a map
+    emissive_maps = bool(view.textured_emitters)
+    if view.has_textures:
+        # the ray-cone footprint (pt.py:660-662); only the trilinear LOD reads it
+        if opts.texture_filter == "trilinear":
+            c = c._replace(cone_width=c.cone_width + torch.where(valid, hit.t, 0.0) * cone_spread)
+        params = _textured(view, opts, sh, params, c.cone_width)
     split = lambda wo_loc: f_split(params, wi_loc, wo_loc, opts.lobes, opts.clearcoat,
                                    opts.glossy_model)
 
@@ -397,6 +443,8 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
         opts.direct_lighting_bsdf or opts.indirect_lighting_bsdf)
     if show:
         le = select(dot(gn, wi) > 0.0, mats.emissive)
+        if emissive_maps:
+            le = modulate(le, view.textures.sample(mats.emissive_map, sh.uv[:, 0], sh.uv[:, 1]))
         if first:
             w_mis = torch.ones(n, dtype=torch.float32, device=pos.x.device)
         else:
@@ -423,9 +471,15 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq: TiledSequen
     if nee_on:
         ul0, ul1, ul2 = seq.sample_3d(c.pix_u, base_dim)
         if view.lights.compact is not None:
-            lpos, ln, lle, lpdf_a = _sample_lights_compact(view.lights.compact, ul0, ul1, ul2)
+            lpos, ln, lle, lpdf_a, luv = _sample_lights_compact(view.lights.compact, ul0, ul1,
+                                                                ul2)
+        elif emissive_maps:
+            lpos, ln, lle, lpdf_a, _, *luv = view.lights.sample_ex(ul0, ul1, ul2)
         else:
             lpos, ln, lle, lpdf_a, _ = view.lights.sample(ul0, ul1, ul2)
+        if emissive_maps:
+            luv_u, luv_v, lemap = luv
+            lle = modulate(lle, view.textures.sample(lemap, luv_u, luv_v))
         to_l = lpos - pos
         dist2 = torch.clamp_min(dot(to_l, to_l), 1e-12)
         dist = torch.sqrt(dist2)
@@ -568,14 +622,20 @@ class _PassState(NamedTuple):
     """What every bounce of one pass shares, built once per pass, outside
     the bounce loop."""
 
-    seq: TiledSequence
+    seq: "TiledSequence | BlueNoiseSequence"
     tr: _Tracers
     shade_tab: Tensor
+    cone_spread: Tensor  # the primary ray cone's spread, about a pixel (pt.py:537)
 
 
-def _pass_state(view: SceneView, opts: PTOptions, instance: int, seed: int) -> _PassState:
-    return _PassState(TiledSequence.create(seed=seed).set_instance(instance),
-                      _pick_tracers(view, opts), view.mesh.shade_rows())
+def _pass_state(view: SceneView, opts: PTOptions, res_x: int, instance: int,
+                seed: int) -> _PassState:
+    if opts.sampler == "bluenoise":
+        seq = BlueNoiseSequence.create(seed=seed, res_x=res_x)
+    else:
+        seq = TiledSequence.create(seed=seed)
+    return _PassState(seq.set_instance(instance), _pick_tracers(view, opts),
+                      view.mesh.shade_rows(), torch.tan(view.camera.fov * 0.5) * 2.0 / res_x)
 
 
 def _first_bounce(view: SceneView, opts: PTOptions, st: _PassState, res_x: int,
@@ -606,6 +666,7 @@ def _first_bounce(view: SceneView, opts: PTOptions, st: _PassState, res_x: int,
         g_diff_albedo=zero3, g_spec_albedo=zero3,
         rays=torch.zeros((), **f32),
         rays_lane=torch.zeros(n, **f32),
+        cone_width=torch.zeros(n, **f32),
         pix_u=pix,
         lane0=torch.arange(n, **i32),
     )
@@ -633,14 +694,16 @@ def render_pass(view: SceneView, opts: PTOptions, res_x: int, res_y: int,
     if tables is not None:
         raise ValueError(f"tables are the megakernel's; tracer={opts.tracer!r} takes none")
     _check_options(opts)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in view.mesh.materials.emissive):
-        # the light table that NEE samples is built on the host from the
-        # emissive values (scene/lights.py), so only the emissive-hit half of
-        # the gradient would reach them
+    emissive = view.mesh.materials.emissive
+    if (torch.is_grad_enabled() and any(t.requires_grad for t in emissive)
+            and not view.lights.follows(emissive)):
+        # NEE samples Le from the light table: one built on the host, or from
+        # other tensors, would pass on only the emissive-hit half of the gradient
         raise NotImplementedError(
-            "gradients with respect to materials.emissive need the light table built on "
-            "the device from the materials; not ported")
-    st = _pass_state(view, opts, instance, seed)
+            "materials.emissive requires grad, but the light table does not follow it: "
+            "rebuild it from the same mesh, view._replace(mesh=mesh, "
+            "lights=MeshLightsView.build_on_device(mesh))")
+    st = _pass_state(view, opts, res_x, instance, seed)
     c = _first_bounce(view, opts, st, res_x, res_y)
     for b in range(1, opts.max_path_length):
         c = _bounce(b, c, view, opts, *st)
@@ -756,7 +819,7 @@ class NarrowPass:
     @torch.no_grad()
     def __call__(self, instance: int) -> _PassOutput:
         opts, view = self.opts, self.view
-        st = _pass_state(view, opts, instance, self.seed)
+        st = _pass_state(view, opts, self.res_x, instance, self.seed)
         carry = _first_bounce(view, opts, st, self.res_x, self.res_y)
         g = _gbuffer(carry)
         dev = view.device

@@ -133,12 +133,11 @@ def mega_eligible(view, opts) -> bool:
     """The static gate of pallas_pt_mega.py:136-162 on the port's SceneView:
     the megakernel's scene has mesh emitters and a constant environment
     only, so an environment map, point, directional or analytic area
-    lights, or shadow sets keep a view out (the port's view holds no
-    textures)."""
+    lights, shadow sets or textures keep a view out."""
     n_t = view.mesh.n_triangles
     if n_t == 0 or n_t > MEGA_T_MAX:
         return False
-    if view.env_map is not None or view.area_lights is not None:
+    if view.env_map is not None or view.area_lights is not None or view.has_textures:
         return False
     if view.point_lights is not None or view.dir_lights is not None:
         return False

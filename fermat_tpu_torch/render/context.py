@@ -6,8 +6,8 @@ registry (fermat_tpu/render/context.py).
 `color`, scene.lights.DirectionalLightDef), point lights ((position,
 intensity) pairs), a lat-long environment map (an (H, W, 3) float32 image;
 `env_radiance` then scales it) and the constant `env_radiance`. Analytic
-area lights go through SceneView.build(area_light_defs=...). texture_dir
-raises NotImplementedError.
+area lights go through SceneView.build(area_light_defs=...). texture_dir is
+where the materials' texture names are looked up (SceneView.build).
 
 The context runs on "cuda" unless the caller passes device="cpu"; with
 device="cuda" and no GPU it raises. The registry holds "pt" only; its
@@ -72,12 +72,10 @@ class RenderingContext:
         if renderer not in _RENDERER_REGISTRY:
             raise NotImplementedError(
                 f"renderer {renderer!r} is not ported; registered: {sorted(_RENDERER_REGISTRY)}")
-        if texture_dir is not None:
-            raise NotImplementedError("textures are a later slice")
         dev = resolve_device(device)
         view = SceneView.build(storage, camera, dev, env_radiance=env_radiance,
                                dir_light_defs=dir_lights, point_light_defs=point_lights,
-                               env_map=env_map)
+                               env_map=env_map, texture_dir=texture_dir)
         renderer_options = dict(renderer_options)
         renderer_options.setdefault("lobes", scene_lobes(storage.materials))
         renderer_options.setdefault("clearcoat", scene_clearcoat(storage.materials))

@@ -1,15 +1,23 @@
 """Procedural scenes (fermat_tpu/scene/procedural.py): the Cornell box built in
-code, random triangle soups for tracer tests and the large "big room" scene.
-Host data only (numpy)."""
+code, random triangle soups for tracer tests, the large "big room" scene and
+the textured bathroom-class stand-in. Host data only (numpy).
+
+The stand-in reads a material set from disk (bathroom.mtl and its textures),
+as JAX's does; `write_standin_assets` writes a seeded one, and
+`write_cornell_textures` a seeded texture set for the CornellBox.
+"""
 from __future__ import annotations
 
-from typing import List, Optional
+import os
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from fermat_tpu_torch.core.camera import Camera
+from fermat_tpu_torch.scene.loaders.obj import load_mtl
 from fermat_tpu_torch.scene.materials import HostMaterial
 from fermat_tpu_torch.scene.mesh import MeshStorage
+from fermat_tpu_torch.utils.image import write_tga
 
 
 def _quad(vs: List, tris: List, mats: List, a, b, c, d, mat_id: int,
@@ -207,3 +215,127 @@ def floor_quad(half: float = 1.0, albedo=(0.6, 0.6, 0.6)) -> MeshStorage:
         material_ids=np.zeros(2, np.int32),
         materials=[m],
     )
+
+
+def bathroom_standin(n_boxes: int = 8300, seed: int = 3, assets: Optional[str] = None):
+    """The bathroom2 stand-in (procedural.py:215-288): a room of n_boxes
+    clutter boxes with per-face uv charts (12 n_boxes + 12 triangles;
+    99,612 at the default), its materials parsed from assets/bathroom.mtl
+    (map names relative to `assets`) plus an unmapped ceiling light appended
+    last. The numpy stream is the JAX package's, so the mesh is bit-equal to
+    its stand-in for the same arguments and materials. `assets` is a
+    directory holding bathroom.mtl and its textures (write_standin_assets
+    writes one). Returns (MeshStorage, Camera, texture_dir)."""
+    if assets is None:
+        raise ValueError("bathroom_standin needs an assets directory holding bathroom.mtl "
+                         "(scene.procedural.write_standin_assets writes a seeded one)")
+    mats = load_mtl(os.path.join(assets, "bathroom.mtl"))
+    lm = HostMaterial("ceiling_light")
+    lm.emissive = (14.0, 13.0, 12.0)
+    materials = mats + [lm]
+    n_mats = len(mats)
+    vs: List = []
+    tris: List = []
+    midx: List[int] = []
+    uvs: List = []
+    r = np.random.default_rng(seed)
+    w, h, d = 8.0, 4.0, 8.0
+    shell = [int(r.integers(0, n_mats)) for _ in range(5)]
+    _quad(vs, tris, midx, [-w, 0, d], [w, 0, d], [w, 0, -d], [-w, 0, -d], shell[0], uvs=uvs)
+    _quad(vs, tris, midx, [-w, 2 * h, -d], [w, 2 * h, -d], [w, 2 * h, d], [-w, 2 * h, d],
+          shell[1], uvs=uvs)
+    _quad(vs, tris, midx, [-w, 0, -d], [w, 0, -d], [w, 2 * h, -d], [-w, 2 * h, -d], shell[2],
+          uvs=uvs)
+    _quad(vs, tris, midx, [-w, 0, d], [-w, 0, -d], [-w, 2 * h, -d], [-w, 2 * h, d], shell[3],
+          uvs=uvs)
+    _quad(vs, tris, midx, [w, 0, -d], [w, 0, d], [w, 2 * h, d], [w, 2 * h, -d], shell[4],
+          uvs=uvs)
+    # the ceiling light, wound to face down
+    _quad(vs, tris, midx, [-2.0, 2 * h - 0.01, 2.0], [-2.0, 2 * h - 0.01, -2.0],
+          [2.0, 2 * h - 0.01, -2.0], [2.0, 2 * h - 0.01, 2.0], n_mats, uvs=uvs)
+    for _ in range(n_boxes):
+        c = (r.random(3) - 0.5) * np.array([14, 0, 14])
+        c[1] = 0.0
+        s = 0.1 + r.random(3) * np.array([0.5, 1.6, 0.5])
+        _box(vs, tris, midx, c - [s[0], 0, s[2]], c + [s[0], s[1] * 2, s[2]],
+             int(r.integers(0, n_mats)), rot_y=float(r.random() * 3.14), uvs=uvs)
+    t = np.asarray(tris, np.int32)
+    mesh = MeshStorage(
+        vertices=np.asarray(vs, np.float32),
+        triangles=t,
+        normal_indices=np.full_like(t, -1),
+        uvs=np.asarray(uvs, np.float32),
+        uv_indices=t.copy(),  # uvs are vertex-parallel
+        material_ids=np.asarray(midx, np.int32),
+        materials=materials,
+    )
+    # fov=60.0 is in radians, as JAX's stand-in passes it to Camera.create
+    cam = Camera.create(eye=(0.0, 4.5, 7.2), aim=(0.0, 2.0, -2.0), fov=60.0)
+    return mesh, cam, assets
+
+
+def _seeded_texture(rng, h: int, w: int, lo: int = 16) -> np.ndarray:
+    """An (h, w, 3) uint8 texture: a seeded colour per 8x8-texel checker cell
+    with texel noise on top, so that the mip levels differ."""
+    cells = rng.integers(lo, 256, ((h + 7) // 8, (w + 7) // 8, 3))
+    img = np.repeat(np.repeat(cells, 8, axis=0), 8, axis=1)[:h, :w]
+    img = img + rng.integers(-12, 13, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_standin_assets(path: str, size: int = 1024, emitter: bool = False) -> str:
+    """A seeded material set for bathroom_standin: path/bathroom.mtl with 12
+    materials (Kd, Ks, Ns; map_Kd on all, map_Ks on the first 4; map names
+    written with backslashes, as bathroom2's are) and size x size 8-bit TGAs
+    under path/textures. emitter=True makes the last material an emitter
+    (Ke) with an emissive map (map_Ke). Returns path."""
+    rng = np.random.default_rng(0)
+    os.makedirs(os.path.join(path, "textures"), exist_ok=True)
+    lines = []
+    n_materials, n_specular = 12, 4
+    for i in range(n_materials):
+        kd = 0.3 + 0.6 * rng.random(3)
+        lines += [f"newmtl mat_{i}", "Kd {:.4f} {:.4f} {:.4f}".format(*kd)]
+        write_tga(os.path.join(path, "textures", f"kd_{i}.tga"),
+                  _seeded_texture(rng, size, size))
+        lines.append(f"map_Kd textures\\kd_{i}.tga")
+        if i < n_specular:
+            lines += ["Ks {:.4f} {:.4f} {:.4f}".format(*(0.1 + 0.4 * rng.random(3))),
+                      f"Ns {float(rng.integers(20, 200))}", f"map_Ks textures\\ks_{i}.tga"]
+            write_tga(os.path.join(path, "textures", f"ks_{i}.tga"),
+                      _seeded_texture(rng, size, size))
+        if emitter and i == n_materials - 1:
+            lines += ["Ke 4.0 3.5 3.0", "map_Ke textures\\ke.tga"]
+            write_tga(os.path.join(path, "textures", "ke.tga"),
+                      _seeded_texture(rng, size, size, lo=64))
+    with open(os.path.join(path, "bathroom.mtl"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def write_cornell_textures(path: str, size: int = 1024) -> Dict[str, dict]:
+    """Seeded 8-bit TGA maps for cornell_box's materials, written to path:
+    diffuse maps on the white, red and green walls and floor (the white one
+    non-power-of-two, so the atlas resamples it), a specular map on the box
+    material and an emissive map on the light. Returns {material name:
+    {texture-name attribute: file name}}, to set on a storage's materials."""
+    rng = np.random.default_rng(0)
+    shapes = {"white.tga": (3 * size // 4 - 1, size - max(size // 40, 1)),
+              "red.tga": (size, size), "green.tga": (size, size), "box_ks.tga": (size, size),
+              "light_ke.tga": (size // 2, size // 2)}
+    for name, (h, w) in shapes.items():
+        write_tga(os.path.join(path, name),
+                  _seeded_texture(rng, h, w, lo=96 if name == "light_ke.tga" else 16))
+    return {"white": {"diffuse_map_name": "white.tga"}, "red": {"diffuse_map_name": "red.tga"},
+            "green": {"diffuse_map_name": "green.tga"},
+            "box": {"specular_map_name": "box_ks.tga"},
+            "light": {"emissive_map_name": "light_ke.tga"}}
+
+
+def set_texture_names(storage, names: Dict[str, dict]):
+    """Set the texture-name attributes of `names` (write_cornell_textures)
+    on the storage's materials, by material name; returns the storage."""
+    for m in storage.materials:
+        for attr, value in names.get(m.name, {}).items():
+            setattr(m, attr, value)
+    return storage

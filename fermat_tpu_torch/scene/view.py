@@ -14,10 +14,17 @@ point lights, analytic disk/rect area lights, a lat-long environment map
 for each shadow-ray mask bit that a material sets, the scene without that
 material's triangles, with its own triangle soup and cluster table, built
 once here. A field is None when the scene has no such light or set.
-Textures raise NotImplementedError.
+
+Textures (view.py:61-111): `build(texture_dir=...)` loads every texture a
+material names into the packed mip atlas (scene/textures.py) and turns the
+material's map slots into atlas indices; the light table's CDF is weighted
+by the emissive maps' integrals (scene/mesh_lights.py). `textures` is None
+when no texture was loaded.
 """
 from __future__ import annotations
 
+import os
+import sys
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -30,13 +37,16 @@ from fermat_tpu_torch.core.camera import Camera
 from fermat_tpu_torch.core.math import Vec3
 from fermat_tpu_torch.scene.analytic_lights import AreaLightsView, PointLightsView
 from fermat_tpu_torch.scene.envmap import EnvMapView
-from fermat_tpu_torch.scene.lights import DirectionalLightsView, MeshLightsView
+from fermat_tpu_torch.scene.lights import DirectionalLightsView, MeshLightsView, host_arrays
 from fermat_tpu_torch.scene.materials import (
     FLAG_SHADOW_DIRECT_IGNORE,
     FLAG_SHADOW_INDIRECT_IGNORE,
     MaterialTable,
 )
 from fermat_tpu_torch.scene.mesh import MeshStorage, MeshView
+from fermat_tpu_torch.scene.mesh_lights import textured_tri_energies
+from fermat_tpu_torch.scene.textures import TextureAtlas
+from fermat_tpu_torch.utils.image import read_image
 
 Tensor = torch.Tensor
 
@@ -45,15 +55,50 @@ _AREA_COLUMNS = ("px", "py", "pz", "ux", "uy", "uz", "vx", "vy", "vz", "nx", "ny
 _BOX_ROWS = ("lo_x", "lo_y", "lo_z", "hi_x", "hi_y", "hi_z")
 
 
-def _host_arrays(mesh: MeshView) -> dict:
-    """The numpy arrays MeshLightsView.build reads, from a device view."""
-    h = lambda t: t.detach().cpu().numpy()
-    v3 = lambda v: np.stack([h(v.x), h(v.y), h(v.z)], axis=1)
-    m = mesh.materials
-    return dict(p0=v3(mesh.p0), e1=v3(mesh.e1), e2=v3(mesh.e2), gn=v3(mesh.gn),
-                uv0=h(mesh.uv0), uv1=h(mesh.uv1), uv2=h(mesh.uv2),
-                material_id=h(mesh.material_id), emissive=v3(m.emissive),
-                emissive_map=h(m.emissive_map))
+def _resolve_textures(storage: MeshStorage, texture_dir: Optional[str]) -> list:
+    """Load every texture a material names and set its map slots to atlas
+    indices, in place (view.py:78-111, renderer.cu:784-882): the `.tga`
+    sibling in texture_dir first, then the name in texture_dir, then the
+    name itself; a texture found nowhere becomes slot -1, with JAX's line on
+    stderr. Returns the images in slot order."""
+    images, index = [], {}
+
+    def tex_index(name: str) -> int:
+        if not name:
+            return -1
+        if name in index:
+            return index[name]
+        candidates = [name]
+        if texture_dir:
+            candidates.insert(0, os.path.join(texture_dir, name))
+            candidates.insert(0, os.path.join(texture_dir, os.path.splitext(name)[0] + ".tga"))
+        for c in candidates:
+            if os.path.exists(c):
+                try:
+                    images.append(read_image(c))
+                    index[name] = len(images) - 1
+                    return index[name]
+                except Exception as e:  # noqa: BLE001 - JAX's build goes on likewise
+                    print(f"[textures] failed {c}: {e}", file=sys.stderr)
+        print(f"[textures] missing texture {name}", file=sys.stderr)
+        index[name] = -1
+        return -1
+
+    for m in storage.materials:
+        m.diffuse_map = tex_index(m.diffuse_map_name)
+        m.specular_map = tex_index(m.specular_map_name)
+        m.emissive_map = tex_index(m.emissive_map_name)
+        m.bump_map = tex_index(m.bump_map_name)
+    return images
+
+
+def _textured_emitters(pdf_area: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Whether any emitter carries an emissive map (pt.py:118-135,
+    `_any_emissive_maps`): a 0-d bool on the host. JAX reads it from the
+    device tables at every pass (and assumes yes under tracing); the answer
+    is the same on either branch, so the port takes it once, when the view
+    is made."""
+    return np.asarray(bool((rows[pdf_area > 0.0, 22] >= 0.0).any()))
 
 
 class ShadowSet(NamedTuple):
@@ -105,34 +150,40 @@ class SceneView(NamedTuple):
     shadow_sets: Optional[Tuple[Optional[ShadowSet], Optional[ShadowSet]]] = None
     env_map: Optional[EnvMapView] = None
     area_lights: Optional[AreaLightsView] = None
+    textures: Optional[TextureAtlas] = None  # None: no texture loaded
+    textured_emitters: Optional[np.ndarray] = None  # _textured_emitters, with textures
 
     @property
     def device(self) -> torch.device:
         return self.env.device
 
+    @property
+    def has_textures(self) -> bool:
+        return self.textures is not None
+
     @staticmethod
     def build(storage: MeshStorage, camera: Camera, device="cuda",
               env_radiance=(0.0, 0.0, 0.0), dir_light_defs=(), point_light_defs=(),
-              env_map=None, area_light_defs=()) -> "SceneView":
+              env_map=None, area_light_defs=(), texture_dir=None) -> "SceneView":
         """The view of a host mesh (view.py:65-181). dir_light_defs: records
         with `direction` and `color` (scene.lights.DirectionalLightDef);
         point_light_defs: (position, intensity) pairs; env_map: an (H, W, 3)
         float32 lat-long radiance image; area_light_defs: dicts of
-        scene.analytic_lights.AreaLightsView.build."""
+        scene.analytic_lights.AreaLightsView.build; texture_dir: where the
+        materials' texture names are looked up first. The materials' map
+        slots are set in place, as in JAX."""
         dev = resolve_device(device)
-        for m in storage.materials:
-            if any((m.diffuse_map_name, m.specular_map_name, m.emissive_map_name,
-                    m.bump_map_name)):
-                raise NotImplementedError(
-                    f"material {m.name!r} references a texture; textures are a later slice")
+        images = _resolve_textures(storage, texture_dir)
         mesh = storage.device_view(dev)
+        mesh_np = host_arrays(mesh)
+        lights = MeshLightsView.build(mesh_np, dev, textured_tri_energies(mesh_np, images))
         # with a map, `env` scales its radiance: a zero default would black it out
         if env_map is not None and tuple(env_radiance) == (0.0, 0.0, 0.0):
             env_radiance = (1.0, 1.0, 1.0)
         dir_light_defs, point_light_defs = list(dir_light_defs), list(point_light_defs)
         return SceneView(
             mesh=mesh,
-            lights=MeshLightsView.build(_host_arrays(mesh), dev),
+            lights=lights,
             camera=camera.to(dev),
             env=torch.tensor(env_radiance, dtype=torch.float32, device=dev),
             clusters=build_clusters(mesh),
@@ -144,6 +195,10 @@ class SceneView(NamedTuple):
             env_map=None if env_map is None else EnvMapView.build(env_map, dev),
             area_lights=(AreaLightsView.build(list(area_light_defs), dev) if area_light_defs
                          else None),
+            textures=TextureAtlas.build(images, dev) if images else None,
+            textured_emitters=(_textured_emitters(lights.pdf_area.cpu().numpy(),
+                                                  lights.rows.cpu().numpy())
+                               if images else None),
         )
 
     @staticmethod
@@ -161,9 +216,10 @@ class SceneView(NamedTuple):
         light leaves come across as they are: the environment map's weights,
         CDF and total (not rebuilt), the analytic area lights, and the
         point and directional lights (None when the JAX view holds none).
-        Leaves this slice does not read (the BVHs, the VPL set of
-        nee="vpl", the cluster table of a small scene) are ignored; a
-        texture atlas with real texels raises NotImplementedError.
+        A texture atlas with real texels (more than JAX's one white texel)
+        comes across bit for bit, its RGBA8 mirror included. Leaves the port
+        does not read (the BVHs, the VPL set of nee="vpl", the cluster table
+        of a small scene) are ignored.
 
         The view's tensors are plain copies of the arrays, none requiring
         grad. To differentiate a pass in material fields, replace them by
@@ -173,11 +229,13 @@ class SceneView(NamedTuple):
             view = view._replace(mesh=view.mesh._replace(materials=mats))
         (roughness, an (M,) tensor, likewise; the environment scale `env` as
         view._replace(env=leaf)); render_pass under torch.enable_grad() then
-        gives the leaf's .grad by backward().
+        gives the leaf's .grad by backward(). For the texels, replace the
+        atlas's: view._replace(textures=view.textures._replace(texels=leaf))
+        (which drops the RGBA8 mirror, so that the fetches read the leaf). For
+        the (M, 3) emissive, rebuild the light table from the same tensors:
+        view._replace(mesh=mesh2, lights=MeshLightsView.build_on_device(mesh2)).
         """
         dev = resolve_device(device)
-        if np.shape(arrays.get("textures.texels", np.zeros((1, 4))))[0] > 1:
-            raise NotImplementedError("textures are a later slice")
 
         def host(key):
             if key not in arrays:
@@ -241,10 +299,15 @@ class SceneView(NamedTuple):
             area = AreaLightsView.from_arrays(
                 host("area_lights.kind"), [host(f"area_lights.{k}") for k in _AREA_COLUMNS],
                 host("area_lights.ru"), host("area_lights.rv"), dev)
+        textures = textured = None
+        if np.shape(arrays.get("textures.texels", np.zeros((1, 4))))[0] > 1:
+            textures = TextureAtlas.from_arrays(
+                {k: arrays.get("textures." + k) for k in TextureAtlas._fields}, dev)
+            textured = _textured_emitters(host("lights.pdf_area"), host("lights.rows"))
         return SceneView(
             mesh=mesh, lights=lights, camera=camera, env=t("env"), clusters=clusters,
             dir_lights=soa("dir_lights.", DirectionalLightsView._fields, DirectionalLightsView),
             point_lights=soa("point_lights.", PointLightsView._fields, PointLightsView),
             shadow_sets=None if all(x is None for x in sets) else tuple(sets),
-            env_map=env_map, area_lights=area,
+            env_map=env_map, area_lights=area, textures=textures, textured_emitters=textured,
         )

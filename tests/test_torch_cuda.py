@@ -833,8 +833,10 @@ def test_shadow_set_tracers_match_plain_on_card(dev):
 def _forced_plain(dev):
     """monkeypatch targets that put every kernel's plain version in the pass."""
     from fermat_tpu_torch.accel.traverse import Hit
+    from fermat_tpu_torch.core import rng as rng_mod
     from fermat_tpu_torch.scene import lights as lights_mod
     from fermat_tpu_torch.scene import mesh as mesh_mod
+    from fermat_tpu_torch.scene import textures as textures_mod
 
     lanes = lambda o, a, b: (trace_mod._lanes(a, o.x.shape[0], dev),
                              trace_mod._lanes(b, o.x.shape[0], dev))
@@ -854,7 +856,9 @@ def _forced_plain(dev):
              lambda cl, o, d, t0, t1, a=None: ft._any_plain(cl, o, d, *lanes(o, t0, t1), a)),
             (tpt, "cdf_pick_rows", cdf_gather._pick_plain),
             (mesh_mod, "gather_rows", gather_mod._gather_plain),
-            (lights_mod, "gather_rows", gather_mod._gather_plain)]
+            (lights_mod, "gather_rows", gather_mod._gather_plain),
+            (textures_mod, "gather_rows", gather_mod._gather_plain),
+            (rng_mod, "gather_rows", gather_mod._gather_plain)]
 
 
 @pytest.mark.cuda
@@ -882,3 +886,164 @@ def test_lit_pass_kernels_match_plain_on_card(dev, scene, tracer, monkeypatch):
     for c in ("composited", "direct", "diffuse", "specular"):
         assert torch.equal(_bits(getattr(got, c).stack()), _bits(getattr(want, c).stack())), c
     assert float(got.composited.stack().mean()) > 0.0
+
+
+_TEXTURED = {}
+
+
+def _textured_views(dev, tmp):
+    """The glossy CornellBox with write_cornell_textures's seeded 64-texel
+    maps (diffuse on the walls and floor, one non-power-of-two; specular on
+    the boxes; emissive on the light) and bathroom_standin(400) (4,812
+    triangles: the frontier route and the emissive subset) over a seeded
+    16-texel material set with one mapped emitter."""
+    from fermat_tpu_torch.scene import procedural as proc
+
+    if "cornell" not in _TEXTURED:
+        c_dir, b_dir = os.path.join(tmp, "cornell"), os.path.join(tmp, "bath")
+        os.makedirs(c_dir)
+        names = proc.write_cornell_textures(c_dir, size=64)
+        _TEXTURED["cornell"] = SceneView.build(
+            proc.set_texture_names(cornell_box(glossy_boxes=True), names), cornell_camera(),
+            dev, texture_dir=c_dir)
+        proc.write_standin_assets(b_dir, size=16, emitter=True)
+        storage, cam, tex_dir = proc.bathroom_standin(400, 3, b_dir)
+        _TEXTURED["bathroom"] = SceneView.build(storage, cam, dev, texture_dir=tex_dir)
+    return _TEXTURED
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,opt", [
+    ("cornell", {}), ("cornell", {"texture_filter": "trilinear"}),
+    ("cornell", {"sampler": "bluenoise"}), ("bathroom", {}),
+    ("bathroom", {"texture_filter": "trilinear", "sampler": "bluenoise"})])
+def test_textured_pass_kernels_match_plain_on_card(dev, scene, opt, monkeypatch,
+                                                   tmp_path_factory):
+    """A textured 64x64 pass with the kernels against the same pass with
+    every plain version forced (the atlas's metadata fetch and the blue-noise
+    shift table included): rays equal, every channel bit-equal."""
+    view = _textured_views(dev, str(tmp_path_factory.mktemp("tex")))[scene]
+    assert view.has_textures and bool(view.textured_emitters)
+    opts = tpt.PTOptions(max_path_length=4, **opt)
+    before = gather_mod.GATHER.launches
+    got = tpt.render_pass(view, opts, 64, 64, 3, 0)
+    torch.cuda.synchronize()
+    assert gather_mod.GATHER.launches > before
+    for mod, name, value in _forced_plain(dev):
+        monkeypatch.setattr(mod, name, value)
+    after = (gather_mod.GATHER.launches, trace_mod.ANY.launches, ft.ANY.launches)
+    want = tpt.render_pass(view, opts, 64, 64, 3, 0)
+    torch.cuda.synchronize()
+    assert (gather_mod.GATHER.launches, trace_mod.ANY.launches, ft.ANY.launches) == after
+    assert float(got.rays) == float(want.rays) and torch.equal(got.tri, want.tri)
+    for c in ("composited", "direct", "diffuse", "specular", "diffuse_albedo",
+              "specular_albedo"):
+        assert torch.equal(_bits(getattr(got, c).stack()), _bits(getattr(want, c).stack())), c
+    assert float(got.composited.stack().mean()) > 0.0
+
+
+TEXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                        "torch_port_textures_24.npz")
+
+
+def _textures_golden(dev):
+    """(the golden, its configurations, {scene: its view on the card})."""
+    import json
+
+    gz = np.load(TEXTURES)
+    views = {}
+    for key in {k for k, _ in json.loads(str(gz["configs"])).values()}:
+        p = f"{key}.view."
+        views[key] = SceneView.from_numpy({k[len(p):]: gz[k] for k in gz.files
+                                           if k.startswith(p)}, dev)
+    return gz, json.loads(str(gz["configs"])), views
+
+
+def _golden_opts(gz, configs, name):
+    return tpt.PTOptions(lobes=tuple(bool(x) for x in gz[f"{name}.lobes"]),
+                         clearcoat=bool(gz[f"{name}.clearcoat"]), **configs[name][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["T_A", "T_B", "T_C", "T_D", "T_E"])
+def test_textures_golden_on_card(dev, name):
+    """tests/golden/torch_port_textures_24.npz (JAX on the CPU) on the
+    card's kernel path, within the tolerances of tests/test_torch_pt.py."""
+    gz, configs, views = _textures_golden(dev)
+    out = tpt.render_pass(views[configs[name][0]], _golden_opts(gz, configs, name),
+                          int(gz["res"]), int(gz["res"]), int(gz["instance"]), int(gz["seed"]))
+    want = float(gz[f"{name}.rays"])
+    assert abs(float(out.rays) - want) <= 0.005 * want
+    same = (out.tri.cpu().numpy() == gz[f"{name}.tri"]).mean()
+    assert same >= (0.99 if name == "T_D" else 1.0), same
+    for c in ("composited", "direct", "diffuse", "specular"):
+        ref = torch.from_numpy(gz[f"{name}.{c}"].reshape(-1, 3)).to(dev)
+        assert _image_ok(getattr(out, c).stack().T, ref.T), c
+
+
+def _first_hit_uv(uv, hit):
+    """scene.mesh._shade with bounce 0's uv replaced by `uv` (N, 2) on the
+    lanes where `hit` is set (tests/test_torch_textures.first_hit_uv)."""
+    import fermat_tpu_torch.scene.mesh as mesh_mod
+
+    orig, calls = mesh_mod._shade, []
+
+    def shade(r, u, v):
+        sh = orig(r, u, v)
+        calls.append(r.shape[0])
+        if len(calls) > 1:
+            return sh
+        assert r.shape[0] == uv.shape[0]
+        return sh._replace(uv=torch.where(hit[:, None], uv, sh.uv))
+
+    return shade
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,leaf,at_jax_uv", [("T_C", "texels", True),
+                                                 ("C2", "texels", False),
+                                                 ("E", "emissive", False)])
+def test_textures_golden_grads_on_card(dev, name, leaf, at_jax_uv, monkeypatch):
+    """The golden's jax.grad of the mean image with respect to the texels of
+    T_C and C2 (the atlas's _replace, autograd's scatter-add of the texel
+    fetches) and to E's (M, 3) emissive (the light table rebuilt on the card
+    from it), within 1e-5 of max|g|. T_C's is taken at JAX's first-hit uv,
+    as on the CPU (tests/test_torch_textures.py says why)."""
+    import fermat_tpu_torch.scene.mesh as mesh_mod
+    from fermat_tpu_torch.scene.lights import MeshLightsView
+
+    gz, configs, views = _textures_golden(dev)
+    view = views[configs[name][0]]
+    if at_jax_uv:
+        monkeypatch.setattr(mesh_mod, "_shade", _first_hit_uv(
+            torch.from_numpy(gz[f"{name}.uv"].reshape(-1, 2)).to(dev),
+            torch.from_numpy(gz[f"{name}.tri"] >= 0).to(dev)))
+    if leaf == "texels":
+        x = view.textures.texels.detach().clone().requires_grad_(True)
+        view = view._replace(textures=view.textures._replace(texels=x))
+    else:
+        x = view.mesh.materials.emissive.stack().detach().clone().requires_grad_(True)
+        mesh = view.mesh._replace(materials=view.mesh.materials._replace(
+            emissive=Vec3(x[:, 0], x[:, 1], x[:, 2])))
+        view = view._replace(mesh=mesh, lights=MeshLightsView.build_on_device(mesh))
+    res = int(gz["res"])
+    tpt.render_pass(view, _golden_opts(gz, configs, name), res, res, int(gz["instance"]),
+                    int(gz["seed"])).composited.stack().mean().backward()
+    want = gz[f"{name}.grad.{leaf}"]
+    assert np.abs(x.grad.cpu().numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_bluenoise_sequence_on_card_equals_cpu(dev):
+    """sample_1d/2d/3d of the blue-noise sequence on 2^20 lanes (its shift
+    table through K2) equal the CPU's bit for bit."""
+    from fermat_tpu_torch.core.rng import BlueNoiseSequence
+
+    seq = BlueNoiseSequence.create(seed=3, instance=7, res_x=1024)
+    pix = torch.arange(1 << 20, dtype=torch.int64)
+    before = gather_mod.GATHER.launches
+    for dim in (0, 5, 18):
+        got, want = seq.sample_3d(pix.to(dev), dim), seq.sample_3d(pix, dim)
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a.cpu()), _bits(b))
+    assert gather_mod.GATHER.launches == before + 3

@@ -208,13 +208,29 @@ def test_context_and_narrow_pass_record_no_graph(cornell_built):
 
 
 def test_emissive_gradient_is_refused(cornell_built):
-    """NEE samples a light table built on the host, so an emissive leaf
-    would get only the emissive-hit half of its gradient: refused."""
-    v, _ = with_leaf(cornell_built, "emissive")
-    with pytest.raises(NotImplementedError, match="emissive"):
-        tpt.render_pass(v, tpt.PTOptions(max_path_length=2), 4, 4, 0)
+    """An emissive leaf under a light table that does not follow it (built on
+    the host, or on the device from other tensors) would get only the
+    emissive-hit half of its gradient: refused, with how to rebuild. With the
+    table built on the device from the same tensors
+    (MeshLightsView.build_on_device) the pass renders the host table's image
+    bit for bit and the leaf gets its gradient."""
+    from fermat_tpu_torch.scene.lights import MeshLightsView
+
+    opts = tpt.PTOptions(max_path_length=2)
+    v, leaf = with_leaf(cornell_built, "emissive")
+    with pytest.raises(NotImplementedError, match="build_on_device"):
+        tpt.render_pass(v, opts, 4, 4, 0)
     with torch.no_grad():
-        tpt.render_pass(v, tpt.PTOptions(max_path_length=2), 4, 4, 0)
+        plain = tpt.render_pass(v, opts, 4, 4, 0)
+    other = MeshLightsView.build_on_device(cornell_built.mesh)
+    with pytest.raises(NotImplementedError, match="emissive"):
+        tpt.render_pass(v._replace(lights=other), opts, 4, 4, 0)
+    v = v._replace(lights=MeshLightsView.build_on_device(v.mesh))
+    assert v.lights.follows(v.mesh.materials.emissive) and v.lights.rows.requires_grad
+    out = tpt.render_pass(v, opts, 4, 4, 0)
+    assert torch.equal(out.composited.stack().detach(), plain.composited.stack())
+    out.composited.stack().mean().backward()
+    assert leaf.grad is not None and float(leaf.grad.abs().max()) > 0.0
 
 
 def test_mega_refuses_a_material_that_requires_grad(cornell_built):

@@ -426,7 +426,10 @@ def test_lit_views_are_not_mega_eligible(golden, key):
             tpt.render_pass(view, tpt.PTOptions(tracer="mega", max_path_length=2), 4, 4, 0)
 
 
-def test_context_takes_the_lights_and_still_refuses_textures():
+def test_context_takes_the_lights_and_still_refuses_textures(tmp_path):
+    """The context takes the lights; textures, refused until they were
+    ported, now come with them: texture_dir is passed through to the view,
+    and the lit, textured view still keeps off the megakernel."""
     storage, cam, _ = build_scene("C", "fermat_tpu_torch")
     ctx = RenderingContext.create(storage, cam, 8, 8, device="cpu", max_path_length=2,
                                   dir_lights=DIR_DEFS, point_lights=POINT_DEFS,
@@ -436,8 +439,13 @@ def test_context_takes_the_lights_and_still_refuses_textures():
     assert v.dir_lights.count == 1 and v.point_lights.count == 1 and v.env_map is not None
     assert torch.equal(v.env, torch.ones(3))  # a zero env_radiance is promoted with a map
     assert np.isfinite(ctx.hdr_image()).all() and ctx.hdr_image().mean() > 0.0
-    with pytest.raises(NotImplementedError, match="texture"):
-        RenderingContext.create(storage, cam, 8, 8, device="cpu", texture_dir="textures")
+    tproc.set_texture_names(storage, tproc.write_cornell_textures(str(tmp_path), size=8))
+    tctx = RenderingContext.create(storage, cam, 8, 8, device="cpu", max_path_length=2,
+                                   dir_lights=DIR_DEFS, texture_dir=str(tmp_path))
+    tctx.render(1)
+    assert tctx.view.has_textures and tctx.view.textures.count == 5
+    assert np.isfinite(tctx.hdr_image()).all() and tctx.hdr_image().mean() > 0.0
+    assert not pt_mega.mega_eligible(tctx.view, tpt.PTOptions())
 
 
 # ---- the golden's writer and its live check ----

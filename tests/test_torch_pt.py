@@ -171,10 +171,11 @@ def test_cuda_request_without_a_card_raises():
 
 
 @pytest.mark.parametrize("option", [
-    {"renderer": "bpt"}, {"tracer": "bvh"}, {"sampler": "bluenoise"}, {"nee": "vpl"},
+    {"renderer": "bpt"}, {"tracer": "bvh"}, {"detach_nee": True}, {"nee": "vpl"},
     {"glossy_model": "ltc"}, {"queue_compaction": True}, {"tracer": "brute"},
-    # lights are ported: textures still raise, and so does the megakernel on a lit view
-    {"texture_dir": "textures"},
+    # lights, textures and sampler="bluenoise" are ported: the debug switches
+    # still raise, and so does the megakernel on a lit view
+    {"debug_nee_no_shadow": True},
     {"tracer": "mega", "point_lights": [((0.0, 1.5, 0.0), (1.0, 1.0, 1.0))]},
 ])
 def test_options_outside_the_slice_raise(option):

@@ -86,19 +86,39 @@ _LIGHT_LEAVES = {
 
 @pytest.mark.parametrize("extra", ["env_map.pdf", "dir_lights.dir_x", "textures.texels"])
 def test_from_numpy_rejects_features_outside_the_slice(views, extra):
-    """Textures are outside the slice: an atlas with real texels is refused,
-    also beside light leaves that the port takes across."""
+    """Textures were outside the slice until the atlas was ported: now an
+    atlas with real texels comes across bit for bit (its RGBA8 mirror as
+    int32 bits), also beside light leaves that the port takes across, and
+    JAX's one-texel white atlas stands for no textures."""
+    from fermat_tpu.scene.textures import TextureAtlas as JAtlas
+
     arrays = {**jax_view_arrays(views[0]), **_LIGHT_LEAVES[extra]}
     view = TView.from_numpy(arrays, "cpu")
     assert (view.env_map is not None) == (extra == "env_map.pdf")
     assert (view.dir_lights is not None) == (extra == "dir_lights.dir_x")
-    arrays["textures.texels"] = np.ones((4, 4), np.float32)
-    with pytest.raises(NotImplementedError):
-        TView.from_numpy(arrays, "cpu")
+    assert view.textures is None and not view.has_textures
+    img = (np.random.default_rng(1).integers(0, 256, (4, 8, 3)) / 255.0).astype(np.float32)
+    atlas = JAtlas.build([img])
+    arrays.update({f"textures.{k}": np.asarray(getattr(atlas, k)) for k in atlas._fields})
+    view = TView.from_numpy(arrays, "cpu")
+    assert view.has_textures and view.textures.count == 1
+    assert np.array_equal(view.textures.texels.numpy(), np.asarray(atlas.texels))
+    assert np.array_equal(view.textures.packed_q.numpy().view(np.uint32),
+                          np.asarray(atlas.packed_q))
 
 
-def test_build_rejects_textures():
+def test_build_rejects_textures(tmp_path, capsys):
+    """SceneView.build no longer rejects textures: a texture found nowhere
+    becomes map -1 with JAX's stderr line and no atlas, and a file found in
+    texture_dir is loaded into the atlas, as JAX's build does."""
+    from fermat_tpu_torch.utils.image import write_tga
+
     mesh = tproc.cornell_box()
     mesh.materials[0].diffuse_map_name = "wall.tga"
-    with pytest.raises(NotImplementedError):
-        TView.build(mesh, tproc.cornell_camera(), "cpu")
+    view = TView.build(mesh, tproc.cornell_camera(), "cpu", texture_dir=str(tmp_path))
+    assert "[textures] missing texture wall.tga" in capsys.readouterr().err
+    assert mesh.materials[0].diffuse_map == -1 and not view.has_textures
+    write_tga(str(tmp_path / "wall.tga"), np.full((2, 4, 3), 128, np.uint8))
+    view = TView.build(mesh, tproc.cornell_camera(), "cpu", texture_dir=str(tmp_path))
+    assert mesh.materials[0].diffuse_map == 0 and view.has_textures
+    assert view.textures.width[0, 0] == 4 and view.textures.packed is not None
