@@ -8,7 +8,8 @@ result is printed then):
   1. device   — a CUDA card must be present; prints its name and power limit;
   2. build    — compiles the port's CUDA sources (fermat_tpu_torch/ops/csrc:
                 trace, gather, mega, frontier, cdf_gather, cluster, binned,
-                sub) for sm_90a, one nvcc per source, all started together;
+                sub, bvh) for sm_90a, one nvcc per source, all started
+                together;
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 trace_closest / trace_any on 262,144 random rays against the
                 CornellBox and random_soup(4096) (both also with every 7th
@@ -66,7 +67,7 @@ result is printed then):
                 tracer="cluster" and tracer="binned" (render_batch): ms/pass,
                 Mrays/s, launches (6 K6a + 6 K6b a pass, or 6 K7a and 6 K7b
                 launch groups with their rounds; no K5), one profiled pass
-                each; then one 1600x896 pass with each tracer and one with
+                each; then one 400x224 pass with each tracer and one with
                 the plain versions forced in their place, all three
                 bit-equal (every channel, first hits, rays), and the
                 frontier pass beside them within the golden tolerances;
@@ -137,6 +138,22 @@ result is printed then):
                 of T_C, at JAX's first-hit uv, and of C2; the emissive
                 through a light table built on the card) within
                 AD_GOLDEN_RTOL;
+  4i. options — the remaining PT options and the BVH walk (`options_phase`):
+                the glossy CornellBox, 512x512, 6 bounces, through
+                RenderingContext with nee="vpl", glossy_model="ltc",
+                queue_compaction=True and detach_nee=True (K1a, K1b, K2;
+                the VPL pick is K2 too); big_room(8300) 1600x896, 6 bounces,
+                with tracer="frontier" and tracer="bvh" on the same view
+                (the walk, csrc/bvh.cu; K4, K2), its BVH built on the host
+                (the seconds printed): ms/pass, Mrays/s, launches per pass,
+                one profiled pass each (device kernels, busy, idle share);
+                each CornellBox cell bit-equal to its forced plain versions
+                (the BVH walk's and the VPL pick's included), the
+                compaction cell also to the masked pass; on the bvh pass's
+                1,433,600 camera rays the walk's t bit-equal to K5a's (tri
+                too, except where two triangles tie in t); phase 6 holds the
+                walk's kernels bit-equal to their plain version on every ray
+                of bounces 0 and 1;
   5. parity   — one 512x512 pass with the kernels and one with the plain
                 versions forced in their place: equal `rays`, equal images;
                 then the golden configuration (tests/golden/
@@ -163,8 +180,9 @@ result is printed then):
   6. timing   — every launch of one main-path pass is held to its plain
                 version (K1a's t/u/v bits and tri, K2 bit-equal, K1b equal)
                 and replayed alone (device_ms:
-                CUDA events around 20 replays queued behind a spin kernel,
-                median and min-max, warm and cold L2): device
+                CUDA events around 20 replays, K7's groups 5, queued
+                behind a spin kernel, median and min-max, warm and cold
+                L2): device
                 time of the kernel, of its plain version and (gather only) of
                 `index_select`, beside the bound from the bytes and
                 operations the inputs need; K3a and K3b at 512x512 likewise
@@ -216,9 +234,23 @@ result is printed then):
                 the first launch of each kind (bounce 0), held bit-equal
                 and timed there; bound: 46 flops a test over K8's own
                 leaves, with K5's bound on the same rays beside it.
+                The BVH walk (walk_rows) at the rays of the first two K5a
+                and K5b launches of the same big_room pass (bounces 0 and
+                1) over phase 4i's BVH: each launch bit-equal to its plain
+                version and to K5's plain answer, timed, the plain version
+                once a launch with its counters (node visits and triangle
+                tests per ray, mean and max, printed); bound, per launch:
+                the rays' bytes and the tree once, or 24 flops a visit and
+                46 a test over the work the answer needs, counted as K5's
+                is: the walk of each closest ray with its final t from the
+                start (the boxes entered before it, every triangle of each
+                such leaf), an unoccluded shadow ray's whole walk, one
+                visit and one test for an occluded one; K5's bound on the
+                same rays beside it; time, bound and counts each launch.
 Then the card's nvidia-smi line, one JSON line {"kernels": [...]} (each row
-also holds its launches per pass on phase 4g's lit and 4h's textured paths
-and its device time a launch inside their profiled passes), and last
+also holds its launches per pass on phase 4g's lit, 4h's textured and 4i's
+options paths and its device time a launch inside their profiled passes),
+and last
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -283,6 +315,9 @@ PEAKS = {"SXM": (3.35e12, 67e12), "PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12
 # phase 6: replays a kernel is timed over, and the bytes written between
 # replays for its cold-L2 figure (the H100's L2 is 50 MB)
 REPLAYS = 20
+# K7's launch groups (50-90 ms each, their rounds read back to the host) are
+# timed over fewer replays
+BINNED_REPLAYS = 5
 FLUSH_BYTES = 128 * 2 ** 20
 SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's 1.98 GHz boost clock
 _FLUSH = None
@@ -305,7 +340,8 @@ LIT_PASSES = 2  # a batch, both lit scenes (the lit CornellBox's pass is host-bo
 # device kernel names of the route kernels, for their time inside a profiled lit pass
 LIT_IN_PASS = {"trace_closest": "closest_kernel", "trace_any": "any_kernel",
                "gather_rows": "gather_rows_kernel", "trace_closest_frontier": "trace_kernel<true>",
-               "trace_any_frontier": "trace_kernel<false>", "cdf_pick_rows": "pick_kernel"}
+               "trace_any_frontier": "trace_kernel<false>", "cdf_pick_rows": "pick_kernel",
+               "trace_closest_bvh": "walk_kernel<false>", "trace_any_bvh": "walk_kernel<true>"}
 LIT_AREA = [dict(kind="disk", pos=(-0.45, 1.75, 0.25), normal=(0.15, -1.0, 0.1),
                  color=(6.0, 5.0, 4.0), radius=0.25),
             dict(kind="rect", pos=(0.45, 1.6, -0.35), normal=(-0.2, -1.0, 0.15),
@@ -317,6 +353,14 @@ LIT_SUN = ((0.3, -0.6, -1.0), (3.0, 2.8, 2.5))
 # 1024 and 2048 texels a side) and passes a batch
 TEX_SIZE = 1024
 TEX_PASSES = 2
+# phase 4i: the remaining PT options on the CornellBox, and the BVH walk
+OPT_CELLS = {"vpl": {"nee": "vpl"}, "ltc": {"glossy_model": "ltc"},
+             "compaction": {"queue_compaction": True}, "detach_nee": {"detach_nee": True}}
+OPT_PASSES = 2
+# FP32 operations of one node visit of the walk: the slab test of
+# accel/traverse.py _slab_test, ops/csrc/bvh.cu box_hit (6 subtractions, 6
+# multiplications, 12 min/max; the compare not counted)
+FLOPS_PER_VISIT = 24
 
 
 class SmokeFailure(AssertionError):
@@ -642,11 +686,11 @@ def lit_cornell():
 
 def forced_plain(dev) -> list:
     """patched() replacements that put every kernel's plain version in the
-    pass's place: the dense and frontier tracers, the light pick and the
-    row gathers."""
+    pass's place: the dense and frontier tracers, the BVH walk, the light
+    pick and the row gathers (the VPL pick's too)."""
     import torch
 
-    from fermat_tpu_torch.accel.traverse import Hit
+    from fermat_tpu_torch.accel.traverse import Hit, walk_any, walk_closest
     from fermat_tpu_torch.integrators import pt
     from fermat_tpu_torch.ops import cdf_gather
     from fermat_tpu_torch.ops import frontier_trace as ft
@@ -655,6 +699,7 @@ def forced_plain(dev) -> list:
     from fermat_tpu_torch.core import rng as rng_mod
     from fermat_tpu_torch.scene import lights as lights_mod
     from fermat_tpu_torch.scene import mesh as mesh_mod
+    from fermat_tpu_torch.scene import mesh_lights as mesh_lights_mod
     from fermat_tpu_torch.scene import textures as textures_mod
 
     def lanes(o, tmin, tmax):
@@ -674,12 +719,20 @@ def forced_plain(dev) -> list:
     def any_frontier(cl, o, d, tmin, tmax, active=None):
         return ft._any_plain(cl, o, d, *lanes(o, tmin, tmax), active)
 
+    def closest_bvh(bvh, tris, o, d, tmin, tmax, active=None):
+        return walk_closest(bvh, tris, o, d, *trace_mod._lane_args(o, tmin, tmax, active))
+
+    def any_bvh(bvh, tris, o, d, tmin, tmax, active=None):
+        return walk_any(bvh, tris, o, d, *trace_mod._lane_args(o, tmin, tmax, active))
+
     return [(pt, "trace_closest", closest), (pt, "trace_any", any_),
             (pt, "trace_closest_frontier", closest_frontier),
             (pt, "trace_any_frontier", any_frontier),
+            (pt, "trace_closest_bvh", closest_bvh), (pt, "trace_any_bvh", any_bvh),
             (pt, "cdf_pick_rows", cdf_gather._pick_plain),
             (mesh_mod, "gather_rows", gather_mod._gather_plain),
             (lights_mod, "gather_rows", gather_mod._gather_plain),
+            (mesh_lights_mod, "gather_rows", gather_mod._gather_plain),
             (textures_mod, "gather_rows", gather_mod._gather_plain),
             (rng_mod, "gather_rows", gather_mod._gather_plain)]
 
@@ -1174,6 +1227,257 @@ def textured_phase(dev, smi: str, reset_counts, counts) -> dict:
     return {"cells": cells, "launches": launches}
 
 
+def options_phase(dev, smi: str, reset_counts, counts, bview, room_options: dict) -> dict:
+    """Phase 4i: the remaining PT options on the CornellBox and the BVH walk
+    on big_room (see the module docstring). Returns the cells' numbers, their
+    launches per pass, the walk's BVH of big_room and its build seconds."""
+    import torch
+
+    from fermat_tpu_torch.integrators import pt
+    from fermat_tpu_torch.ops import bvh_trace
+    from fermat_tpu_torch.ops import frontier_trace as ft
+    from fermat_tpu_torch.render.context import RenderingContext
+    from fermat_tpu_torch.render.framebuffer import Framebuffer
+    from fermat_tpu_torch.scene.procedural import cornell_box, cornell_camera
+
+    t_phase = time.perf_counter()
+    bits = lambda t: t.contiguous().view(torch.int32)
+    cells, launches = {}, {}
+
+    def drive(cell, ctx, key):
+        cells[cell] = drive_cell("4i options", cell, ctx, OPT_PASSES, smi, reset_counts, counts)
+        launches[key] = cells[cell]["launches"]
+        return launches[key]
+
+    def same_pass(a, b) -> bool:
+        vec = lambda x: x.stack() if hasattr(x, "stack") else x
+        return all(torch.equal(bits(vec(getattr(a, f))) if vec(getattr(a, f)).is_floating_point()
+                               else vec(getattr(a, f)),
+                               bits(vec(getattr(b, f))) if vec(getattr(b, f)).is_floating_point()
+                               else vec(getattr(b, f))) for f in a._fields)
+
+    def plain_equal(cell, view, opts, res_x, res_y):
+        """One pass with the kernels and one with every plain version
+        forced: every output bit-equal. Returns the kernels' pass."""
+        out_k = pt.render_pass(view, opts, res_x, res_y, 1000, 0)
+        before = counts()
+        with patched(forced_plain(dev)):
+            out_p = pt.render_pass(view, opts, res_x, res_y, 1000, 0)
+        torch.cuda.synchronize()
+        check(before == counts(), f"{cell}: the forced plain pass launched a kernel")
+        check(same_pass(out_k, out_p), f"{cell}: kernel vs plain pass not bit-equal")
+        return out_k
+
+    # ---- the CornellBox under each option: K1a, K1b, K2 (the VPL pick too) ----
+    for cell, kw in OPT_CELLS.items():
+        ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), RES, RES,
+                                      renderer="pt", max_path_length=MPL, **kw)
+        per = drive(f"CornellBox {cell}", ctx, f"options_{cell}")
+        check(per.get("trace_closest") == MPL and per.get("trace_any") == MPL
+              and per.get("gather_rows", 0) > 0
+              and set(per) == {"trace_closest", "trace_any", "gather_rows"},
+              f"CornellBox {cell} launches per pass: {per}")
+        opts = pt.PTOptions(**ctx.renderer_options)
+        out = plain_equal(f"CornellBox {cell}", ctx.view, opts, RES, RES)
+        extra = ""
+        if cell == "compaction":
+            masked = pt.render_pass(ctx.view, opts._replace(queue_compaction=False), RES, RES,
+                                    1000, 0)
+            check(same_pass(out, masked), "the compaction pass is not bit-equal to the masked one")
+            extra = "; bit-equal to the masked pass"
+        log(f"[4i options] CornellBox {cell} {RES}x{RES}: kernels vs forced plain versions: "
+            f"rays equal ({float(out.rays):.0f}), every output bit-equal{extra}")
+        del ctx
+
+    # ---- big_room: the BVH walk beside the frontier tracer ----
+    t0 = time.perf_counter()
+    room_view = bview.with_bvh()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bvh = room_view.bvh
+    log(f"[4i options] big_room: the walk's BVH of {bview.mesh.n_triangles} triangles built on "
+        f"the host in {build_s:.2f} s ({bvh.n_nodes} nodes, leaf_size {bvh.leaf_size})")
+
+    def room_ctx(view, tracer):
+        ctx = RenderingContext(view=view, res_x=BIG_W, res_y=BIG_H, renderer="pt",
+                               renderer_options={**room_options, "tracer": tracer})
+        ctx.fb = Framebuffer.create(BIG_H, BIG_W, dev)
+        return ctx
+
+    drive("big_room frontier", room_ctx(bview, "frontier"), "options_big_room_frontier")
+    per = drive("big_room bvh", room_ctx(room_view, "bvh"), "options_big_room_bvh")
+    check(per.get("trace_closest_bvh") == MPL and per.get("trace_any_bvh") == MPL
+          and set(per) <= {"trace_closest_bvh", "trace_any_bvh", "cdf_pick_rows", "gather_rows"},
+          f"big_room bvh launches per pass: {per}")
+    # the pass's camera rays
+    rec = []
+
+    def recorder(fn):
+        def wrapper(*args):
+            rec.append(args)
+            return fn(*args)
+        return wrapper
+
+    bopts = pt.PTOptions(**{**room_options, "tracer": "bvh"})
+    with patched([(pt, "trace_closest_bvh", recorder(pt.trace_closest_bvh))]):
+        pt.render_pass(room_view, bopts, BIG_W, BIG_H, 1000, 0)
+    _, tris, o, d, tmin, tmax, active = rec[0]
+    n = o.x.shape[0]
+    walk = bvh_trace.trace_closest_bvh(bvh, tris, o, d, tmin, tmax, active)
+    k5 = ft.trace_closest_frontier(bview.clusters, o, d, tmin, tmax, active, with_uv=False)
+    torch.cuda.synchronize()
+    same_t = bits(walk.t) == bits(k5.t)
+    ties = int((same_t & (walk.tri != k5.tri)).sum())
+    check(bool(same_t.all()), f"big_room camera rays: the walk's t differs from K5a's on "
+                              f"{int((~same_t).sum())} of {n} rays")
+    log(f"[4i options] big_room {BIG_W}x{BIG_H} camera rays: the walk's closest hits equal "
+        f"K5a's on all {n} rays (t bit-equal; {ties} ties in t with another triangle id; "
+        f"phase 6 holds the walk to its plain version on every ray of bounces 0 and 1); "
+        f"{time.perf_counter() - t_phase:.1f} s for the phase")
+    return {"cells": cells, "launches": launches, "bvh": bvh, "build_s": build_s, "ties": ties}
+
+
+def walk_rows(dev, bw: float, fp32: float, bview, opt: dict, lcalls: dict, k5_plain: dict,
+              bvhk: dict, max_err: dict) -> list:
+    """Phase 6's rows of the BVH walk, at big_room's bounce-0 and bounce-1
+    rays: the closest and shadow rays of the monolithic frontier pass that
+    phase 6 records (`lcalls`, the function K5 computes), over phase 4i's BVH
+    of the same mesh. Each launch is held bit-equal to the plain walk (t, u,
+    v, tri; occlusion), which also counts each ray's node visits and
+    triangle tests, and to K5's plain answer there (`k5_plain`; closest: t).
+    The plain version runs once a launch, with its counters.
+
+    Bound of a launch: the larger of the bytes (the rays in, the hits out,
+    the nodes, prims and soup once) and the FP32 operations
+    (FLOPS_PER_VISIT a box test, FLOPS_PER_TEST a triangle test) of the work
+    the answer needs over this tree, counted as K5's is: a closest ray
+    tests the box of every node its walk reaches with its final t from the
+    start, and every triangle of each such leaf whose box it enters (a
+    second plain walk, with tmax = the final t, counts them; it must find
+    nothing nearer); an unoccluded shadow ray its whole walk; an occluded
+    one one box and one triangle. The row's ms and bound are the means of
+    its two launches; `each_launch` keeps each launch's time, bound, K5's
+    bound on the same rays and the counts."""
+    import torch
+
+    from fermat_tpu_torch.accel.traverse import walk_any, walk_closest
+    from fermat_tpu_torch.ops import bvh_trace
+    from fermat_tpu_torch.ops import trace as trace_mod
+
+    bits = lambda t: t.contiguous().view(torch.int32)
+    lanes = lambda x, n: trace_mod._lanes(x, n, dev)
+    rows = []
+    bvh_room, tris_room = opt["bvh"], bview.mesh.tri_soup()
+    tree_bytes = (bvh_room.nodes.numel() * 4 + bvh_room.prims.numel() * 4
+                  + tris_room.numel() * 4)
+    mean_max = lambda x: (float(x.mean()), int(x.max()))
+    for kind in ("closest", "any"):
+        kname = f"trace_{kind}_bvh"
+        a = dict(bound=0.0, by_bytes=0.0, by_ops=0.0, plain=0.0, err=0.0)
+        times, each = {}, []
+        t0 = time.perf_counter()
+        for b, args in enumerate(lcalls[f"trace_{kind}_frontier"][:2]):
+            _, o, d, tmin, tmax, active = args
+            n = o.x.shape[0]
+            tmin_l, tmax_l = lanes(tmin, n), lanes(tmax, n)
+            act = active if active is not None else torch.ones(n, dtype=torch.bool, device=dev)
+            k5 = k5_plain[f"trace_{kind}_frontier"][b]
+            if kind == "closest":
+                f_k = lambda: bvh_trace.trace_closest_bvh(bvh_room, tris_room, o, d, tmin, tmax,
+                                                          active)
+                f_p = lambda: walk_closest(bvh_room, tris_room, o, d, tmin_l, tmax_l, active,
+                                           stats=True)
+                (want, vis, tst), p_ms = profiled(f_p)
+                got = f_k()
+                torch.cuda.synchronize()
+                check(torch.equal(got.tri, want.tri) and all(
+                    torch.equal(bits(x), bits(y)) for x, y in ((got.t, want.t), (got.u, want.u),
+                                                               (got.v, want.v))),
+                      f"{kname} at big_room's bounce-{b} rays: differs from its plain version")
+                check(torch.equal(bits(got.t), bits(k5["want"][0])),
+                      f"{kname} at big_room's bounce-{b} rays: t differs from K5's plain answer")
+                a["err"] = max(a["err"], float((got.t - want.t).abs().max()))
+                # the needed work: each ray's walk with its final t from the start
+                near, n_vis, n_tst = walk_closest(bvh_room, tris_room, o, d, tmin_l, want.t,
+                                                  active, stats=True)
+                check(bool((near.tri[act] < 0).all()),
+                      f"{kname} at big_room's bounce-{b} rays: a hit nearer than the final t")
+                del near
+                byt = n * (33 + 13) + tree_bytes
+            else:
+                f_k = lambda: bvh_trace.trace_any_bvh(bvh_room, tris_room, o, d, tmin, tmax,
+                                                      active)
+                f_p = lambda: walk_any(bvh_room, tris_room, o, d, tmin_l, tmax_l, active,
+                                       stats=True)
+                (want, vis, tst), p_ms = profiled(f_p)
+                got = f_k()
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"{kname} at big_room's bounce-{b} rays: differs from its plain version")
+                check(torch.equal(got, k5["want"]),
+                      f"{kname} at big_room's bounce-{b} rays: differs from K5's plain answer")
+                a["err"] = max(a["err"], float((got != want).sum()))
+                one = torch.ones_like(vis)
+                n_vis, n_tst = torch.where(want, one, vis), torch.where(want, one, tst)
+                byt = n * (33 + 1) + tree_bytes
+            v_a, t_a = vis[act].double(), tst[act].double()
+            nv_a, nt_a = n_vis[act].double(), n_tst[act].double()
+            ops = float(nv_a.sum()) * FLOPS_PER_VISIT + float(nt_a.sum()) * FLOPS_PER_TEST
+            del want, vis, tst, n_vis, n_tst
+            tk = device_ms(f_k)
+            add_times(times, tk)
+            b_bytes, b_ops = byt / bw * 1e3, ops / fp32 * 1e3
+            (vm, vx), (tm, tx), (nvm, nvx), (ntm, ntx) = map(mean_max, (v_a, t_a, nv_a, nt_a))
+            each.append(dict(
+                bounce=b, rays=n, active=int(act.sum()), ms=tk["ms"], plain_ms=p_ms,
+                bound_ms=max(b_bytes, b_ops), bound_by="bytes" if b_bytes >= b_ops
+                else "operations", k5_bound_ms=max(k5["b_bytes"], k5["b_ops"]),
+                visits_mean=vm, visits_max=vx, tests_mean=tm, tests_max=tx,
+                needed_visits_mean=nvm, needed_visits_max=nvx, needed_tests_mean=ntm,
+                needed_tests_max=ntx))
+            a["bound"] += max(b_bytes, b_ops)
+            a["by_bytes"] += b_bytes
+            a["by_ops"] += b_ops
+            a["plain"] += p_ms
+        nc = len(each)
+        check(nc == 2, f"{kname}: {nc} recorded launches at big_room's first two bounces")
+        max_err[kname] = a["err"]
+        kern = bvhk[kname]
+        t = per_launch(times, nc)
+        per_pass = opt["launches"]["options_big_room_bvh"].get(kname, 0)
+        row = {
+            "name": kname, "route": "cuda",
+            "source": f"fermat_tpu_torch/ops/csrc/{kern.source}",
+            "replaces": kern.replaces,
+            "launches": int(round(per_pass * OPT_PASSES * REPS)),
+            "launches_per_pass": per_pass,
+            "max_abs_err": a["err"], "max_abs_err_vs_plain": a["err"],
+            **t, "plain_ms": a["plain"] / nc, "bound_ms": a["bound"] / nc,
+            "bound_by": "bytes" if a["by_bytes"] >= a["by_ops"] else "operations",
+            "library_ms": None,
+            "shapes": [f"{e['rays']} rays x {bview.mesh.n_triangles} tris, bounce {e['bounce']}"
+                       for e in each],
+            "plain_ms_with": "its visit and test counters",
+            "each_launch": each,
+            "bvh_nodes": bvh_room.n_nodes, "bvh_host_build_s": opt["build_s"],
+        }
+        rows.append(row)
+        log(f"[6 timing] {kname}: {fmt_times(t)}/launch, the mean of its launches at big_room's "
+            f"bounce-0 and bounce-1 rays, each bit-equal to its plain version and to K5's "
+            f"answer; each launch: "
+            + "; ".join(f"bounce {e['bounce']}: {e['ms'] * 1e3:.2f} us (plain "
+                        f"{e['plain_ms'] * 1e3:.1f} us with its counters), bound "
+                        f"{e['bound_ms'] * 1e3:.2f} us by {e['bound_by']} (K5's "
+                        f"{e['k5_bound_ms'] * 1e3:.2f} us), {e['active']} active rays, a ray "
+                        f"visits mean {e['visits_mean']:.1f} max {e['visits_max']}, tests mean "
+                        f"{e['tests_mean']:.1f} max {e['tests_max']}; needed visits mean "
+                        f"{e['needed_visits_mean']:.1f} max {e['needed_visits_max']}, tests "
+                        f"mean {e['needed_tests_mean']:.1f} max {e['needed_tests_max']}"
+                        for e in each)
+            + f"; {time.perf_counter() - t0:.1f} s for the phase")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1197,6 +1501,7 @@ def main() -> int:
     from fermat_tpu_torch.integrators import pt
     from fermat_tpu_torch.ops import _cuda
     from fermat_tpu_torch.ops import binned_trace as bt
+    from fermat_tpu_torch.ops import bvh_trace
     from fermat_tpu_torch.ops import cdf_gather
     from fermat_tpu_torch.ops import cluster_trace as ct
     from fermat_tpu_torch.ops import frontier_trace as ft
@@ -1221,7 +1526,8 @@ def main() -> int:
                "trace_closest_binned": bt.CLOSEST, "trace_any_binned": bt.ANY}
     ad = {"gather_rows_bwd": gather_mod.GATHER_BWD}
     subk = {"trace_closest_sub": st.CLOSEST, "trace_any_sub": st.ANY}
-    kernels = {**dense, **mega, **large, **tracers, **ad, **subk}
+    bvhk = {"trace_closest_bvh": bvh_trace.CLOSEST, "trace_any_bvh": bvh_trace.ANY}
+    kernels = {**dense, **mega, **large, **tracers, **ad, **subk, **bvhk}
     # helper kernels, counted, not rows of their own: the binned tracer's
     # scan, and the frontier tracer's ray sort key (held to its plain version
     # in phases 3c and 6, its time beside K5's)
@@ -1524,7 +1830,7 @@ def main() -> int:
     check(float(hdr.mean()) > 0.01, f"image is black (mean {hdr.mean()})")
     for n in dense:
         check(launches[n] > 0, f"kernel {n} was never launched on the main path")
-    check(all(launches[n] == 0 for n in (*mega, *large, *tracers, *ad, *subk)),
+    check(all(launches[n] == 0 for n in (*mega, *large, *tracers, *ad, *subk, *bvhk)),
           f"the dense CornellBox path launched another kernel: {launches}")
     mrays = best_rays / best / 1e6
     ms_pass = best / PASSES * 1e3
@@ -1632,7 +1938,7 @@ def main() -> int:
               f"big_room {mode}: image not finite")
         check(float(b_hdr.mean()) > 0.001, f"big_room {mode}: image is black ({b_hdr.mean()})")
         check(all(b_launches[n] == 0 for n in ("trace_closest", "trace_any", *mega, *tracers,
-                                               *ad, *subk)),
+                                               *ad, *subk, *bvhk)),
               f"big_room {mode} launched a kernel of another path: {b_launches}")
         for n in large:
             check(b_launches[n] > 0, f"kernel {n} was never launched on the big_room path")
@@ -1728,8 +2034,10 @@ def main() -> int:
             + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
         tctx[tracer] = c4
 
-    # one full-width pass with each tracer and one with the plain versions
-    # forced in their place: bit-equal; the frontier pass beside them
+    # one PLAIN_W x PLAIN_H pass with each tracer and one with the plain
+    # versions forced in their place: bit-equal; the frontier pass beside
+    # them (phase 6 holds K6 and K7 to K5's plain answer on every ray of a
+    # full-width pass)
     def plain_closest_uv(cl, o, d, tmin, tmax, active=None, **_):
         n = o.x.shape[0]
         return ft._closest_uv_plain(cl, o, d, lanes(tmin, n), lanes(tmax, n), active)
@@ -1741,15 +2049,15 @@ def main() -> int:
     copts = pt.PTOptions(**tctx["cluster"].renderer_options)
     cview = tctx["cluster"].view
     t0 = time.perf_counter()
-    out_c = pt.render_pass(cview, copts, BIG_W, BIG_H, 1000, 0)
-    out_b = pt.render_pass(cview, copts._replace(tracer="binned"), BIG_W, BIG_H, 1000, 0)
+    out_c = pt.render_pass(cview, copts, PLAIN_W, PLAIN_H, 1000, 0)
+    out_b = pt.render_pass(cview, copts._replace(tracer="binned"), PLAIN_W, PLAIN_H, 1000, 0)
     before = counts()
     with patched([(pt, "trace_closest_cluster", plain_closest_uv),
                   (pt, "trace_any_cluster", plain_any),
                   (pt, "cdf_pick_rows", cdf_gather._pick_plain),
                   (mesh_mod, "gather_rows", gather_mod._gather_plain),
                   (lights_mod, "gather_rows", gather_mod._gather_plain)]):
-        out_p = pt.render_pass(cview, copts, BIG_W, BIG_H, 1000, 0)
+        out_p = pt.render_pass(cview, copts, PLAIN_W, PLAIN_H, 1000, 0)
     torch.cuda.synchronize()
     check(before == counts(), "the forced plain cluster pass launched a kernel")
     chans = ("composited", "direct", "diffuse", "specular", "diffuse_albedo", "specular_albedo",
@@ -1760,7 +2068,7 @@ def main() -> int:
                   f"cluster vs {label} pass: {c} not bit-equal")
         check(torch.equal(out_c.tri, other.tri) and torch.equal(bits(out_c.depth), bits(other.depth))
               and float(out_c.rays) == float(other.rays), f"cluster vs {label} pass: hits differ")
-    out_f = pt.render_pass(cview, copts._replace(tracer="frontier"), BIG_W, BIG_H, 1000, 0)
+    out_f = pt.render_pass(cview, copts._replace(tracer="frontier"), PLAIN_W, PLAIN_H, 1000, 0)
     report = []
     for c in ("composited", "direct", "diffuse", "specular"):
         ok, near, mean_rel = image_close(getattr(out_c, c).stack().cpu().numpy(),
@@ -1768,7 +2076,7 @@ def main() -> int:
         check(ok, f"cluster vs frontier pass: {c} outside the golden tolerance")
         report.append(f"{c} {near:.4f}/{mean_rel:.1e}")
     f_tri = float((out_c.tri == out_f.tri).float().mean())
-    log(f"[4e tracers] {BIG_W}x{BIG_H} pass (instance 1000) with tracer=cluster, tracer=binned "
+    log(f"[4e tracers] {PLAIN_W}x{PLAIN_H} pass (instance 1000) with tracer=cluster, tracer=binned "
         f"and the plain versions forced: bit-equal (every channel, G-buffer, first hits, rays "
         f"{float(out_c.rays):.0f}); against the frontier pass: rays {float(out_f.rays):.0f}, "
         f"first hits equal {f_tri:.5f}, pixels close/mean rel " + ", ".join(report)
@@ -1948,6 +2256,9 @@ def main() -> int:
 
     # ---- 4h. textures, their gradients and the blue-noise sampler ----
     tex = textured_phase(dev, smi, reset_counts, counts)
+
+    # ---- 4i. the remaining PT options and the BVH walk ----
+    opt = options_phase(dev, smi, reset_counts, counts, bview, dict(bctx.renderer_options))
 
     # ---- 5. parity on the card ----
     opts = pt.PTOptions(**ctx.renderer_options)
@@ -2584,7 +2895,8 @@ def main() -> int:
                           f"{tname} at the cluster pass's inputs: occ differs from plain and K5")
                     a["err"] = max(a["err"], float((got != want).sum()))
                 a["rounds"] += tracers[tname].launches - launches0
-                add_times(a["times"], device_ms(f_k))
+                add_times(a["times"], device_ms(
+                    f_k, reps=BINNED_REPLAYS if tracer == "binned" else REPLAYS))
                 if tracer == "binned":  # its split by kernel family; its wall time
                     sp = device_split(f_k)
                     for k in sp:
@@ -2803,21 +3115,30 @@ def main() -> int:
             f"equal to K8's plain version (max abs err {a['err']:.3g}); "
             f"{time.perf_counter() - t0:.1f} s for the phase")
 
+    rows += walk_rows(dev, bw, fp32, bview, opt, lcalls, k5_plain, bvhk, max_err)
+
     log("[summary] big_room " + "; ".join(
         f"{m}: {v['ms']:.2f} ms/pass, {v['mrays']:.3f} Mrays/s, {v['kernels']} device kernels, "
         f"idle {v['idle']:.3f}" for m, v in big.items())
         + f"; AD step (frontier): {adr['big_room']['ms']:.2f} ms/step, "
           f"{adr['big_room']['mrays']:.3f} train Mrays/s, peak {adr['big_room']['peak'] / 2 ** 30:.2f}"
           f" GiB, idle {adr['big_room']['idle']:.3f}")
-    for row in rows:  # the kernel's launches per pass on each lit (4g) and textured (4h) path
-        for cell, per in (*lit["launches"].items(), *tex["launches"].items()):
+    for row in rows:  # the kernel's launches per pass on each lit (4g), textured (4h) and
+        # options (4i) path
+        for cell, per in (*lit["launches"].items(), *tex["launches"].items(),
+                          *opt["launches"].items()):
             row[f"launches_per_pass_{cell}"] = per.get(row["name"], 0)
-        for key, ph in (("in_lit_pass_us", lit), ("in_textured_pass_us", tex)):
+        for key, ph in (("in_lit_pass_us", lit), ("in_textured_pass_us", tex),
+                        ("in_options_pass_us", opt)):
             row[key] = {c: v["in_pass_us"][row["name"]] for c, v in ph["cells"].items()
                         if row["name"] in v.get("in_pass_us", {})}
     log("[summary] lit (4g) " + "; ".join(
         f"{c}: {v['ms']:.2f} ms/pass, {v['mrays']:.3f} Mrays/s, busy {v['busy_ms']:.2f} ms, "
         f"idle {v['idle']:.3f}" for c, v in lit["cells"].items()))
+    log("[summary] options (4i) " + "; ".join(
+        f"{c}: {v['ms']:.2f} ms/pass, {v['mrays']:.3f} Mrays/s, {v['kernels']} device kernels, "
+        f"busy {v['busy_ms']:.2f} ms, idle {v['idle']:.3f}" for c, v in opt["cells"].items())
+        + f"; big_room BVH host build {opt['build_s']:.2f} s")
     log("[summary] textured (4h) " + "; ".join(
         f"{c}: {v['ms']:.2f} ms" + (f"/pass, {v['mrays']:.3f} Mrays/s, busy {v['busy_ms']:.2f} ms,"
                                      f" idle {v['idle']:.3f}, atlas {v['atlas_bytes']} B"

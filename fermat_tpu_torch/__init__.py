@@ -22,8 +22,10 @@ whole-pass megakernel, and the replay-gradient train step is another
 (ops/pt_mega.py). The PT pass carries the JAX package's light model:
 mesh emitters, directional and point lights, analytic disk/rect area
 lights, a lat-long environment map with importance-sampled NEE and MIS, and
-the shadow sets of materials flagged FLAG_SHADOW_*_IGNORE. Every kernel is
-hand-written CUDA.
+the shadow sets of materials flagged FLAG_SHADOW_*_IGNORE, textures, and
+every PTOptions field of JAX's PT pass: VPL NEE, the LTC glossy lobe, queue
+compaction, the detach and debug switches, and tracer="bvh" (the skip-link
+BVH walk, ops/bvh_trace.py). Every kernel is hand-written CUDA.
 """
 from __future__ import annotations
 

@@ -1,15 +1,21 @@
-"""Host binned-SAH BVH build (fermat_tpu/accel/bvh.py:81-221), numpy only.
+"""Host binned-SAH BVH build (fermat_tpu/accel/bvh.py:81-221), numpy only,
+and the device skip-link BVH of the walk (bvh.py:31-67, 224-255).
 
 The port's own copy of the builder: the cluster table (accel/cluster.py)
-takes its leaves as clusters, and the frontier tracer's top level is a BVH
-over the cluster boxes built by the same function. The device skip-link walk
-of the JAX package (`trace_closest` / `trace_any` over a triangle BVH) is
-not ported yet.
+takes its leaves as clusters, the frontier tracer's top level is a BVH over
+the cluster boxes built by the same function, and `build_bvh_for_mesh`
+builds the triangle BVH that the skip-link walk (accel/traverse.py,
+ops/bvh_trace.py) traverses with tracer="bvh".
 
 Nodes come out in DFS order with skip links: an inner node's left child is
 the next node, its right child is the left child's `skip`, and `skip` of a
 node is where a walk resumes after its subtree (-1 at the end). Leaves hold
 `leaf_size` slots of `prims`, -1 padded.
+
+JAX builds a mesh of 4096 triangles or more with its native C++ builder
+(bvh.py:222-255); the port does not load that library and builds every mesh
+with this Python one. The walk's hits do not depend on the tree, except
+where two triangles tie in t.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import sys
 from typing import NamedTuple, Tuple
 
 import numpy as np
+import torch
 
 SENTINEL = -1
 
@@ -68,39 +75,31 @@ def build_bvh(centroids: np.ndarray, lo: np.ndarray, hi: np.ndarray,
             return _Node(nlo, nhi, recurse(ids[:mid]), recurse(ids[mid:]))
         rel = (c[:, axis] - cl[axis]) / ext[axis]
         bins = np.minimum((rel * n_bins).astype(np.int32), n_bins - 1)
-        bin_lo = np.full((n_bins, 3), np.inf, np.float32)
-        bin_hi = np.full((n_bins, 3), -np.inf, np.float32)
-        bin_n = np.zeros(n_bins, np.int64)
-        for b in range(n_bins):
-            m = bins == b
-            if m.any():
-                bin_lo[b] = lo[ids[m]].min(0)
-                bin_hi[b] = hi[ids[m]].max(0)
-                bin_n[b] = m.sum()
+        # each bin's box and count: the primitives sorted by bin, one
+        # reduction a non-empty bin
+        bin_n = np.bincount(bins, minlength=n_bins)
+        full = bin_n > 0
+        order = np.argsort(bins, kind="stable")
+        first = (np.cumsum(bin_n) - bin_n)[full]
+        bin_lo = np.full((n_bins, 3), np.inf)
+        bin_hi = np.full((n_bins, 3), -np.inf)
+        bin_lo[full] = np.minimum.reduceat(lo[ids[order]], first, axis=0)
+        bin_hi[full] = np.maximum.reduceat(hi[ids[order]], first, axis=0)
 
         def area(blo, bhi):
             d = np.maximum(bhi - blo, 0)
             return d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2] + d[..., 2] * d[..., 0]
 
-        # prefix / suffix sweeps over the bins
-        costs = np.full(n_bins - 1, np.inf)
-        acc_lo, acc_hi, acc_n = np.full(3, np.inf), np.full(3, -np.inf), 0
-        left_a = np.zeros(n_bins - 1)
-        left_n = np.zeros(n_bins - 1, np.int64)
-        for b in range(n_bins - 1):
-            acc_lo = np.minimum(acc_lo, bin_lo[b])
-            acc_hi = np.maximum(acc_hi, bin_hi[b])
-            acc_n += bin_n[b]
-            left_a[b] = area(acc_lo, acc_hi) if acc_n else 0.0
-            left_n[b] = acc_n
-        acc_lo, acc_hi, acc_n = np.full(3, np.inf), np.full(3, -np.inf), 0
-        for b in range(n_bins - 1, 0, -1):
-            acc_lo = np.minimum(acc_lo, bin_lo[b])
-            acc_hi = np.maximum(acc_hi, bin_hi[b])
-            acc_n += bin_n[b]
-            right_a = area(acc_lo, acc_hi) if acc_n else 0.0
-            if left_n[b - 1] > 0 and acc_n > 0:
-                costs[b - 1] = left_a[b - 1] * left_n[b - 1] + right_a * acc_n
+        # prefix / suffix sweeps over the bins: split s puts bins 0..s left
+        left_n = np.cumsum(bin_n)[:-1]
+        left_a = np.where(left_n > 0, area(np.minimum.accumulate(bin_lo, 0),
+                                           np.maximum.accumulate(bin_hi, 0))[:-1], 0.0)
+        right_n = np.cumsum(bin_n[::-1])[::-1][1:]
+        right_a = np.where(right_n > 0, area(np.minimum.accumulate(bin_lo[::-1], 0)[::-1],
+                                             np.maximum.accumulate(bin_hi[::-1], 0)[::-1])[1:],
+                           0.0)
+        costs = np.where((left_n > 0) & (right_n > 0), left_a * left_n + right_a * right_n,
+                         np.inf)
         if not np.isfinite(costs).any():
             mid = len(ids) // 2
             order = np.argsort(c[:, axis], kind="stable")
@@ -151,3 +150,71 @@ def build_bvh(centroids: np.ndarray, lo: np.ndarray, hi: np.ndarray,
         skip=np.asarray(skips, np.int32), prim_start=np.asarray(starts, np.int32),
         is_leaf=np.asarray(leaf_flags, bool), prims=prims, leaf_size=leaf_size)
     return bvh, prims
+
+
+class BvhView(NamedTuple):
+    """The device skip-link BVH (bvh.py:31-67): per node the box, `skip`,
+    `prim_start` (leaves), `is_leaf` and `child` (the DFS child, i + 1, as
+    JAX stores it); `prims` holds leaf_size slots a leaf, -1 padded, of
+    indices into the mesh's triangles. `nodes` packs each node into two
+    float4 records for the walk's kernel (ops/bvh_trace.py): (lo xyz, skip
+    as int bits), (hi xyz, child for an inner node or -1 - prim_start for a
+    leaf, as int bits)."""
+
+    lo_x: torch.Tensor
+    lo_y: torch.Tensor
+    lo_z: torch.Tensor
+    hi_x: torch.Tensor
+    hi_y: torch.Tensor
+    hi_z: torch.Tensor
+    skip: torch.Tensor  # (n_nodes,) int32
+    prim_start: torch.Tensor  # (n_nodes,) int32
+    is_leaf: torch.Tensor  # (n_nodes,) bool
+    prims: torch.Tensor  # (n_leaves * leaf_size,) int32
+    child: torch.Tensor  # (n_nodes,) int32
+    leaf_size: int
+    nodes: torch.Tensor  # (n_nodes, 8) float32 records
+
+    @property
+    def n_nodes(self) -> int:
+        return self.skip.shape[0]
+
+    @staticmethod
+    def from_arrays(lo: np.ndarray, hi: np.ndarray, skip: np.ndarray, prim_start: np.ndarray,
+                    is_leaf: np.ndarray, prims: np.ndarray, child: np.ndarray, leaf_size: int,
+                    device) -> "BvhView":
+        """The device view of host arrays: lo, hi (n_nodes, 3) float32, the
+        int32 links, the bool leaf flags."""
+        lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+        skip, child = np.asarray(skip, np.int32), np.asarray(child, np.int32)
+        prim_start, is_leaf = np.asarray(prim_start, np.int32), np.asarray(is_leaf, bool)
+        prims = np.asarray(prims, np.int32)
+        if prims.size % leaf_size or not (prim_start[is_leaf] + leaf_size <= prims.size).all():
+            raise ValueError("BvhView: a leaf's prims run past the prims array")
+        meta = np.where(is_leaf, -1 - prim_start, child).astype(np.int32)
+        nodes = np.concatenate([lo, skip.view(np.float32)[:, None], hi,
+                                meta.view(np.float32)[:, None]], axis=1)
+        t = lambda a: torch.from_numpy(np.array(a)).to(device)  # a writable copy
+        return BvhView(lo_x=t(lo[:, 0]), lo_y=t(lo[:, 1]), lo_z=t(lo[:, 2]),
+                       hi_x=t(hi[:, 0]), hi_y=t(hi[:, 1]), hi_z=t(hi[:, 2]),
+                       skip=t(skip), prim_start=t(prim_start), is_leaf=t(is_leaf),
+                       prims=t(prims), child=t(child), leaf_size=int(leaf_size),
+                       nodes=t(nodes))
+
+
+def build_bvh_for_mesh(mesh, leaf_size: int = 4) -> BvhView:
+    """The skip-link BVH of a MeshView's triangles (bvh.py:224-255), built
+    on the host from the (p0, e1, e2) soup: boxes widened by 1e-7, centroids
+    in float32, as JAX builds them; on the mesh's device."""
+    h = lambda v: np.stack([v.x.detach().cpu().numpy(), v.y.detach().cpu().numpy(),
+                            v.z.detach().cpu().numpy()], 1)
+    p0 = h(mesh.p0)
+    p1 = p0 + h(mesh.e1)
+    p2 = p0 + h(mesh.e2)
+    lo = (np.minimum(np.minimum(p0, p1), p2) - 1e-7).astype(np.float32)
+    hi = (np.maximum(np.maximum(p0, p1), p2) + 1e-7).astype(np.float32)
+    centroids = ((p0 + p1 + p2) / 3.0).astype(np.float32)
+    b, _ = build_bvh(centroids, lo, hi, leaf_size)
+    return BvhView.from_arrays(b.lo, b.hi, b.skip, b.prim_start, b.is_leaf, b.prims,
+                               np.arange(1, b.n_nodes + 1, dtype=np.int32), leaf_size,
+                               mesh.p0.x.device)

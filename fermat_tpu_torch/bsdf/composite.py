@@ -5,7 +5,8 @@ optional perfectly-specular clearcoat (fermat_tpu/bsdf/composite.py).
 Components (bsdf.h:127-155): 0 diffuse reflection, 1 diffuse transmission,
 2 glossy reflection, 3 glossy transmission, 4 clearcoat reflection.
 `lobes` = (dr, dt, gr, gt) is a static mask: a disabled lobe is not computed.
-Only the GGX glossy model is ported (glossy="ltc" raises).
+The glossy reflection lobe is GGX-Smith (glossy="ggx") or its LTC proxy
+(glossy="ltc", bsdf/ltc.py; the reference's USE_LTC switch).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from fermat_tpu_torch.bsdf import ggx
+from fermat_tpu_torch.bsdf.ltc import ltc_eval, ltc_sample
 from fermat_tpu_torch.bsdf.fresnel import schlick
 from fermat_tpu_torch.core.math import Vec3, normalize, dot
 from fermat_tpu_torch.core.sampling import INV_PI, square_to_cosine_hemisphere
@@ -32,10 +34,13 @@ _DELTA_PDF = 1.0e30
 ALL_LOBES = (True, True, True, True)  # (dr, dt, gr, gt)
 
 
+GLOSSY_MODELS = ("ggx", "ltc")
+
+
 def _check_glossy(glossy: str) -> None:
-    if glossy != "ggx":
+    if glossy not in GLOSSY_MODELS:
         raise NotImplementedError(
-            f"glossy_model={glossy!r}: only 'ggx' is ported (the LTC proxy is a later slice)")
+            f"glossy_model={glossy!r}: the glossy models are {GLOSSY_MODELS}")
 
 
 class BsdfParams(NamedTuple):
@@ -177,7 +182,15 @@ def _selection_probs(p: BsdfParams, wi: Vec3, lobes=ALL_LOBES, clearcoat: bool =
     return p_dr, p_dt, p_gr, p_gt, zero
 
 
-def _lobe_values(p: BsdfParams, wi: Vec3, wo: Vec3, lobes, e_fn=None):
+def _glossy_refl_eval(p: BsdfParams, alpha, wi: Vec3, wo: Vec3, glossy: str):
+    """Glossy reflection (f, pdf): GGX-Smith or the LTC proxy
+    (composite.py:233-240)."""
+    if glossy == "ltc":
+        return ltc_eval(p.roughness, wi, wo)
+    return ggx.reflect_eval(alpha, wi, wo), ggx.reflect_pdf(alpha, wi, wo)
+
+
+def _lobe_values(p: BsdfParams, wi: Vec3, wo: Vec3, lobes, glossy: str, e_fn=None):
     """Shared head of f_and_pdf / f_split: lobe weights and per-lobe values."""
     alpha = ggx._alpha(p.roughness)
     r_coeff, w_d, w_dt, w_gt = component_weights(p, wi, wo, e_fn)
@@ -187,7 +200,7 @@ def _lobe_values(p: BsdfParams, wi: Vec3, wo: Vec3, lobes, e_fn=None):
     f_dr = torch.where(same, INV_PI, 0.0) * w_d if lobes[0] else zero
     f_dt = torch.where(~same, INV_PI, 0.0) * w_dt if lobes[1] else zero
     if lobes[2]:
-        g_r, pdf_gr = ggx.reflect_eval(alpha, wi, wo), ggx.reflect_pdf(alpha, wi, wo)
+        g_r, pdf_gr = _glossy_refl_eval(p, alpha, wi, wo, glossy)
     else:
         g_r, pdf_gr = zero, zero
     g_t = ggx.refract_eval(alpha, p.ior, wi, wo) * w_gt if lobes[3] else zero
@@ -210,7 +223,7 @@ def f_and_pdf(p: BsdfParams, wi: Vec3, wo: Vec3, lobes=ALL_LOBES,
     """Composite f and the mixture pdf of `sample` (bsdf.h:336-413)."""
     _check_glossy(glossy)
     alpha, r_coeff, same, abs_co, zero, f_dr, f_dt, g_r, pdf_gr, g_t = (
-        _lobe_values(p, wi, wo, lobes, e_fn))
+        _lobe_values(p, wi, wo, lobes, glossy, e_fn))
     fx = p.diffuse.x * f_dr + p.diffuse_trans.x * f_dt + r_coeff.x * g_r + g_t
     fy = p.diffuse.y * f_dr + p.diffuse_trans.y * f_dt + r_coeff.y * g_r + g_t
     fz = p.diffuse.z * f_dr + p.diffuse_trans.z * f_dt + r_coeff.z * g_r + g_t
@@ -228,7 +241,7 @@ def f_split(p: BsdfParams, wi: Vec3, wo: Vec3, lobes=ALL_LOBES,
     route diffuse vs specular framebuffer channels."""
     _check_glossy(glossy)
     alpha, r_coeff, same, abs_co, zero, f_dr, f_dt, g_r, pdf_gr, g_t = (
-        _lobe_values(p, wi, wo, lobes, e_fn))
+        _lobe_values(p, wi, wo, lobes, glossy, e_fn))
     fd = Vec3(
         p.diffuse.x * f_dr + p.diffuse_trans.x * f_dt,
         p.diffuse.y * f_dr + p.diffuse_trans.y * f_dt,
@@ -291,10 +304,12 @@ def sample(p: BsdfParams, wi: Vec3, u0, u1, u2, lobes=ALL_LOBES,
     d_loc = square_to_cosine_hemisphere(u0, u1)
     wo_dr = Vec3(d_loc.x, d_loc.y, d_loc.z * side)
     wo_dt = Vec3(d_loc.x, d_loc.y, -d_loc.z * side)
-    if lobes[2]:
-        wo_gr, _ = ggx.reflect_sample(alpha, wi, u0, u1)
-    else:
+    if not lobes[2]:
         wo_gr = wo_dr
+    elif glossy == "ltc":
+        wo_gr, _ = ltc_sample(p.roughness, wi, u0, u1)
+    else:
+        wo_gr, _ = ggx.reflect_sample(alpha, wi, u0, u1)
     if lobes[3]:
         wo_gt, pdf_gt_s = ggx.refract_sample(alpha, p.ior, wi, u0, u1)
     else:

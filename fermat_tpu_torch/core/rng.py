@@ -161,10 +161,11 @@ class TiledSequence(NamedTuple):
         return u0, u1, u2
 
 
-# the JAX package's 64x64x2 blue-noise shift table, read from its data
-# directory (rng.py:189-205); one float32 copy per device
-_BLUENOISE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "fermat_tpu", "data", "bluenoise64.npz")
+# the 64x64x2 blue-noise shift table of rng.py:189-205: the port's own
+# byte-for-byte copy of the JAX package's data/bluenoise64.npz, in the
+# port's data directory; one float32 copy per device
+_BLUENOISE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "data", "bluenoise64.npz")
 _BLUENOISE_TABLES = {}
 
 

@@ -22,8 +22,23 @@ from the shade-row fetch (MeshView.shade_fetch_ray), and, above 2048
 triangles, pick lights from the emissive subset with K4. tracer="cluster"
 (K6a/K6b) and tracer="binned" (K7a/K7b) trace the same function over the
 same table at any size and return the barycentrics themselves.
+tracer="bvh", and tracer="auto" above 4096 triangles on a view without a
+cluster table, walk the view's skip-link triangle BVH (ops/bvh_trace.py;
+SceneView.with_bvh() makes it; from_numpy takes JAX's).
 tracer="mega" runs the whole pass as one kernel launch (ops/pt_mega.py).
-`NarrowPass` runs the same bounces with live lanes compacted between them.
+`NarrowPass` runs the same bounces with live lanes compacted between them;
+queue_compaction=True instead permutes the live lanes of the full-width
+carry into a dense prefix before each later bounce and back after the
+loop, a pure lane permutation, bit-equal to the masked pass.
+
+NEE picks its light point from the mesh-light table (nee="mesh") or
+uniformly from the view's presampled VPL set (nee="vpl", whose emissive-hit
+MIS density is lum(Le) / vpls.norm). glossy_model="ltc" takes the LTC
+glossy lobe (bsdf/ltc.py). The debug switches debug_nee_fixed_light,
+debug_nee_cheap_eval and debug_nee_no_shadow bias the mesh-light NEE as
+in JAX (a fixed point light, a diffuse-only f, no shadow ray), and
+detach_nee / detach_emissive detach the NEE and emissive contributions at
+JAX's stop_gradient sites.
 NEE shadow rays of bounce 0 trace the view's direct shadow set and those of
 later bounces its indirect one, when the scene has them (materials flagged
 FLAG_SHADOW_*_IGNORE); a set's tracer is chosen from its own triangle count,
@@ -63,15 +78,17 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from fermat_tpu_torch.accel.traverse import Hit
-from fermat_tpu_torch.bsdf.composite import GLOSSY_REFL, BsdfParams, f_split
+from fermat_tpu_torch.bsdf.composite import GLOSSY_MODELS, GLOSSY_REFL, BsdfParams, f_split
 from fermat_tpu_torch.bsdf.composite import sample as bsdf_sample
 from fermat_tpu_torch.core.camera import generate_camera_rays
 from fermat_tpu_torch.core.math import (Vec3, dot, orthonormal_basis, select, to_local,
                                         to_world)
 from fermat_tpu_torch.core.rng import M32, BlueNoiseSequence, TiledSequence
 from fermat_tpu_torch.core.sampling import power_heuristic, square_to_uniform_triangle
+from fermat_tpu_torch.core.sampling import INV_PI
 from fermat_tpu_torch.ops import pt_mega
 from fermat_tpu_torch.ops.binned_trace import trace_any_binned, trace_closest_binned
+from fermat_tpu_torch.ops.bvh_trace import trace_any_bvh, trace_closest_bvh
 from fermat_tpu_torch.ops.cdf_gather import cdf_pick_rows
 from fermat_tpu_torch.ops.cluster_trace import trace_any_cluster, trace_closest_cluster
 from fermat_tpu_torch.ops.frontier_trace import trace_any_frontier, trace_closest_frontier
@@ -90,7 +107,8 @@ CH_SPECULAR = 2
 
 class PTOptions(NamedTuple):
     """The fields and defaults of fermat_tpu's PTOptions (pt.py:65-115).
-    Values outside this slice raise NotImplementedError in render_pass."""
+    A name outside a field's choices raises NotImplementedError in
+    render_pass."""
 
     max_path_length: int = 6
     direct_lighting_nee: bool = True
@@ -122,28 +140,32 @@ _CLUSTER_TRACERS = ("frontier", "cluster", "binned")  # they need the view's clu
 
 def _trace_mode(n_triangles: int, opts: PTOptions, has_clusters: bool) -> str:
     """Which tracer serves the pass (pt.py:214-224). tracer="mega" runs the
-    whole pass in the megakernel; tracer="auto" takes the dense tracer up to
-    4096 triangles, as in JAX, and the frontier tracer above. The JAX
-    package routes "auto" above 4096 triangles to the frontier tracer on a
-    TPU and to its BVH walk elsewhere; the port has no BVH walk yet, so it
-    takes the frontier function on every device (the wrappers launch the
-    CUDA kernels on a CUDA view and run the plain versions on a CPU view).
-    tracer="frontier", "cluster" and "binned" ask for one of the three
-    cluster-table tracers at any size; they need the view's cluster table,
-    which SceneView.build makes at every size, as in JAX."""
+    whole pass in the megakernel and tracer="bvh" walks the triangle BVH at
+    any size; tracer="auto" takes the dense tracer up to 4096 triangles, as
+    in JAX, and above that the frontier tracer on a view with a cluster
+    table and the BVH walk on one without. (JAX routes "auto" above 4096
+    triangles to the frontier tracer on a TPU and to its BVH walk elsewhere;
+    the port takes the frontier function on every device whose view has the
+    table: the wrappers launch the CUDA kernels on a CUDA view and run the
+    plain versions on a CPU view.) tracer="frontier", "cluster" and "binned"
+    ask for one of the three cluster-table tracers at any size; they need
+    the view's cluster table, which SceneView.build makes at every size, as
+    in JAX."""
     mode = opts.tracer
     if mode == "auto":
-        mode = "dense" if n_triangles <= DENSE_MAX_TRIANGLES else "frontier"
-    if mode in ("dense", "mega"):
+        if n_triangles <= DENSE_MAX_TRIANGLES:
+            return "dense"
+        mode = "frontier" if has_clusters else "bvh"
+    if mode in ("dense", "mega", "bvh"):
         return mode
     if mode not in _CLUSTER_TRACERS:
         raise NotImplementedError(
-            f"tracer={opts.tracer!r}: only 'auto', 'frontier', 'cluster', 'binned' and "
-            "'mega' are ported")
+            f"tracer={opts.tracer!r}: only 'auto', 'bvh', 'frontier', 'cluster', 'binned' "
+            "and 'mega' are ported")
     if not has_clusters:
         raise NotImplementedError(
-            f"{n_triangles} triangles and no cluster table: tracer {mode!r} needs one; "
-            "the BVH walk is not ported")
+            f"{n_triangles} triangles and no cluster table: tracer {mode!r} needs one "
+            "(tracer='bvh' or 'auto' walks the BVH instead)")
     return mode
 
 
@@ -180,9 +202,20 @@ def _pick_tracers(view: SceneView, opts: PTOptions) -> _Tracers:
                     shadow(indirect), uv_from_ray)
 
 
-def _anyhit(mode: str, tris, cl) -> Callable:
-    """The occlusion tracer of one geometry: the dense soup `tris` or the
-    cluster table `cl`, by the route `mode`."""
+def _need_bvh(bvh, what: str):
+    if bvh is None:
+        raise ValueError(
+            f"the BVH walk serves {what}, which has no BVH: build it with "
+            "view.with_bvh()")
+    return bvh
+
+
+def _anyhit(mode: str, tris, cl, bvh, what: str) -> Callable:
+    """The occlusion tracer of one geometry: the dense soup `tris`, the
+    cluster table `cl` or the BVH `bvh` over `tris`, by the route `mode`."""
+    if mode == "bvh":
+        bvh = _need_bvh(bvh, what)
+        return lambda o, d, t0, t1, a: trace_any_bvh(bvh, tris, o, d, t0, t1, a)
     if mode == "frontier":
         return lambda o, d, t0, t1, a: trace_any_frontier(cl, o, d, t0, t1, a)
     if mode == "cluster":
@@ -196,8 +229,11 @@ def _raw_tracers(view: SceneView, opts: PTOptions):
     """(closest, anyhit, uv_from_ray) of the view's own geometry."""
     mode = _trace_mode(view.mesh.n_triangles, opts, view.clusters is not None)
     cl = view.clusters
-    tris = view.mesh.tri_soup() if mode == "dense" else None
-    anyhit = _anyhit(mode, tris, cl)
+    tris = view.mesh.tri_soup() if mode in ("dense", "bvh") else None
+    anyhit = _anyhit(mode, tris, cl, view.bvh, "the view")
+    if mode == "bvh":
+        bvh = view.bvh
+        return lambda o, d, t0, t1, a: trace_closest_bvh(bvh, tris, o, d, t0, t1, a), anyhit, False
     if mode == "frontier":
         return (lambda o, d, t0, t1, a: trace_closest_frontier(cl, o, d, t0, t1, a,
                                                                with_uv=False), anyhit, True)
@@ -216,7 +252,8 @@ def _pick_shadow_anyhits(view: SceneView, opts: PTOptions, anyhit: Callable):
     if view.shadow_sets is None:
         return anyhit, anyhit
     return tuple(anyhit if ss is None else
-                 _anyhit(_trace_mode(ss.mesh.n_triangles, opts, True), ss.tris, ss.clusters)
+                 _anyhit(_trace_mode(ss.mesh.n_triangles, opts, True), ss.tris, ss.clusters,
+                         ss.bvh, "a shadow set")
                  for ss in view.shadow_sets)
 
 
@@ -231,27 +268,26 @@ def _sample_lights_compact(compact: Tuple[Tensor, Tensor], ul0: Tensor, ul1: Ten
     return (*row_sample(r, b0, b1), row_uv(r, b0, b1))
 
 
-_CHOICES = {"sampler": ("owen", "bluenoise"), "texture_filter": ("bilinear", "trilinear")}
+# the names JAX's pass tells apart; JAX takes any other name for the
+# field's default branch, the port refuses it
+_CHOICES = {"sampler": ("owen", "bluenoise"), "texture_filter": ("bilinear", "trilinear"),
+            "nee": ("mesh", "vpl"), "glossy_model": GLOSSY_MODELS}
 
 
 def _check_options(opts: PTOptions) -> None:
-    for name, ported in _CHOICES.items():
-        if getattr(opts, name) not in ported:
+    for name, known in _CHOICES.items():
+        if getattr(opts, name) not in known:
             raise NotImplementedError(
-                f"PTOptions.{name}={getattr(opts, name)!r}: ported are {ported}")
-    later = {
-        "nee": (opts.nee, "mesh"),
-        "glossy_model": (opts.glossy_model, "ggx"),
-        "queue_compaction": (opts.queue_compaction, False),
-        "detach_nee": (opts.detach_nee, False),
-        "detach_emissive": (opts.detach_emissive, False),
-        "debug_nee_no_shadow": (opts.debug_nee_no_shadow, False),
-        "debug_nee_fixed_light": (opts.debug_nee_fixed_light, False),
-        "debug_nee_cheap_eval": (opts.debug_nee_cheap_eval, False),
-    }
-    for name, (value, ported) in later.items():
-        if value != ported:
-            raise NotImplementedError(f"PTOptions.{name}={value!r} is outside this slice")
+                f"PTOptions.{name}={getattr(opts, name)!r}: the choices are {known}")
+
+
+def _check_view(view: SceneView, opts: PTOptions) -> None:
+    """nee="vpl" needs the view's VPL set. JAX's pass reads view.vpls.norm
+    at every emissive hit after bounce 0 and fails there on a view without
+    one (pt.py:752); the port refuses the view before the pass."""
+    if opts.nee == "vpl" and view.vpls is None:
+        raise ValueError("nee='vpl' on a view without a VPL set (nothing emits, or the view "
+                         "was built with n_vpls=0 or from leaves without vpls.*)")
 
 
 class _PassOutput(NamedTuple):
@@ -335,6 +371,12 @@ def _add_nee(c: Carry, first: bool, lit: Tensor, fd: Vec3, fg: Vec3, wX: Tensor,
         )
     contrib = Vec3((fd.x + fg.x) * wX, (fd.y + fg.y) * wY, (fd.z + fg.z) * wZ)
     return _add_routed(c, contrib, lit, c.channel)
+
+
+def _detached(*xs):
+    """Each tensor or Vec3 of xs detached (JAX's stop_gradient)."""
+    return tuple(Vec3(*(a.detach() for a in x)) if isinstance(x, Vec3) else x.detach()
+                 for x in xs)
 
 
 def _stride(view: SceneView, opts: PTOptions) -> int:
@@ -449,7 +491,11 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq, tr: _Tracer
             w_mis = torch.ones(n, dtype=torch.float32, device=pos.x.device)
         else:
             # MIS vs the NEE at vertex b-1 that could have sampled this emitter
-            pdf_area = view.lights.pdf_area_of(tri_c)
+            if opts.nee == "vpl":  # the VPL density, lum(Le at the hit) / norm (pt.py:748-752)
+                pdf_area = ((0.2126 * le.x + 0.7152 * le.y + 0.0722 * le.z)
+                            / torch.clamp_min(view.vpls.norm, 1e-20))
+            else:
+                pdf_area = view.lights.pdf_area_of(tri_c)
             # miss lanes carry t = 3e38: t*t would overflow
             t_safe = torch.where(valid, hit.t, 1.0)
             dist2 = t_safe * t_safe
@@ -462,6 +508,8 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq, tr: _Tracer
             show_mask = opts.direct_lighting_bsdf if is_direct else opts.indirect_lighting_bsdf
             w_mis = w_mis * float(show_mask)
         contrib = Vec3(c.thr.x * le.x * w_mis, c.thr.y * le.y * w_mis, c.thr.z * le.z * w_mis)
+        if opts.detach_emissive:  # pt.py:774-775
+            contrib, = _detached(contrib)
         c = _add_routed(c, contrib, valid, c.channel)
 
     # ---- NEE: mesh lights ----
@@ -470,23 +518,38 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq, tr: _Tracer
     bsdf_on = opts.direct_lighting_bsdf if first else opts.indirect_lighting_bsdf
     if nee_on:
         ul0, ul1, ul2 = seq.sample_3d(c.pix_u, base_dim)
-        if view.lights.compact is not None:
-            lpos, ln, lle, lpdf_a, luv = _sample_lights_compact(view.lights.compact, ul0, ul1,
-                                                                ul2)
-        elif emissive_maps:
-            lpos, ln, lle, lpdf_a, _, *luv = view.lights.sample_ex(ul0, ul1, ul2)
+        if opts.debug_nee_fixed_light:  # pt.py:794-798
+            f32 = dict(dtype=torch.float32, device=pos.x.device)
+            lpos = Vec3(torch.zeros(n, **f32), torch.full((n,), 1.9, **f32), torch.zeros(n, **f32))
+            ln = Vec3(torch.zeros(n, **f32), torch.full((n,), -1.0, **f32), torch.zeros(n, **f32))
+            lle = Vec3.full(n, 10.0, 10.0, 10.0, pos.x.device)
+            lpdf_a = torch.ones(n, **f32)
+        elif opts.nee == "vpl":  # a uniform VPL pick, its Le textured at build (pt.py:799-802)
+            lpos, ln, lle, lpdf_a, _ = view.vpls.sample(ul2)
         else:
-            lpos, ln, lle, lpdf_a, _ = view.lights.sample(ul0, ul1, ul2)
-        if emissive_maps:
-            luv_u, luv_v, lemap = luv
-            lle = modulate(lle, view.textures.sample(lemap, luv_u, luv_v))
+            if view.lights.compact is not None:
+                lpos, ln, lle, lpdf_a, luv = _sample_lights_compact(view.lights.compact, ul0,
+                                                                    ul1, ul2)
+            elif emissive_maps:
+                lpos, ln, lle, lpdf_a, _, *luv = view.lights.sample_ex(ul0, ul1, ul2)
+            else:
+                lpos, ln, lle, lpdf_a, _ = view.lights.sample(ul0, ul1, ul2)
+            if emissive_maps:
+                luv_u, luv_v, lemap = luv
+                lle = modulate(lle, view.textures.sample(lemap, luv_u, luv_v))
         to_l = lpos - pos
         dist2 = torch.clamp_min(dot(to_l, to_l), 1e-12)
         dist = torch.sqrt(dist2)
         wo = to_l * (1.0 / dist)
         cos_l = dot(ln, -wo)  # the light must face the shading point
         wo_loc = to_local(wo, t_b, b_b, sn_f)
-        fd, fg, bsdf_pdf = split(wo_loc)
+        if opts.debug_nee_cheap_eval:  # a diffuse-only f (pt.py:832-838)
+            lam = torch.where((wi_loc.z * wo_loc.z) > 0.0, INV_PI, 0.0)
+            fd = Vec3(params.diffuse.x * lam, params.diffuse.y * lam, params.diffuse.z * lam)
+            fg = Vec3.zeros(n, pos.x.device)
+            bsdf_pdf = torch.abs(wo_loc.z) * INV_PI
+        else:
+            fd, fg, bsdf_pdf = split(wo_loc)
         pdf_sa = (lpdf_a * dist2 / torch.clamp_min(torch.abs(cos_l), 1e-8)).detach()  # pt.py:841
         # pt.py:846
         w_mis = (power_heuristic(pdf_sa, bsdf_pdf).detach() if bsdf_on
@@ -494,11 +557,16 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq, tr: _Tracer
         cos_s = torch.abs(wo_loc.z)
         able = (valid & view.lights.has_lights & (cos_l > 1e-6) & (pdf_sa > 1e-12)
                 & ((fd.x + fd.y + fd.z + fg.x + fg.y + fg.z) > 0.0))
-        so = _offset_origin(pos, gn, wo, eps)
-        occluded = sh_anyhit(so, wo, 0.0, dist * (1.0 - 1e-3), able)
+        if opts.debug_nee_no_shadow:  # no shadow ray (pt.py:859-862)
+            occluded = torch.zeros_like(able)
+        else:
+            so = _offset_origin(pos, gn, wo, eps)
+            occluded = sh_anyhit(so, wo, 0.0, dist * (1.0 - 1e-3), able)
         c = _count(c, able)
         lit = able & ~occluded
         scale = cos_s * w_mis / torch.clamp_min(pdf_sa, 1e-12)
+        if opts.detach_nee:  # pt.py:867-871
+            scale, fd, fg, lle = _detached(scale, fd, fg, lle)
         c = _add_nee(c, first, lit, fd, fg, c.thr.x * lle.x * scale, c.thr.y * lle.y * scale,
                      c.thr.z * lle.z * scale)
 
@@ -521,6 +589,8 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq, tr: _Tracer
         occ_e = sh_anyhit(so_e, wo_e, 0.0, 3.0e38, able_e)
         c = _count(c, able_e)
         scale_e = cos_se * w_mis_e / torch.clamp_min(pdf_e, 1e-12)
+        if opts.detach_nee:  # pt.py:925-929
+            scale_e, fde, fge, le_e = _detached(scale_e, fde, fge, le_e)
         c = _add_nee(c, first, able_e & ~occ_e, fde, fge, c.thr.x * le_e.x * scale_e,
                      c.thr.y * le_e.y * scale_e, c.thr.z * le_e.z * scale_e)
 
@@ -545,6 +615,8 @@ def _bounce(b: int, c: Carry, view: SceneView, opts: PTOptions, seq, tr: _Tracer
         occluded = sh_anyhit(so, wo, 0.0, dist * (1.0 - 1e-3), able)
         c = _count(c, able)
         scale = cos_s / torch.clamp_min(pdf_sa, 1e-12)
+        if opts.detach_nee:  # pt.py:983-986; Le keeps its gradient
+            scale, fd, fg = _detached(scale, fd, fg)
         c = _add_nee(c, first, able & ~occluded, fd, fg, c.thr.x * lle.x * scale,
                      c.thr.y * lle.y * scale, c.thr.z * lle.z * scale)
 
@@ -694,6 +766,7 @@ def render_pass(view: SceneView, opts: PTOptions, res_x: int, res_y: int,
     if tables is not None:
         raise ValueError(f"tables are the megakernel's; tracer={opts.tracer!r} takes none")
     _check_options(opts)
+    _check_view(view, opts)
     emissive = view.mesh.materials.emissive
     if (torch.is_grad_enabled() and any(t.requires_grad for t in emissive)
             and not view.lights.follows(emissive)):
@@ -706,9 +779,39 @@ def render_pass(view: SceneView, opts: PTOptions, res_x: int, res_y: int,
     st = _pass_state(view, opts, res_x, instance, seed)
     c = _first_bounce(view, opts, st, res_x, res_y)
     for b in range(1, opts.max_path_length):
+        if opts.queue_compaction:
+            c = _compact_carry(c)
         c = _bounce(b, c, view, opts, *st)
+    if opts.queue_compaction:  # lane i holds the path that started at lane lane0[i]
+        c = _permute_carry(c, c.lane0.long())
     return _assemble(_Accum(c.l_direct, c.l_diffuse, c.l_specular, c.rays_lane),
                      _gbuffer(c), c.rays)
+
+
+def _permute_carry(c: Carry, dest: Tensor) -> Carry:
+    """The carry with lane i moved to lane dest[i] (dest a permutation of
+    the lanes); the scalar ray counter stays."""
+    n = c.alive.shape[0]
+
+    def put(a):
+        if isinstance(a, Vec3):
+            return Vec3(*(put(x) for x in a))
+        if a.dim() == 0 or a.shape[0] != n:
+            return a
+        return torch.empty_like(a).index_copy(0, dest, a)
+
+    return Carry(*(put(a) for a in c))
+
+
+def _compact_carry(c: Carry) -> Carry:
+    """Live lanes to a dense prefix, dead lanes after them, each in lane
+    order (pt.py:1144-1161, the queue-append analog by a cumsum): a pure
+    reorder, whose accumulators, pixel ids and lane origins travel with
+    their lane, so the estimator is bit-equal to the masked pass."""
+    m = c.alive.to(torch.int64)
+    live_pos = torch.cumsum(m, 0) - m
+    dead_pos = m.sum() + torch.cumsum(1 - m, 0) - (1 - m)
+    return _permute_carry(c, torch.where(c.alive, live_pos, dead_pos))
 
 
 class _Accum(NamedTuple):
@@ -763,6 +866,7 @@ class NarrowPass:
             raise ValueError("narrowing replaces in-loop queue compaction")
         _trace_mode(view.mesh.n_triangles, opts, view.clusters is not None)
         _check_options(opts)
+        _check_view(view, opts)
         self.view, self.opts, self.seed = view, opts, seed
         self.res_x, self.res_y = res_x, res_y
         self.n = res_x * res_y

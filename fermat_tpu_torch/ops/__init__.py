@@ -16,5 +16,9 @@
     visits binned by cluster (replaces ops/pallas_binned_trace.py)
   * sub_trace.py — K8a/K8b, the same function over 32-triangle leaves,
     four staged together per step (replaces ops/pallas_sub_trace.py)
+  * bvh_trace.py — the skip-link BVH walk, closest / any hit, one thread a
+    ray (replaces accel/traverse.py's XLA while_loop, not a Pallas kernel)
+  * compact.py — stream compaction and splats (ops/compact.py), plain
+    PyTorch
   * _cuda.py  — builds csrc/*.cu with nvcc on first use and binds them (ctypes)
 """

@@ -133,7 +133,10 @@ def mega_eligible(view, opts) -> bool:
     """The static gate of pallas_pt_mega.py:136-162 on the port's SceneView:
     the megakernel's scene has mesh emitters and a constant environment
     only, so an environment map, point, directional or analytic area
-    lights, shadow sets or textures keep a view out."""
+    lights, shadow sets or textures keep a view out. glossy_model="ltc"
+    keeps an option set out too: JAX's gate lets it through, but its
+    megakernel cannot run it (its LTC fetch fails to broadcast inside the
+    kernel), so the port's megakernel has no LTC lobe."""
     n_t = view.mesh.n_triangles
     if n_t == 0 or n_t > MEGA_T_MAX:
         return False
@@ -145,7 +148,7 @@ def mega_eligible(view, opts) -> bool:
         return False
     if view.mesh.materials.roughness.shape[0] > MEGA_M_MAX:
         return False
-    if opts.nee != "mesh" or opts.queue_compaction:
+    if opts.nee != "mesh" or opts.queue_compaction or opts.glossy_model != "ggx":
         return False
     if opts.debug_nee_no_shadow or opts.debug_nee_fixed_light or opts.debug_nee_cheap_eval:
         return False
@@ -567,6 +570,12 @@ def _prepare(view, opts, res_x: int, res_y: int, tables):
     from fermat_tpu_torch.integrators.pt import _check_options
 
     _check_options(opts)
+    if opts.glossy_model != "ggx":
+        raise NotImplementedError(
+            f"tracer='mega' with glossy_model={opts.glossy_model!r}: the megakernel has the "
+            "GGX lobe only. JAX's mega_eligible admits 'ltc', but JAX's megakernel then fails "
+            "(its LTC table fetch does not broadcast inside the Pallas kernel), so there is "
+            "no reference to port; the dense tracer renders the LTC lobe")
     _require(mega_eligible(view, opts), "this view or option set")
     return tables if tables is not None else build_mega_tables(view, res_x, res_y, opts.ray_eps)
 

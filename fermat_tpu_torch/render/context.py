@@ -11,8 +11,9 @@ where the materials' texture names are looked up (SceneView.build).
 
 The context runs on "cuda" unless the caller passes device="cpu"; with
 device="cuda" and no GPU it raises. The registry holds "pt" only; its
-options are PTOptions' fields (tracer="frontier", "cluster", "binned" or
-"mega" picks the tracer of both drivers). The renderer option narrow=1 makes
+options are PTOptions' fields (tracer="bvh", "frontier", "cluster", "binned"
+or "mega" picks the tracer of both drivers; with tracer="bvh" the view gets
+its BVH, SceneView.with_bvh). The renderer option narrow=1 makes
 render() run each pass through the narrowing driver (integrators/pt.
 NarrowPass, context.py:316-372); render_batch keeps the monolithic pass, as
 in JAX.
@@ -76,6 +77,8 @@ class RenderingContext:
         view = SceneView.build(storage, camera, dev, env_radiance=env_radiance,
                                dir_light_defs=dir_lights, point_light_defs=point_lights,
                                env_map=env_map, texture_dir=texture_dir)
+        if renderer_options.get("tracer") == "bvh":
+            view = view.with_bvh()
         renderer_options = dict(renderer_options)
         renderer_options.setdefault("lobes", scene_lobes(storage.materials))
         renderer_options.setdefault("clearcoat", scene_clearcoat(storage.materials))

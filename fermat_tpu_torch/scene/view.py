@@ -6,7 +6,13 @@ subset of scenes over 2048 triangles), the camera, the environment radiance
 and the cluster table of the cluster-table tracers (accel/cluster.py), which
 `build` makes at every size, as the JAX package does (view.py:115-117):
 tracer="auto" takes the dense tracer up to 4096 triangles, and "frontier",
-"cluster" and "binned" serve any scene. There is no triangle BVH.
+"cluster" and "binned" serve any scene. The triangle BVH of the skip-link
+walk (accel/bvh.py; tracer="bvh", and tracer="auto" above 4096 triangles
+on a view without a cluster table) is built only when asked for, by
+`with_bvh()` (`from_numpy` takes JAX's BVH leaves when they are there): its
+host build, a Python recursion over nodes, takes seconds for big_room's
+99,636 triangles, which no other route needs. `vpls` is the presampled VPL set of
+nee="vpl" (scene/mesh_lights.py), built with the view as in JAX.
 
 The light model beside the mesh emitters (view.py:65-181): directional and
 point lights, analytic disk/rect area lights, a lat-long environment map
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from fermat_tpu_torch import resolve_device
+from fermat_tpu_torch.accel.bvh import BvhView, build_bvh_for_mesh
 from fermat_tpu_torch.accel.cluster import (DENSE_MAX_TRIANGLES, ClusterView, build_clusters,
                                             cluster_view)
 from fermat_tpu_torch.core.camera import Camera
@@ -44,7 +51,7 @@ from fermat_tpu_torch.scene.materials import (
     MaterialTable,
 )
 from fermat_tpu_torch.scene.mesh import MeshStorage, MeshView
-from fermat_tpu_torch.scene.mesh_lights import textured_tri_energies
+from fermat_tpu_torch.scene.mesh_lights import VPLView, build_vpls, textured_tri_energies
 from fermat_tpu_torch.scene.textures import TextureAtlas
 from fermat_tpu_torch.utils.image import read_image
 
@@ -53,6 +60,9 @@ Tensor = torch.Tensor
 _AREA_COLUMNS = ("px", "py", "pz", "ux", "uy", "uz", "vx", "vy", "vz", "nx", "ny", "nz",
                  "cx", "cy", "cz")
 _BOX_ROWS = ("lo_x", "lo_y", "lo_z", "hi_x", "hi_y", "hi_z")
+# the array leaves of JAX's BvhView in its flatten order (bvh.py:43-46); a
+# JAX view's leaves name them "bvh[<flat index i>]"
+_BVH_LEAVES = (*_BOX_ROWS, "skip", "prim_start", "is_leaf", "prims", "child")
 
 
 def _resolve_textures(storage: MeshStorage, texture_dir: Optional[str]) -> list:
@@ -107,13 +117,15 @@ class ShadowSet(NamedTuple):
     without the triangles whose material sets the bit."""
 
     mesh: MeshView  # the kept triangles (vertices shared, MeshStorage.filtered)
-    tris: Tensor  # (9, T') their soup, the dense any-hit tracer's input
+    tris: Tensor  # (9, T') their soup, the dense any-hit tracer's and the walk's input
     clusters: ClusterView  # their cluster table, the cluster-table tracers' input
+    bvh: Optional[BvhView] = None  # their BVH, the walk's input; SceneView.with_bvh
 
 
-def _shadow_set(mesh: MeshView, clusters: Optional[ClusterView] = None) -> ShadowSet:
+def _shadow_set(mesh: MeshView, clusters: Optional[ClusterView] = None,
+                bvh: Optional[BvhView] = None) -> ShadowSet:
     return ShadowSet(mesh, mesh.tri_soup(), build_clusters(mesh) if clusters is None
-                     else clusters)
+                     else clusters, bvh)
 
 
 def _build_shadow_sets(storage: MeshStorage, dev) -> Optional[Tuple]:
@@ -133,7 +145,8 @@ def _build_shadow_sets(storage: MeshStorage, dev) -> Optional[Tuple]:
         if drop.all():
             raise ValueError(f"shadow mask bit {bit}: every triangle's material ignores it, "
                              "so its shadow set is empty (the JAX build refuses it too)")
-        return _shadow_set(storage.filtered(~drop).device_view(dev))
+        mesh = storage.filtered(~drop).device_view(dev)
+        return _shadow_set(mesh)
 
     sets = (one(FLAG_SHADOW_DIRECT_IGNORE), one(FLAG_SHADOW_INDIRECT_IGNORE))
     return None if all(x is None for x in sets) else sets
@@ -152,6 +165,8 @@ class SceneView(NamedTuple):
     area_lights: Optional[AreaLightsView] = None
     textures: Optional[TextureAtlas] = None  # None: no texture loaded
     textured_emitters: Optional[np.ndarray] = None  # _textured_emitters, with textures
+    vpls: Optional[VPLView] = None  # nee="vpl"'s VPL set; None when nothing emits
+    bvh: Optional[BvhView] = None  # the walk's BVH; with_bvh builds it
 
     @property
     def device(self) -> torch.device:
@@ -164,19 +179,22 @@ class SceneView(NamedTuple):
     @staticmethod
     def build(storage: MeshStorage, camera: Camera, device="cuda",
               env_radiance=(0.0, 0.0, 0.0), dir_light_defs=(), point_light_defs=(),
-              env_map=None, area_light_defs=(), texture_dir=None) -> "SceneView":
+              env_map=None, area_light_defs=(), texture_dir=None,
+              n_vpls: int = 256) -> "SceneView":
         """The view of a host mesh (view.py:65-181). dir_light_defs: records
         with `direction` and `color` (scene.lights.DirectionalLightDef);
         point_light_defs: (position, intensity) pairs; env_map: an (H, W, 3)
         float32 lat-long radiance image; area_light_defs: dicts of
         scene.analytic_lights.AreaLightsView.build; texture_dir: where the
-        materials' texture names are looked up first. The materials' map
-        slots are set in place, as in JAX."""
+        materials' texture names are looked up first; n_vpls: the size of
+        the VPL set (0: none). The materials' map slots are set in place,
+        as in JAX. The walk's BVH is not built here: with_bvh() adds it."""
         dev = resolve_device(device)
         images = _resolve_textures(storage, texture_dir)
         mesh = storage.device_view(dev)
         mesh_np = host_arrays(mesh)
-        lights = MeshLightsView.build(mesh_np, dev, textured_tri_energies(mesh_np, images))
+        energies = textured_tri_energies(mesh_np, images)
+        lights = MeshLightsView.build(mesh_np, dev, energies)
         # with a map, `env` scales its radiance: a zero default would black it out
         if env_map is not None and tuple(env_radiance) == (0.0, 0.0, 0.0):
             env_radiance = (1.0, 1.0, 1.0)
@@ -199,7 +217,18 @@ class SceneView(NamedTuple):
             textured_emitters=(_textured_emitters(lights.pdf_area.cpu().numpy(),
                                                   lights.rows.cpu().numpy())
                                if images else None),
+            vpls=build_vpls(mesh_np, n_vpls, energies, images, dev) if n_vpls > 0 else None,
         )
+
+    def with_bvh(self) -> "SceneView":
+        """The view with the walk's BVH built for its mesh and for each
+        shadow set that has none (on the host, then on the view's device)."""
+        sets = self.shadow_sets
+        if sets is not None:
+            sets = tuple(ss if ss is None or ss.bvh is not None
+                         else ss._replace(bvh=build_bvh_for_mesh(ss.mesh)) for ss in sets)
+        return self._replace(bvh=self.bvh if self.bvh is not None
+                             else build_bvh_for_mesh(self.mesh), shadow_sets=sets)
 
     @staticmethod
     def from_numpy(arrays: Dict[str, np.ndarray], device) -> "SceneView":
@@ -217,9 +246,11 @@ class SceneView(NamedTuple):
         CDF and total (not rebuilt), the analytic area lights, and the
         point and directional lights (None when the JAX view holds none).
         A texture atlas with real texels (more than JAX's one white texel)
-        comes across bit for bit, its RGBA8 mirror included. Leaves the port
-        does not read (the BVHs, the VPL set of nee="vpl", the cluster table
-        of a small scene) are ignored.
+        comes across bit for bit, its RGBA8 mirror included, and so does the
+        VPL set of nee="vpl" ("vpls.rows", "vpls.norm"). The view and each
+        shadow set take the walk's BVH from JAX's leaves ("bvh[<flat index
+        i>]", BvhView's arrays in JAX's flatten order) when they are there;
+        with_bvh() builds the ones that are missing.
 
         The view's tensors are plain copies of the arrays, none requiring
         grad. To differentiate a pass in material fields, replace them by
@@ -263,6 +294,17 @@ class SceneView(NamedTuple):
                 materials=materials,
             )
 
+        def bvh_of(p):
+            key = lambda i: f"{p}bvh[<flat index {i}>]"
+            if key(0) not in arrays:
+                return None
+            a = {f: host(key(i)) for i, f in enumerate(_BVH_LEAVES)}
+            lo = np.stack([a["lo_x"], a["lo_y"], a["lo_z"]], 1)
+            hi = np.stack([a["hi_x"], a["hi_y"], a["hi_z"]], 1)
+            leaf_size = a["prims"].size // max(int(a["is_leaf"].sum()), 1)
+            return BvhView.from_arrays(lo, hi, a["skip"], a["prim_start"], a["is_leaf"],
+                                       a["prims"], a["child"], leaf_size, dev)
+
         def clusters_of(p, mesh):
             if p + "clusters.tri" not in arrays:
                 return build_clusters(mesh)
@@ -287,7 +329,7 @@ class SceneView(NamedTuple):
             p = f"shadow_sets[{k}]."
             if p + "mesh.p0.x" in arrays:
                 smesh = mesh_view(p + "mesh.")
-                sets.append(_shadow_set(smesh, clusters_of(p, smesh)))
+                sets.append(_shadow_set(smesh, clusters_of(p, smesh), bvh_of(p)))
             else:
                 sets.append(None)
         env_map = None
@@ -304,10 +346,14 @@ class SceneView(NamedTuple):
             textures = TextureAtlas.from_arrays(
                 {k: arrays.get("textures." + k) for k in TextureAtlas._fields}, dev)
             textured = _textured_emitters(host("lights.pdf_area"), host("lights.rows"))
+        vpls = None
+        if "vpls.rows" in arrays:
+            vpls = VPLView(rows=t("vpls.rows"), norm=t("vpls.norm"))
         return SceneView(
             mesh=mesh, lights=lights, camera=camera, env=t("env"), clusters=clusters,
             dir_lights=soa("dir_lights.", DirectionalLightsView._fields, DirectionalLightsView),
             point_lights=soa("point_lights.", PointLightsView._fields, PointLightsView),
             shadow_sets=None if all(x is None for x in sets) else tuple(sets),
             env_map=env_map, area_lights=area, textures=textures, textured_emitters=textured,
+            vpls=vpls, bvh=bvh_of(""),
         )

@@ -167,13 +167,15 @@ def test_context_narrow_option():
     (36, "auto", False, "dense"), (4097, "auto", True, "frontier"),
     (36, "frontier", True, "frontier"), (36, "mega", False, "mega"),
     (36, "cluster", True, "cluster"), (4097, "binned", True, "binned"),
+    # the BVH walk: asked for at any size, and "auto" above 4096 triangles
+    # on a view without a cluster table (JAX's route off the TPU)
+    (4097, "auto", False, "bvh"), (36, "bvh", False, "bvh"),
 ])
 def test_trace_mode_routes(n_tris, tracer, has_clusters, mode):
     assert tpt._trace_mode(n_tris, tpt.PTOptions(tracer=tracer), has_clusters) == mode
 
 
-@pytest.mark.parametrize("n_tris,tracer", [(4097, "auto"), (36, "frontier"), (36, "binned"),
-                                           (36, "cluster")])
+@pytest.mark.parametrize("n_tris,tracer", [(36, "frontier"), (36, "binned"), (36, "cluster")])
 def test_trace_mode_refuses(n_tris, tracer):
     with pytest.raises(NotImplementedError):
         tpt._trace_mode(n_tris, tpt.PTOptions(tracer=tracer), False)

@@ -107,7 +107,9 @@ def test_sample_matches(batch, lobes, clearcoat):
 
 
 def test_glossy_model_ltc_raises(batch):
+    """The LTC lobe is ported (tests/test_torch_options.py holds it to JAX):
+    a glossy model name JAX does not know raises."""
     p, wi, wo, _ = batch
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="glossy"):
         tc.f_split(_tparams(p), TV(*map(torch.from_numpy, wi)),
-                   TV(*map(torch.from_numpy, wo)), glossy="ltc")
+                   TV(*map(torch.from_numpy, wo)), glossy="beckmann")

@@ -30,6 +30,7 @@ from fermat_tpu_torch.core.math import Vec3  # noqa: E402
 from fermat_tpu_torch.integrators import pt as tpt  # noqa: E402
 from fermat_tpu_torch.accel.cluster import build_clusters, build_subclusters  # noqa: E402
 from fermat_tpu_torch.ops import binned_trace as bt  # noqa: E402
+from fermat_tpu_torch.ops import bvh_trace  # noqa: E402
 from fermat_tpu_torch.ops import cdf_gather  # noqa: E402
 from fermat_tpu_torch.ops import cluster_trace as ct  # noqa: E402
 from fermat_tpu_torch.ops import frontier_trace as ft  # noqa: E402
@@ -832,10 +833,11 @@ def test_shadow_set_tracers_match_plain_on_card(dev):
 
 def _forced_plain(dev):
     """monkeypatch targets that put every kernel's plain version in the pass."""
-    from fermat_tpu_torch.accel.traverse import Hit
+    from fermat_tpu_torch.accel.traverse import Hit, walk_any, walk_closest
     from fermat_tpu_torch.core import rng as rng_mod
     from fermat_tpu_torch.scene import lights as lights_mod
     from fermat_tpu_torch.scene import mesh as mesh_mod
+    from fermat_tpu_torch.scene import mesh_lights as mesh_lights_mod
     from fermat_tpu_torch.scene import textures as textures_mod
 
     lanes = lambda o, a, b: (trace_mod._lanes(a, o.x.shape[0], dev),
@@ -854,9 +856,16 @@ def _forced_plain(dev):
             (tpt, "trace_closest_frontier", closest_frontier),
             (tpt, "trace_any_frontier",
              lambda cl, o, d, t0, t1, a=None: ft._any_plain(cl, o, d, *lanes(o, t0, t1), a)),
+            (tpt, "trace_closest_bvh",
+             lambda b, tr, o, d, t0, t1, a=None: walk_closest(b, tr, o, d,
+                                                              *trace_mod._lane_args(o, t0, t1, a))),
+            (tpt, "trace_any_bvh",
+             lambda b, tr, o, d, t0, t1, a=None: walk_any(b, tr, o, d,
+                                                          *trace_mod._lane_args(o, t0, t1, a))),
             (tpt, "cdf_pick_rows", cdf_gather._pick_plain),
             (mesh_mod, "gather_rows", gather_mod._gather_plain),
             (lights_mod, "gather_rows", gather_mod._gather_plain),
+            (mesh_lights_mod, "gather_rows", gather_mod._gather_plain),
             (textures_mod, "gather_rows", gather_mod._gather_plain),
             (rng_mod, "gather_rows", gather_mod._gather_plain)]
 
@@ -1047,3 +1056,161 @@ def test_bluenoise_sequence_on_card_equals_cpu(dev):
         for a, b in zip(got, want):
             assert torch.equal(_bits(a.cpu()), _bits(b))
     assert gather_mod.GATHER.launches == before + 3
+
+
+# ---- the BVH walk and the remaining PT options ----
+
+_BVH_SCENES = {}
+
+
+def _bvh_scene(dev, scene):
+    """(mesh view, BVH) of the CornellBox, random_soup(5000) or big_room(400)."""
+    from fermat_tpu_torch.accel.bvh import build_bvh_for_mesh
+
+    if scene not in _BVH_SCENES:
+        storage = {"cornell": lambda: cornell_box(glossy_boxes=True),
+                   "soup5000": lambda: random_soup(5000),
+                   "big_room400": lambda: big_room(400)}[scene]()
+        mesh = storage.device_view(dev)
+        _BVH_SCENES[scene] = (mesh, build_bvh_for_mesh(mesh))
+    return _BVH_SCENES[scene]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["cornell", "soup5000", "big_room400"])
+def test_bvh_kernels_match_plain_on_card(dev, scene):
+    """csrc/bvh.cu against the plain lockstep walk on 65,536 random rays, a
+    tenth of them inactive: t, u, v bit-equal, tri and occlusion equal; one
+    launch a call."""
+    from fermat_tpu_torch.accel.traverse import walk_any, walk_closest
+
+    mesh, bvh = _bvh_scene(dev, scene)
+    tris = mesh.tri_soup()
+    o, d, active, tmax = _rays(65536, -1.0, 1.0, dev, seed=7)
+    if scene != "soup5000":
+        o = Vec3(o.x, o.y + 1.0, o.z)
+    n = o.x.shape[0]
+    before = (bvh_trace.CLOSEST.launches, bvh_trace.ANY.launches)
+    hit = bvh_trace.trace_closest_bvh(bvh, tris, o, d, 1e-4, 3.0e38, active)
+    occ = bvh_trace.trace_any_bvh(bvh, tris, o, d, 1e-4, tmax, active)
+    torch.cuda.synchronize()
+    assert (bvh_trace.CLOSEST.launches, bvh_trace.ANY.launches) == (before[0] + 1, before[1] + 1)
+    t0, t1 = trace_mod._lanes(1e-4, n, dev), trace_mod._lanes(3.0e38, n, dev)
+    ref = walk_closest(bvh, tris, o, d, t0, t1, active)
+    ref_occ = walk_any(bvh, tris, o, d, t0, tmax, active)
+    assert torch.equal(hit.tri, ref.tri) and int((hit.tri >= 0).sum()) > n // 10
+    for a, b in ((hit.t, ref.t), (hit.u, ref.u), (hit.v, ref.v)):
+        assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(occ, ref_occ)
+    # the dense tracer's answer where the scene is small enough for it: the
+    # same t on every ray; another triangle only where two tie in t (the walk
+    # takes the first it visits, K1a the lower id)
+    if scene == "cornell":
+        dense = trace_mod.trace_closest(tris, o, d, 1e-4, 3.0e38, active)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(dense.t), _bits(hit.t))
+        assert (dense.tri == hit.tri).float().mean() > 0.99
+
+
+@pytest.mark.cuda
+def test_bvh_wrappers_reject_bad_input(dev):
+    mesh, bvh = _bvh_scene(dev, "cornell")
+    o, d, active, _ = _rays(1024, -1.0, 1.0, dev, seed=8)
+    with pytest.raises(ValueError):
+        bvh_trace.trace_closest_bvh(bvh, mesh.tri_soup().cpu(), o, d, 1e-4, 1.0, active)
+    with pytest.raises(ValueError):
+        bvh_trace.trace_any_bvh(bvh, mesh.tri_soup()[:8].contiguous(), o, d, 1e-4, 1.0, active)
+
+
+_OPTION_CELLS = [{"nee": "vpl"}, {"glossy_model": "ltc"}, {"queue_compaction": True},
+                 {"detach_nee": True}, {"detach_emissive": True},
+                 {"debug_nee_no_shadow": True}, {"debug_nee_fixed_light": True},
+                 {"debug_nee_cheap_eval": True}, {"tracer": "bvh"}]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", _OPTION_CELLS, ids=lambda o: "-".join(f"{k}={v}"
+                                                                   for k, v in o.items()))
+def test_options_pass_kernels_match_plain_on_card(dev, opt, monkeypatch):
+    """A 64x64 CornellBox pass under each ported option with the kernels
+    against the same pass with every plain version forced (the BVH walk's
+    and the VPL pick's included): rays equal, every channel bit-equal; the
+    compaction pass also bit-equal to the masked one."""
+    view = SceneView.build(cornell_box(glossy_boxes=True), cornell_camera(), dev)
+    if opt.get("tracer") == "bvh":
+        view = view.with_bvh()
+    opts = tpt.PTOptions(max_path_length=4, **opt)
+    launches = lambda: (trace_mod.CLOSEST.launches, trace_mod.ANY.launches,
+                        bvh_trace.CLOSEST.launches, bvh_trace.ANY.launches,
+                        gather_mod.GATHER.launches)
+    before = launches()
+    got = tpt.render_pass(view, opts, 64, 64, 3, 0)
+    torch.cuda.synchronize()
+    moved = [b - a for a, b in zip(before, launches())]
+    if opt.get("tracer") == "bvh":
+        assert moved[:4] == [0, 0, 4, 4], moved
+    else:
+        n_any = 0 if opt.get("debug_nee_no_shadow") else 4
+        assert moved[:4] == [4, n_any, 0, 0], moved
+    if "queue_compaction" in opt:
+        masked = tpt.render_pass(view, opts._replace(queue_compaction=False), 64, 64, 3, 0)
+        for c in ("composited", "direct", "diffuse", "specular"):
+            assert torch.equal(_bits(getattr(got, c).stack()), _bits(getattr(masked, c).stack()))
+    for mod, name, value in _forced_plain(dev):
+        monkeypatch.setattr(mod, name, value)
+    after = launches()
+    want = tpt.render_pass(view, opts, 64, 64, 3, 0)
+    torch.cuda.synchronize()
+    assert launches() == after
+    assert float(got.rays) == float(want.rays) and torch.equal(got.tri, want.tri)
+    for c in ("composited", "direct", "diffuse", "specular"):
+        assert torch.equal(_bits(getattr(got, c).stack()), _bits(getattr(want, c).stack())), c
+    assert float(got.composited.stack().mean()) > 0.0
+
+
+OPTIONS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                       "torch_port_options_24.npz")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vpl", "ltc", "compact", "no_shadow", "fixed_light",
+                                  "cheap_eval"])
+def test_options_golden_on_card(dev, name):
+    """tests/golden/torch_port_options_24.npz (JAX on the CPU) on the card's
+    kernel path, within the tolerances of tests/test_torch_pt.py."""
+    import json
+
+    gz = np.load(OPTIONS)
+    view = SceneView.from_numpy({k[5:]: gz[k] for k in gz.files if k.startswith("view.")}, dev)
+    opts = tpt.PTOptions(lobes=tuple(bool(x) for x in gz["lobes"]),
+                         clearcoat=bool(gz["clearcoat"]), max_path_length=int(gz["max_path_length"]),
+                         **json.loads(str(gz["passes"]))[name])
+    res = int(gz["res"])
+    out = tpt.render_pass(view, opts, res, res, int(gz["instance"]), int(gz["seed"]))
+    want = float(gz[f"{name}.rays"])
+    assert abs(float(out.rays) - want) <= 0.005 * want
+    assert (out.tri.cpu().numpy() == gz[f"{name}.tri"].ravel()).all()
+    for c in ("composited", "direct", "diffuse", "specular"):
+        ref = torch.from_numpy(gz[f"{name}.{c}"].reshape(-1, 3)).to(dev)
+        assert _image_ok(getattr(out, c).stack().T, ref.T), c
+
+
+@pytest.mark.cuda
+def test_bvh_pass_on_card_matches_the_frontier_golden(dev):
+    """tracer="bvh" on big_room(400) over JAX's tree on the card against the
+    stored frontier pass (tests/test_torch_bvh.py's check)."""
+    gz = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                              "torch_port_bigroom_24.npz"))
+    view = SceneView.from_numpy({k[5:]: gz[k] for k in gz.files if k.startswith("view.")}, dev)
+    res = int(gz["res"])
+    opts = tpt.PTOptions(max_path_length=int(gz["max_path_length"]), tracer="bvh",
+                         lobes=tuple(bool(x) for x in gz["lobes"]))
+    before = bvh_trace.CLOSEST.launches
+    out = tpt.render_pass(view, opts, res, res, int(gz["instance"]), int(gz["seed"]))
+    torch.cuda.synchronize()
+    assert bvh_trace.CLOSEST.launches == before + opts.max_path_length
+    assert abs(float(out.rays) - float(gz["rays"])) <= 0.005 * float(gz["rays"])
+    assert (out.tri.cpu().numpy() == gz["tri"].ravel()).mean() >= 0.99
+    for c in ("composited", "direct", "diffuse", "specular"):
+        ref = torch.from_numpy(gz[c].reshape(-1, 3)).to(dev)
+        assert _image_ok(getattr(out, c).stack().T, ref.T), c

@@ -171,11 +171,14 @@ def test_cuda_request_without_a_card_raises():
 
 
 @pytest.mark.parametrize("option", [
-    {"renderer": "bpt"}, {"tracer": "bvh"}, {"detach_nee": True}, {"nee": "vpl"},
-    {"glossy_model": "ltc"}, {"queue_compaction": True}, {"tracer": "brute"},
-    # lights, textures and sampler="bluenoise" are ported: the debug switches
-    # still raise, and so does the megakernel on a lit view
-    {"debug_nee_no_shadow": True},
+    # every PTOptions field JAX's PT pass honours is ported (the BVH walk,
+    # the VPL set, the LTC lobe, queue compaction, the detach and debug
+    # switches: tests/test_torch_options.py, tests/test_torch_bvh.py); the
+    # other renderers, the brute tracer, and the megakernel on a lit view
+    # or with the LTC lobe (which JAX's megakernel cannot run) still raise
+    {"renderer": "bpt"}, {"renderer": "mlt"}, {"renderer": "cmlt"}, {"renderer": "rpt"},
+    {"renderer": "pssmlt"}, {"renderer": "psfpt"}, {"renderer": "ptrl"},
+    {"tracer": "brute"}, {"tracer": "mega", "glossy_model": "ltc"},
     {"tracer": "mega", "point_lights": [((0.0, 1.5, 0.0), (1.0, 1.0, 1.0))]},
 ])
 def test_options_outside_the_slice_raise(option):
@@ -186,13 +189,60 @@ def test_options_outside_the_slice_raise(option):
 
 
 def test_scene_over_4096_triangles_raises():
-    """Over 4096 triangles the pass needs the view's cluster table (the
-    frontier tracer); without one it raises, as the BVH walk that JAX falls
-    back to is not ported."""
+    """Over 4096 triangles tracer="auto" takes the frontier tracer on a view
+    with a cluster table and the BVH walk on one without (JAX's route off the
+    TPU). The walk needs the view's BVH: without one the pass raises; with
+    it (view.with_bvh()) every trace of the pass goes through the walk, and
+    the pass finds the frontier pass's first hits and image."""
     view = SceneView.build(tproc.random_soup(4097), tproc.cornell_camera(), "cpu")
-    assert view.clusters is not None
-    with pytest.raises(NotImplementedError):
-        tpt.render_pass(view._replace(clusters=None), tpt.PTOptions(), 4, 4, 0)
+    assert view.clusters is not None and view.bvh is None
+    bare = view._replace(clusters=None)
+    opts = tpt.PTOptions(max_path_length=2)
+    assert tpt._trace_mode(4097, opts, False) == "bvh"
+    with pytest.raises(ValueError, match="BVH"):
+        tpt.render_pass(bare, opts, 4, 4, 0)
+    calls = []
+    closest, anyhit = tpt.trace_closest_bvh, tpt.trace_any_bvh
+    tpt.trace_closest_bvh = lambda *a: calls.append("closest") or closest(*a)
+    tpt.trace_any_bvh = lambda *a: calls.append("any") or anyhit(*a)
+    try:
+        out = tpt.render_pass(bare.with_bvh(), opts, 4, 4, 0)
+    finally:
+        tpt.trace_closest_bvh, tpt.trace_any_bvh = closest, anyhit
+    assert calls.count("closest") == 2 and calls.count("any") == 2
+    ref = tpt.render_pass(view, opts, 4, 4, 0)
+    assert torch.equal(out.tri, ref.tri) and float(out.rays) == float(ref.rays)
+    np.testing.assert_allclose(out.composited.stack().numpy(), ref.composited.stack().numpy(),
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_port_copy_alone_renders_with_its_own_data(tmp_path):
+    """fermat_tpu_torch/ copied alone, with no fermat_tpu/ beside it, renders
+    with the tables it reads from files: the blue-noise shifts, the LTC
+    table, and the VPL set the view builds."""
+    import shutil
+
+    shutil.copytree(os.path.join(ROOT, "fermat_tpu_torch"), tmp_path / "fermat_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    code = (
+        "import importlib.util, os, sys\n"
+        "import fermat_tpu_torch\n"
+        "assert os.path.dirname(fermat_tpu_torch.__file__).startswith(os.getcwd())\n"
+        "assert importlib.util.find_spec('fermat_tpu') is None\n"
+        "from fermat_tpu_torch.render.context import RenderingContext\n"
+        "from fermat_tpu_torch.scene.procedural import cornell_box, cornell_camera\n"
+        "ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), 8, 8,\n"
+        "                              device='cpu', sampler='bluenoise', glossy_model='ltc',\n"
+        "                              nee='vpl', max_path_length=3)\n"
+        "ctx.render(1)\n"
+        "assert ctx.view.vpls is not None and ctx.hdr_image().mean() > 0\n"
+        "print('ok', ctx.image().shape)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                       text=True, timeout=120, env=env)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok (8, 8, 3)"
 
 
 def write_golden() -> None:

@@ -12,7 +12,9 @@ import torch
 
 from fermat_tpu.scene import procedural as jproc
 from fermat_tpu.scene.view import SceneView as JView
+from fermat_tpu_torch.accel.bvh import BvhView
 from fermat_tpu_torch.scene import procedural as tproc
+from fermat_tpu_torch.scene.view import _BVH_LEAVES
 from fermat_tpu_torch.scene.view import SceneView as TView
 
 
@@ -29,6 +31,9 @@ def port_view_arrays(obj, prefix="") -> dict:
         return {prefix: obj.cpu().numpy()}
     if isinstance(obj, np.ndarray):  # the cluster table's host copy (ClusterView.tri)
         return {prefix: obj}
+    if isinstance(obj, BvhView):  # JAX's BVH leaves are named by their flatten order
+        return {f"{prefix}[<flat index {i}>]": getattr(obj, f).cpu().numpy()
+                for i, f in enumerate(_BVH_LEAVES)}
     out = {}
     for name in obj._fields:
         out.update(port_view_arrays(getattr(obj, name), f"{prefix}.{name}" if prefix else name))
