@@ -154,6 +154,28 @@ result is printed then):
                 too, except where two triangles tie in t); phase 6 holds the
                 walk's kernels bit-equal to their plain version on every ray
                 of bounces 0 and 1;
+  4j. bpt    — the bidirectional path tracer and PSSMLT (`bpt_phase`):
+                BPT through RenderingContext on the glossy CornellBox,
+                512x512, max_path_length=6, light tracing on (K1a 10, K1b
+                11, K2 a pass), and on big_room(8300) 1600x896 with
+                tracer="auto" (K5a 10, K5b 11 with their sort keys, K2;
+                (u, v) derived from the ray): ms/pass, Mrays/s (BPT's own
+                ray counter), launches per pass, one profiled pass each
+                (device kernels, busy, idle share); each held to its forced
+                plain versions (the CornellBox at 512x512, big_room at
+                400x224): rays equal, eye radiance bit-equal, the splat
+                image within BPT_SPLAT_RTOL of its max (index_add_ adds in
+                no fixed order); PSSMLT on the CornellBox at 512x512, one
+                chain a pixel, path_space="bpt" (init_state ms and peak
+                memory, ms a step, mutations a second, the acceptance rate,
+                launches per step, one profiled step) and "pt" (init and
+                one step): one step's chain state (u, i_lum, pixel, key)
+                bit-equal to its forced plain versions, the splat within
+                BPT_SPLAT_RTOL of its max; the BPT and PSSMLT golden
+                (tests/golden/torch_port_bpt_24.npz, JAX on the CPU; big_room
+                with tracer="auto" and "bvh"; PSSMLT's first step from
+                JAX's stored chains) within the tolerances of
+                tests/test_torch_bpt.py;
   5. parity   — one 512x512 pass with the kernels and one with the plain
                 versions forced in their place: equal `rays`, equal images;
                 then the golden configuration (tests/golden/
@@ -248,8 +270,9 @@ result is printed then):
                 visit and one test for an occluded one; K5's bound on the
                 same rays beside it; time, bound and counts each launch.
 Then the card's nvidia-smi line, one JSON line {"kernels": [...]} (each row
-also holds its launches per pass on phase 4g's lit, 4h's textured and 4i's
-options paths and its device time a launch inside their profiled passes),
+also holds its launches per pass on phase 4g's lit, 4h's textured, 4i's
+options and 4j's BPT and PSSMLT paths and its device time a launch inside
+their profiled passes),
 and last
 {"ok": true, "device": {...}}.
 """
@@ -357,6 +380,10 @@ TEX_PASSES = 2
 OPT_CELLS = {"vpl": {"nee": "vpl"}, "ltc": {"glossy_model": "ltc"},
              "compaction": {"queue_compaction": True}, "detach_nee": {"detach_nee": True}}
 OPT_PASSES = 2
+# phase 4j: BPT passes and PSSMLT steps a batch, and the splat image's
+# tolerance against the plain versions, of its max (index_add_ adds in no
+# fixed order on the card)
+BPT_PASSES, PSSMLT_STEPS, BPT_SPLAT_RTOL = 1, 1, 1e-5
 # FP32 operations of one node visit of the walk: the slab test of
 # accel/traverse.py _slab_test, ops/csrc/bvh.cu box_hit (6 subtractions, 6
 # multiplications, 12 min/max; the compare not counted)
@@ -687,7 +714,7 @@ def lit_cornell():
 def forced_plain(dev) -> list:
     """patched() replacements that put every kernel's plain version in the
     pass's place: the dense and frontier tracers, the BVH walk, the light
-    pick and the row gathers (the VPL pick's too)."""
+    pick and the row gathers (the VPL pick's and the material rows' too)."""
     import torch
 
     from fermat_tpu_torch.accel.traverse import Hit, walk_any, walk_closest
@@ -1335,6 +1362,197 @@ def options_phase(dev, smi: str, reset_counts, counts, bview, room_options: dict
         f"phase 6 holds the walk to its plain version on every ray of bounces 0 and 1); "
         f"{time.perf_counter() - t_phase:.1f} s for the phase")
     return {"cells": cells, "launches": launches, "bvh": bvh, "build_s": build_s, "ties": ties}
+
+
+def bpt_phase(dev, smi: str, reset_counts, counts, bview, lobes: tuple) -> dict:
+    """Phase 4j: the bidirectional path tracer and PSSMLT on the ported
+    tracers (see the module docstring). Returns the cells' numbers and their
+    launches per pass (a PSSMLT step is a pass)."""
+    import numpy as np
+    import torch
+
+    from fermat_tpu_torch.core.rng import hash_combine
+    from fermat_tpu_torch.integrators import bpt
+    from fermat_tpu_torch.integrators import pssmlt as ps
+    from fermat_tpu_torch.render.context import RenderingContext
+    from fermat_tpu_torch.render.framebuffer import Framebuffer
+    from fermat_tpu_torch.scene.procedural import cornell_box, cornell_camera
+    from fermat_tpu_torch.scene.view import SceneView
+
+    t_phase = time.perf_counter()
+    bits = lambda t: t.contiguous().view(torch.int32)
+    cells, launches = {}, {}
+    dense_route = {"trace_closest", "trace_any", "gather_rows"}
+    frontier_route = {"trace_closest_frontier", "trace_any_frontier", "gather_rows",
+                      "frontier_sort_key"}
+    # a pass of max_path_length L traces L-1 light and L-1 eye segments; its
+    # shadow launches: one light-tracing launch over the L-1 slots, L-1 NEE
+    # launches, L-1 connection launches (each over the L-1 slots)
+    n_closest, n_any = 2 * (MPL - 1), 2 * (MPL - 1) + 1
+
+    def drive(cell, ctx, key, passes):
+        cells[cell] = drive_cell("4j bpt", cell, ctx, passes, smi, reset_counts, counts)
+        launches[key] = cells[cell]["launches"]
+        return launches[key]
+
+    def splat_close(a, b) -> float:
+        """max |a - b| over max |b|: index_add_ adds in no fixed order."""
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    def plain_equal(cell, view, opts, res_x, res_y):
+        """One BPT pass with the kernels and one with every plain version
+        forced: radiance and rays bit-equal, the splat image within
+        BPT_SPLAT_RTOL of its max."""
+        out_k = bpt.render_pass(view, opts, res_x, res_y, 1000, 0)
+        before = counts()
+        with patched(forced_plain(dev)):
+            out_p = bpt.render_pass(view, opts, res_x, res_y, 1000, 0)
+        torch.cuda.synchronize()
+        check(before == counts(), f"{cell}: the forced plain pass launched a kernel")
+        check(torch.equal(bits(out_k[0].stack()), bits(out_p[0].stack())),
+              f"{cell}: kernel vs plain eye radiance not bit-equal")
+        check(float(out_k[2]) == float(out_p[2]), f"{cell}: rays {float(out_k[2])} vs plain "
+                                                  f"{float(out_p[2])}")
+        err = splat_close(out_k[1], out_p[1])
+        check(err <= BPT_SPLAT_RTOL, f"{cell}: splat {err:.3g} of max from the plain pass")
+        log(f"[4j bpt] {cell} {res_x}x{res_y}: kernels vs forced plain versions: rays equal "
+            f"({float(out_k[2]):.0f}), eye radiance bit-equal, splat within {err:.2e} of max")
+
+    # ---- BPT on the CornellBox: K1a, K1b, K2 ----
+    ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), RES, RES,
+                                  renderer="bpt", max_path_length=MPL)
+    per = drive("CornellBox bpt", ctx, "bpt_cornell", BPT_PASSES)
+    check(per.get("trace_closest") == n_closest and per.get("trace_any") == n_any
+          and per.get("gather_rows", 0) > 0 and set(per) == dense_route,
+          f"CornellBox bpt launches per pass: {per}")
+    plain_equal("CornellBox bpt", ctx.view, bpt.BPTOptions(**ctx.renderer_options), RES, RES)
+    del ctx
+
+    # ---- BPT on big_room: K5a, K5b (uv from the ray), K2 ----
+    ropts = {"max_path_length": MPL, "lobes": lobes}
+    rctx = RenderingContext(view=bview, res_x=BIG_W, res_y=BIG_H, renderer="bpt",
+                            renderer_options=ropts)
+    rctx.fb = Framebuffer.create(BIG_H, BIG_W, dev)
+    per = drive("big_room bpt", rctx, "bpt_big_room", BPT_PASSES)
+    check(per.get("trace_closest_frontier") == n_closest
+          and per.get("trace_any_frontier") == n_any and set(per) == frontier_route,
+          f"big_room bpt launches per pass: {per}")
+    del rctx
+    plain_equal("big_room bpt", bview, bpt.BPTOptions(**ropts), PLAIN_W, PLAIN_H)
+
+    # ---- PSSMLT on the CornellBox, one chain a pixel ----
+    for space in ("bpt", "pt"):
+        cell = f"CornellBox pssmlt {space}"
+        ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), RES,
+                                      RES, renderer="pssmlt", max_path_length=MPL,
+                                      path_space=space)
+        opts = ps.PssmltOptions(**ctx.renderer_options)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        ctx.renderer_state = ps.init_state(ctx.view, opts, RES, RES, RES * RES, 0)
+        torch.cuda.synchronize()
+        init_ms = (time.perf_counter() - t0) * 1e3
+        init_peak = torch.cuda.max_memory_allocated(dev) - base
+        s0 = ctx.renderer_state
+        s1, splat_k = ps.step(ctx.view, opts, RES, RES, s0)
+        before = counts()
+        with patched(forced_plain(dev)):
+            s1p, splat_p = ps.step(ctx.view, opts, RES, RES, s0)
+        torch.cuda.synchronize()
+        check(before == counts(), f"{cell}: the forced plain step launched a kernel")
+        check(torch.equal(bits(s1.u), bits(s1p.u)) and torch.equal(bits(s1.i_lum),
+                                                                     bits(s1p.i_lum))
+              and torch.equal(s1.pixel, s1p.pixel) and s1.key == s1p.key,
+              f"{cell}: kernel vs plain chain state not bit-equal")
+        err = splat_close(splat_k, splat_p)
+        check(err <= BPT_SPLAT_RTOL, f"{cell}: splat {err:.3g} of max from the plain step")
+        accept = float((s1.u != s0.u).any(dim=1).float().mean())
+        u_prop = ps._mutate(s0.u, hash_combine(s0.key, 0x1234567), opts)
+        check(bool(((s1.u == u_prop).all(dim=1) | (s1.u == s0.u).all(dim=1)).all()),
+              f"{cell}: a chain holds neither its state nor its proposal")
+        del s1, s1p, splat_k, splat_p, u_prop
+        per = drive(cell, ctx, f"pssmlt_{space}", PSSMLT_STEPS)
+        # path_space="pt": one PT pass a step (rr=False), a closest and an
+        # NEE shadow launch a bounce
+        want = (n_closest, n_any) if space == "bpt" else (MPL, MPL)
+        check((per.get("trace_closest"), per.get("trace_any")) == want
+              and set(per) == dense_route, f"{cell} launches per step: {per}")
+        c = cells[cell]
+        c.update(init_ms=init_ms, init_peak_bytes=init_peak, accept=accept,
+                 mutations_per_s=RES * RES / c["ms"] * 1e3,
+                 step_peak_bytes=c.get("peak_bytes", 0), dims=ps._dims(opts))
+        hdr = ctx.hdr_image()
+        check(np.isfinite(hdr).all() and float(hdr.mean()) > 0.001,
+              f"{cell}: image not finite or black (mean {hdr.mean()})")
+        log(f"[4j bpt] {cell} {RES}x{RES} mpl={MPL}: init_state {init_ms:.1f} ms "
+            f"({opts.n_seed_candidates} candidates, D = {ps._dims(opts)}; peak memory "
+            f"{init_peak / 2 ** 30:.2f} GiB above its start), {c['ms']:.2f} ms/step, "
+            f"{c['mutations_per_s'] / 1e6:.3f} M mutations/s, acceptance {accept:.4f} on {smi};"
+            f" one step bit-equal to forced plain (u, i_lum, pixel, key; splat within "
+            f"{err:.2e} of max)")
+        del ctx
+
+    # ---- the BPT and PSSMLT golden on the card's kernel path ----
+    gz = np.load(ROOT / "tests" / "golden" / "torch_port_bpt_24.npz")
+    gres, gmpl = int(gz["res"]), int(gz["max_path_length"])
+    gseed, ginst = int(gz["seed"]), int(gz["instance"])
+    view_of = lambda p: SceneView.from_numpy({k[len(p):]: gz[k] for k in gz.files
+                                              if k.startswith(p)}, dev)
+    gviews, report = {}, []
+
+    def held(name, view, opts, res):
+        rad, splat, rays, _ = bpt.render_pass(view, opts, res, res, ginst, gseed)
+        want = float(gz[f"{name}.rays"])
+        check(abs(float(rays) - want) <= 0.005 * want,
+              f"bpt golden {name}: rays {float(rays)} vs JAX {want}")
+        worst = 1.0
+        for part, got in (("rad", rad.stack()), ("splat", splat)):
+            ok, near, mean_rel = image_close(got.cpu().numpy(), gz[f"{name}.{part}"])
+            check(ok, f"bpt golden {name} {part}: {near:.4f} of pixels close, mean rel "
+                      f"{mean_rel:.2e}")
+            worst = min(worst, near)
+        report.append(f"{name} ({opts.tracer}) rays {float(rays):.0f}/{want:.0f}, pixels close "
+                      f">= {worst:.4f}")
+
+    for name, (key, fields) in json.loads(str(gz["cases"])).items():
+        if key not in gviews:
+            gviews[key] = view_of(f"{key}.view.")
+        held(name, gviews[key], bpt.BPTOptions(
+            max_path_length=gmpl, lobes=tuple(bool(x) for x in gz[f"{key}.lobes"]), **fields),
+            gres)
+    bz = np.load(ROOT / "tests" / "golden" / "torch_port_bigroom_24.npz")
+    room = SceneView.from_numpy({k[5:]: bz[k] for k in bz.files if k.startswith("view.")}, dev)
+    for tracer in ("auto", "bvh"):
+        held("big_room", room, bpt.BPTOptions(
+            max_path_length=gmpl, lobes=tuple(bool(x) for x in gz["big_room.lobes"]),
+            tracer=tracer), int(gz["big_res"]))
+    pres, pn = int(gz["ps_res"]), int(gz["ps_chains"])
+    for space in ("bpt", "pt"):
+        p = f"ps_{space}."
+        opts = ps.PssmltOptions(max_path_length=int(gz["ps_max_path_length"]),
+                                n_seed_candidates=int(gz["ps_seed_candidates"]),
+                                path_space=space)
+        t = lambda k: torch.from_numpy(gz[p + k]).to(dev)
+        s0 = ps.PssmltState(u=t("init.u"), i_lum=t("init.i_lum"), contrib=t("init.contrib"),
+                            pixel=t("init.pixel"), brightness=t("init.brightness"),
+                            key=int(gz[p + "init.key"]))
+        s1, splat = ps.step(gviews["A"], opts, pres, pres, s0)
+        # acceptance: a chain holds its proposal (JAX's and the port's
+        # proposals differ in the last bits, exp and log round apart)
+        took = (s1.u == ps._mutate(s0.u, hash_combine(s0.key, 0x1234567), opts)).all(dim=1)
+        same = float((took == (t("step.u") == t("u_prop")).all(dim=1)).float().mean())
+        check(same >= 0.99, f"pssmlt golden {space}: the same acceptance on {same:.4f} of chains")
+        ok, near, mean_rel = image_close(splat.cpu().numpy(), gz[p + "splat"])
+        check(ok, f"pssmlt golden {space} splat: {near:.4f} of pixels close, mean rel "
+                  f"{mean_rel:.2e}")
+        report.append(f"pssmlt {space} step: same acceptance on {same:.4f} of {pn} chains, "
+                      f"splat pixels close {near:.4f}")
+    log(f"[4j bpt] the BPT and PSSMLT golden (JAX on the CPU) on the card's kernel path within "
+        f"the tolerances of tests/test_torch_bpt.py: " + "; ".join(report)
+        + f"; {time.perf_counter() - t_phase:.1f} s for the phase")
+    return {"cells": cells, "launches": launches}
 
 
 def walk_rows(dev, bw: float, fp32: float, bview, opt: dict, lcalls: dict, k5_plain: dict,
@@ -2260,6 +2478,9 @@ def main() -> int:
     # ---- 4i. the remaining PT options and the BVH walk ----
     opt = options_phase(dev, smi, reset_counts, counts, bview, dict(bctx.renderer_options))
 
+    # ---- 4j. the bidirectional path tracer and PSSMLT ----
+    bp = bpt_phase(dev, smi, reset_counts, counts, bview, tuple(bctx.renderer_options["lobes"]))
+
     # ---- 5. parity on the card ----
     opts = pt.PTOptions(**ctx.renderer_options)
     out_k = pt.render_pass(ctx.view, opts, RES, RES, 1000, 0)
@@ -3126,10 +3347,10 @@ def main() -> int:
     for row in rows:  # the kernel's launches per pass on each lit (4g), textured (4h) and
         # options (4i) path
         for cell, per in (*lit["launches"].items(), *tex["launches"].items(),
-                          *opt["launches"].items()):
+                          *opt["launches"].items(), *bp["launches"].items()):
             row[f"launches_per_pass_{cell}"] = per.get(row["name"], 0)
         for key, ph in (("in_lit_pass_us", lit), ("in_textured_pass_us", tex),
-                        ("in_options_pass_us", opt)):
+                        ("in_options_pass_us", opt), ("in_bpt_pass_us", bp)):
             row[key] = {c: v["in_pass_us"][row["name"]] for c, v in ph["cells"].items()
                         if row["name"] in v.get("in_pass_us", {})}
     log("[summary] lit (4g) " + "; ".join(
@@ -3139,6 +3360,14 @@ def main() -> int:
         f"{c}: {v['ms']:.2f} ms/pass, {v['mrays']:.3f} Mrays/s, {v['kernels']} device kernels, "
         f"busy {v['busy_ms']:.2f} ms, idle {v['idle']:.3f}" for c, v in opt["cells"].items())
         + f"; big_room BVH host build {opt['build_s']:.2f} s")
+    log("[summary] bpt and pssmlt (4j) " + "; ".join(
+        f"{c}: {v['ms']:.2f} ms/" + ("step" if "init_ms" in v else "pass")
+        + (f", {v['mrays']:.3f} Mrays/s" if "init_ms" not in v else "")
+        + (f", {v['kernels']} device kernels, busy {v['busy_ms']:.2f} ms, idle {v['idle']:.3f}"
+           if "kernels" in v else "")
+        + (f", init {v['init_ms']:.1f} ms, {v['mutations_per_s'] / 1e6:.3f} M mutations/s, "
+           f"acceptance {v['accept']:.4f}, init peak {v['init_peak_bytes'] / 2 ** 30:.2f} GiB"
+           if "init_ms" in v else "") for c, v in bp["cells"].items()))
     log("[summary] textured (4h) " + "; ".join(
         f"{c}: {v['ms']:.2f} ms" + (f"/pass, {v['mrays']:.3f} Mrays/s, busy {v['busy_ms']:.2f} ms,"
                                      f" idle {v['idle']:.3f}, atlas {v['atlas_bytes']} B"

@@ -25,7 +25,9 @@ lights, a lat-long environment map with importance-sampled NEE and MIS, and
 the shadow sets of materials flagged FLAG_SHADOW_*_IGNORE, textures, and
 every PTOptions field of JAX's PT pass: VPL NEE, the LTC glossy lobe, queue
 compaction, the detach and debug switches, and tracer="bvh" (the skip-link
-BVH walk, ops/bvh_trace.py). Every kernel is hand-written CUDA.
+BVH walk, ops/bvh_trace.py). The bidirectional path tracer
+(integrators/bpt.py) and PSSMLT (integrators/pssmlt.py) render through the
+same tracers and gathers. Every kernel is hand-written CUDA.
 """
 from __future__ import annotations
 

@@ -701,22 +701,26 @@ class _PassState(NamedTuple):
 
 
 def _pass_state(view: SceneView, opts: PTOptions, res_x: int, instance: int,
-                seed: int) -> _PassState:
-    if opts.sampler == "bluenoise":
-        seq = BlueNoiseSequence.create(seed=seed, res_x=res_x)
+                seed: int, sequence=None) -> _PassState:
+    if sequence is not None:  # the caller's sampler (pt.py:515-516)
+        seq = sequence
+    elif opts.sampler == "bluenoise":
+        seq = BlueNoiseSequence.create(seed=seed, res_x=res_x).set_instance(instance)
     else:
-        seq = TiledSequence.create(seed=seed)
-    return _PassState(seq.set_instance(instance), _pick_tracers(view, opts),
+        seq = TiledSequence.create(seed=seed).set_instance(instance)
+    return _PassState(seq, _pick_tracers(view, opts),
                       view.mesh.shade_rows(), torch.tan(view.camera.fov * 0.5) * 2.0 / res_x)
 
 
 def _first_bounce(view: SceneView, opts: PTOptions, st: _PassState, res_x: int,
-                  res_y: int) -> Carry:
-    """Camera rays over the full pixel grid and bounce 0 on them; bounce 0
-    always runs, as the JAX version peels it (pt.py:1168-1177)."""
+                  res_y: int, pix: Tensor = None) -> Carry:
+    """Camera rays through the lanes' pixel ids `pix` (the full pixel grid
+    by default) and bounce 0 on them; bounce 0 always runs, as the JAX
+    version peels it (pt.py:1168-1177)."""
     dev = view.device
-    n = res_x * res_y
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    if pix is None:
+        pix = torch.arange(res_x * res_y, dtype=torch.int64, device=dev)
+    n = pix.shape[0]
     jx, jy = st.seq.sample_2d(pix, 0)
     o, d, _ = generate_camera_rays(view.camera, res_x, res_y, jx, jy, pix)
 
@@ -747,15 +751,23 @@ def _first_bounce(view: SceneView, opts: PTOptions, st: _PassState, res_x: int,
 
 def render_pass(view: SceneView, opts: PTOptions, res_x: int, res_y: int,
                 instance: int, seed: int = 0,
-                tables: "pt_mega.MegaTables | None" = None):
-    """Trace one progressive pass over the full pixel grid
-    (PathTracer::render, pathtracer_impl.h:197) on the view's device.
-    tracer="mega" hands the whole pass to ops/pt_mega.render_pass_mega, with
-    `tables` (built from the view when None); other tracers take none.
-    NarrowPass runs the same bounces as segments of its own (_first_bounce,
-    then one _bounce per segment on the compacted carry), in place of the
-    JAX version's segment hooks (pt.py:484-501)."""
+                tables: "pt_mega.MegaTables | None" = None, pix: Tensor = None,
+                sequence=None):
+    """Trace one progressive pass (PathTracer::render, pathtracer_impl.h:197)
+    on the view's device. `pix` are the lanes' pixel ids (int64, duplicates
+    allowed; the full pixel grid by default) and `sequence` replaces the
+    pass's sampler (pt.py:476-501): the MCMC integrators drive the pass from
+    their own primary samples (pssmlt.MatrixSequence). tracer="mega" hands
+    the whole pass to ops/pt_mega.render_pass_mega, with `tables` (built from
+    the view when None), and takes neither `pix` nor `sequence`; other
+    tracers take no tables. NarrowPass runs the same bounces as segments of
+    its own (_first_bounce, then one _bounce per segment on the compacted
+    carry), in place of the JAX version's segment hooks (pt.py:484-501)."""
     if _trace_mode(view.mesh.n_triangles, opts, view.clusters is not None) == "mega":
+        if pix is not None or sequence is not None:
+            raise NotImplementedError(
+                "tracer='mega' renders the full pixel grid with its own sampler: no pix or "
+                "sequence")
         if torch.is_grad_enabled() and any(
                 t.requires_grad for f in view.mesh.materials
                 for t in (f if isinstance(f, Vec3) else (f,))):
@@ -776,8 +788,8 @@ def render_pass(view: SceneView, opts: PTOptions, res_x: int, res_y: int,
             "materials.emissive requires grad, but the light table does not follow it: "
             "rebuild it from the same mesh, view._replace(mesh=mesh, "
             "lights=MeshLightsView.build_on_device(mesh))")
-    st = _pass_state(view, opts, res_x, instance, seed)
-    c = _first_bounce(view, opts, st, res_x, res_y)
+    st = _pass_state(view, opts, res_x, instance, seed, sequence)
+    c = _first_bounce(view, opts, st, res_x, res_y, pix)
     for b in range(1, opts.max_path_length):
         if opts.queue_compaction:
             c = _compact_carry(c)
@@ -786,6 +798,21 @@ def render_pass(view: SceneView, opts: PTOptions, res_x: int, res_y: int,
         c = _permute_carry(c, c.lane0.long())
     return _assemble(_Accum(c.l_direct, c.l_diffuse, c.l_specular, c.rays_lane),
                      _gbuffer(c), c.rays)
+
+
+def composited_output(comp: Vec3, rays: Tensor, rays_lane: Tensor) -> _PassOutput:
+    """A pass output whose only image is COMPOSITED (the BPT and PSSMLT
+    passes, context.py:104-135): the other channels zero, the G-buffer
+    empty."""
+    n, dev = comp.x.shape[0], comp.x.device
+    zero3 = Vec3.zeros(n, dev)
+    return _PassOutput(
+        direct=zero3, diffuse=zero3, specular=zero3, composited=comp, diffuse_albedo=zero3,
+        specular_albedo=zero3, depth=torch.full((n,), float("inf"), device=dev),
+        tri=torch.full((n,), -1, dtype=torch.int32, device=dev), normal=zero3, position=zero3,
+        uv=torch.zeros((n, 2), device=dev),
+        material=torch.full((n,), -1, dtype=torch.int32, device=dev), rays=rays,
+        rays_lane=rays_lane)
 
 
 def _permute_carry(c: Carry, dest: Tensor) -> Carry:

@@ -10,13 +10,20 @@ area lights go through SceneView.build(area_light_defs=...). texture_dir is
 where the materials' texture names are looked up (SceneView.build).
 
 The context runs on "cuda" unless the caller passes device="cpu"; with
-device="cuda" and no GPU it raises. The registry holds "pt" only; its
-options are PTOptions' fields (tracer="bvh", "frontier", "cluster", "binned"
-or "mega" picks the tracer of both drivers; with tracer="bvh" the view gets
-its BVH, SceneView.with_bvh). The renderer option narrow=1 makes
-render() run each pass through the narrowing driver (integrators/pt.
-NarrowPass, context.py:316-372); render_batch keeps the monolithic pass, as
-in JAX.
+device="cuda" and no GPU it raises. The registry holds "pt", "bpt" and
+"pssmlt"; a renderer's options are its options tuple's fields (PTOptions,
+bpt.BPTOptions, pssmlt.PssmltOptions). tracer="bvh", "frontier", "cluster",
+"binned" or "mega" picks the tracer (with tracer="bvh" the view gets its BVH,
+SceneView.with_bvh); "mega" is the PT pass's alone. `lobes` defaults to the
+scene's for pt and bpt, `clearcoat` to the scene's for pt, as in JAX
+(context.py:286-298). The renderer option narrow=1 makes render() run each
+PT pass through the narrowing driver (integrators/pt.NarrowPass,
+context.py:316-372); render_batch keeps the monolithic pass, as in JAX.
+"pssmlt" is stateful: its chains (renderer_state) are seeded at the first
+pass (pssmlt.init_state, one chain a pixel) and each pass is one Metropolis
+step whose splat image is COMPOSITED; render and render_batch carry the
+state from pass to pass, restart() drops it, so that the next pass seeds
+new chains from the view as it is then. Its `rays` stays 0, as in JAX.
 """
 from __future__ import annotations
 
@@ -30,6 +37,9 @@ import torch
 from fermat_tpu_torch import resolve_device
 from fermat_tpu_torch.bsdf.composite import scene_clearcoat, scene_lobes
 from fermat_tpu_torch.core.camera import Camera
+from fermat_tpu_torch.core.math import Vec3
+from fermat_tpu_torch.integrators import bpt as bpt_mod
+from fermat_tpu_torch.integrators import pssmlt as ps_mod
 from fermat_tpu_torch.integrators import pt as pt_mod
 from fermat_tpu_torch.ops import pt_mega
 from fermat_tpu_torch.render.framebuffer import Framebuffer, to_rgba8
@@ -48,7 +58,33 @@ def _pt_factory(**kw):
     return pt_mod.render_pass, pt_mod.PTOptions(**kw)
 
 
+def _bpt_factory(**kw):
+    return bpt_mod.render_pass_fb, bpt_mod.BPTOptions(**kw)
+
+
+def _pssmlt_factory(**kw):
+    """A stateful pass (context.py:104-135): `init` seeds one chain a pixel,
+    the pass runs one step and returns (output, state)."""
+    opts = ps_mod.PssmltOptions(**kw)
+
+    def init(view, res_x, res_y, seed):
+        return ps_mod.init_state(view, opts, res_x, res_y, res_x * res_y, seed)
+
+    def pass_fn(view, opts_, res_x, res_y, instance, seed, state):
+        new_state, splat = ps_mod.step(view, opts_, res_x, res_y, state)
+        n = res_x * res_y
+        rays = torch.zeros((), device=view.device)
+        return pt_mod.composited_output(Vec3(splat[:, 0], splat[:, 1], splat[:, 2]), rays,
+                                        torch.zeros(n, device=view.device)), new_state
+
+    pass_fn.stateful = True
+    pass_fn.init = init
+    return pass_fn, opts
+
+
 register_renderer("pt", _pt_factory)
+register_renderer("bpt", _bpt_factory)
+register_renderer("pssmlt", _pssmlt_factory)
 
 
 @dataclass
@@ -63,6 +99,7 @@ class RenderingContext:
     gbuffer: Optional[dict] = None
     instance: int = 0
     stats: dict = field(default_factory=dict)
+    renderer_state: object = None  # a stateful renderer's state (PSSMLT's chains)
     _pass: Optional[tuple] = None
 
     @staticmethod
@@ -80,8 +117,10 @@ class RenderingContext:
         if renderer_options.get("tracer") == "bvh":
             view = view.with_bvh()
         renderer_options = dict(renderer_options)
-        renderer_options.setdefault("lobes", scene_lobes(storage.materials))
-        renderer_options.setdefault("clearcoat", scene_clearcoat(storage.materials))
+        if renderer in ("pt", "bpt"):  # of the registered renderers (context.py:286-298)
+            renderer_options.setdefault("lobes", scene_lobes(storage.materials))
+        if renderer == "pt":
+            renderer_options.setdefault("clearcoat", scene_clearcoat(storage.materials))
         ctx = RenderingContext(view=view, res_x=res_x, res_y=res_y, renderer=renderer,
                                renderer_options=renderer_options, seed=seed)
         ctx.fb = Framebuffer.create(res_y, res_x, dev)
@@ -103,7 +142,7 @@ class RenderingContext:
             narrow = bool(options.pop("narrow", False)) and self.renderer == "pt"
             pass_fn, opts = _RENDERER_REGISTRY[self.renderer](**options)
             kw = {}
-            if getattr(opts, "tracer", None) == "mega":
+            if self.renderer == "pt" and opts.tracer == "mega":
                 # the megakernel's scene tables are baked from the view once
                 # (a build reads the view back to the host); restart() rebakes
                 kw["tables"] = pt_mega.build_mega_tables(self.view, res_x, res_y, opts.ray_eps)
@@ -112,6 +151,11 @@ class RenderingContext:
         pass_fn, opts, kw, drv = self._pass
         if drv is not None and not batch:
             out = drv(self.instance)
+        elif getattr(pass_fn, "stateful", False):
+            if self.renderer_state is None:
+                self.renderer_state = pass_fn.init(self.view, res_x, res_y, self.seed)
+            out, self.renderer_state = pass_fn(self.view, opts, res_x, res_y, self.instance,
+                                               self.seed, self.renderer_state)
         else:
             out = pass_fn(self.view, opts, res_x, res_y, self.instance, self.seed, **kw)
         img = lambda v: v.stack().reshape(res_y, res_x, 3)
@@ -159,11 +203,12 @@ class RenderingContext:
 
     def restart(self) -> None:
         """Invalidate accumulation (camera-move semantics); the next pass
-        rebuilds the renderer, and with it the megakernel's tables from the
-        view as it is then."""
+        rebuilds the renderer, and with it the megakernel's tables and a
+        stateful renderer's state from the view as it is then."""
         self.fb = Framebuffer.create(self.res_y, self.res_x, self.device)
         self.instance = 0
         self._pass = None
+        self.renderer_state = None
 
     def image(self, exposure: float = 1.0, gamma: float = 2.2) -> np.ndarray:
         return to_rgba8(self.fb.composited, exposure, gamma).cpu().numpy()

@@ -1214,3 +1214,151 @@ def test_bvh_pass_on_card_matches_the_frontier_golden(dev):
     for c in ("composited", "direct", "diffuse", "specular"):
         ref = torch.from_numpy(gz[c].reshape(-1, 3)).to(dev)
         assert _image_ok(getattr(out, c).stack().T, ref.T), c
+
+
+BPT_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                          "torch_port_bpt_24.npz")
+
+
+def _bpt_launches():
+    return (trace_mod.CLOSEST.launches, trace_mod.ANY.launches, ft.CLOSEST.launches,
+            ft.ANY.launches, gather_mod.GATHER.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["cornell", "big_room400"])
+def test_bpt_pass_kernels_match_plain_on_card(dev, scene, monkeypatch):
+    """A BPT pass (max_path_length 4, light tracing on) with the kernels
+    against the same pass with every plain version forced: rays equal, the
+    eye radiance bit-equal, the splat image (index_add_, no fixed order)
+    within 1e-5 of its max; 6 closest and 7 shadow launches a pass (one
+    light-tracing launch, 3 NEE and 3 connection launches over the slots)."""
+    from fermat_tpu_torch.integrators import bpt
+    from fermat_tpu_torch.scene.procedural import big_room_camera
+
+    if scene == "cornell":
+        view, res = SceneView.build(cornell_box(glossy_boxes=True), cornell_camera(), dev), 64
+    else:
+        view, res = SceneView.build(big_room(400), big_room_camera(), dev), 48
+    opts = bpt.BPTOptions(max_path_length=4)
+    before = _bpt_launches()
+    got = bpt.render_pass(view, opts, res, res, 3, 0)
+    torch.cuda.synchronize()
+    moved = [b - a for a, b in zip(before, _bpt_launches())]
+    assert moved[:4] == ([6, 7, 0, 0] if scene == "cornell" else [0, 0, 6, 7]), moved
+    assert moved[4] > 0
+    for mod, name, value in _forced_plain(dev):
+        monkeypatch.setattr(mod, name, value)
+    after = _bpt_launches()
+    want = bpt.render_pass(view, opts, res, res, 3, 0)
+    torch.cuda.synchronize()
+    assert _bpt_launches() == after
+    assert float(got[2]) == float(want[2])
+    assert torch.equal(_bits(got[0].stack()), _bits(want[0].stack()))
+    assert float((got[1] - want[1]).abs().max()) <= 1e-5 * float(want[1].abs().max())
+    assert float(got[0].stack().mean()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space", ["bpt", "pt"])
+def test_pssmlt_step_kernels_match_plain_on_card(dev, space, monkeypatch):
+    """A PSSMLT seed pass and one step at 32x32 with the kernels against the
+    same step with every plain version forced: the chain state (u, i_lum,
+    pixel, key) bit-equal, the splat within 1e-5 of its max."""
+    from fermat_tpu_torch.integrators import pssmlt as ps
+
+    view = SceneView.build(cornell_box(glossy_boxes=True), cornell_camera(), dev)
+    opts = ps.PssmltOptions(max_path_length=4, n_seed_candidates=2, path_space=space)
+    s0 = ps.init_state(view, opts, 32, 32, 1024, 0)
+    before = _bpt_launches()
+    s1, splat = ps.step(view, opts, 32, 32, s0)
+    torch.cuda.synchronize()
+    assert _bpt_launches()[0] == before[0] + (6 if space == "bpt" else 4)
+    for mod, name, value in _forced_plain(dev):
+        monkeypatch.setattr(mod, name, value)
+    s1p, splat_p = ps.step(view, opts, 32, 32, s0)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(s1.u), _bits(s1p.u)) and torch.equal(_bits(s1.i_lum),
+                                                                   _bits(s1p.i_lum))
+    assert torch.equal(s1.pixel, s1p.pixel) and s1.key == s1p.key
+    assert float((splat - splat_p).abs().max()) <= 1e-5 * float(splat_p.abs().max())
+    assert float(splat.sum()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,tracer", [("A", "auto"), ("A_nolt", "auto"), ("panel", "auto"),
+                                         ("env", "auto"), ("tex", "auto"),
+                                         ("big_room", "auto"), ("big_room", "bvh")])
+def test_bpt_golden_on_card(dev, name, tracer):
+    """tests/golden/torch_port_bpt_24.npz (JAX on the CPU) on the card's
+    kernel path, within the tolerances of tests/test_torch_pt.py."""
+    import json
+
+    from fermat_tpu_torch.integrators import bpt
+
+    gz = np.load(BPT_GOLDEN)
+    if name == "big_room":
+        bz = np.load(os.path.join(os.path.dirname(BPT_GOLDEN), "torch_port_bigroom_24.npz"))
+        arrays, key, fields, res = ({k[5:]: bz[k] for k in bz.files if k.startswith("view.")},
+                                    "big_room", {}, int(gz["big_res"]))
+    else:
+        key, fields = json.loads(str(gz["cases"]))[name]
+        p = f"{key}.view."
+        arrays, res = {k[len(p):]: gz[k] for k in gz.files if k.startswith(p)}, int(gz["res"])
+    view = SceneView.from_numpy(arrays, dev)
+    opts = bpt.BPTOptions(max_path_length=int(gz["max_path_length"]), tracer=tracer,
+                          lobes=tuple(bool(x) for x in gz[f"{key}.lobes"]), **fields)
+    rad, splat, rays, _ = bpt.render_pass(view, opts, res, res, int(gz["instance"]),
+                                          int(gz["seed"]))
+    want = float(gz[f"{name}.rays"])
+    assert abs(float(rays) - want) <= 0.005 * want
+    for got, part in ((rad.stack(), "rad"), (splat, "splat")):
+        ref = torch.from_numpy(gz[f"{name}.{part}"]).to(dev)
+        if ref.any():
+            assert _image_ok(got.T, ref.T), part
+        else:
+            assert not got.any(), part
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space", ["bpt", "pt"])
+def test_pssmlt_golden_step_on_card(dev, space):
+    """One step from JAX's stored chain state on the card: the same
+    acceptance on >= 99% of chains, the splat within the image tolerance."""
+    from fermat_tpu_torch.integrators import pssmlt as ps
+
+    gz = np.load(BPT_GOLDEN)
+    view = SceneView.from_numpy({k[7:]: gz[k] for k in gz.files if k.startswith("A.view.")},
+                                dev)
+    opts = ps.PssmltOptions(max_path_length=int(gz["ps_max_path_length"]),
+                            n_seed_candidates=int(gz["ps_seed_candidates"]), path_space=space)
+    p = f"ps_{space}."
+    t = lambda k: torch.from_numpy(gz[p + k]).to(dev)
+    s0 = ps.PssmltState(u=t("init.u"), i_lum=t("init.i_lum"), contrib=t("init.contrib"),
+                        pixel=t("init.pixel"), brightness=t("init.brightness"),
+                        key=int(gz[p + "init.key"]))
+    res = int(gz["ps_res"])
+    s1, splat = ps.step(view, opts, res, res, s0)
+    # a chain that accepts holds its proposal, which rounds apart from JAX's
+    took = (s1.u == ps._mutate(s0.u, ps.hash_combine(s0.key, 0x1234567), opts)).all(dim=1)
+    want = (t("step.u") == t("u_prop")).all(dim=1)
+    assert float((took == want).float().mean()) >= 0.99
+    assert _image_ok(splat.T, t("splat").T)
+
+
+@pytest.mark.cuda
+def test_bpt_and_pssmlt_render_through_the_context_on_card(dev):
+    """RenderingContext's "bpt" and "pssmlt" default to the card and launch
+    the dense kernels there."""
+    from fermat_tpu_torch.render.context import RenderingContext
+
+    for renderer in ("bpt", "pssmlt"):
+        ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), 32, 32,
+                                      renderer=renderer, max_path_length=3,
+                                      **({"n_seed_candidates": 1} if renderer == "pssmlt" else {}))
+        assert ctx.device.type == "cuda"
+        before = trace_mod.CLOSEST.launches
+        ctx.render(2)
+        assert trace_mod.CLOSEST.launches > before
+        img = ctx.hdr_image()
+        assert np.isfinite(img).all() and img.mean() > 0.0

@@ -173,11 +173,14 @@ def test_cuda_request_without_a_card_raises():
 @pytest.mark.parametrize("option", [
     # every PTOptions field JAX's PT pass honours is ported (the BVH walk,
     # the VPL set, the LTC lobe, queue compaction, the detach and debug
-    # switches: tests/test_torch_options.py, tests/test_torch_bvh.py); the
-    # other renderers, the brute tracer, and the megakernel on a lit view
-    # or with the LTC lobe (which JAX's megakernel cannot run) still raise
-    {"renderer": "bpt"}, {"renderer": "mlt"}, {"renderer": "cmlt"}, {"renderer": "rpt"},
-    {"renderer": "pssmlt"}, {"renderer": "psfpt"}, {"renderer": "ptrl"},
+    # switches: tests/test_torch_options.py, tests/test_torch_bvh.py), and so
+    # are the bpt and pssmlt renderers (tests/test_torch_bpt.py), but not on
+    # the megakernel, which runs the PT pass only; the other renderers, the
+    # brute tracer, and the megakernel on a lit view or with the LTC lobe
+    # (which JAX's megakernel cannot run) still raise
+    {"renderer": "bpt", "tracer": "mega"}, {"renderer": "mlt"}, {"renderer": "cmlt"},
+    {"renderer": "rpt"}, {"renderer": "pssmlt", "tracer": "mega"}, {"renderer": "psfpt"},
+    {"renderer": "ptrl"},
     {"tracer": "brute"}, {"tracer": "mega", "glossy_model": "ltc"},
     {"tracer": "mega", "point_lights": [((0.0, 1.5, 0.0), (1.0, 1.0, 1.0))]},
 ])
@@ -243,6 +246,34 @@ def test_port_copy_alone_renders_with_its_own_data(tmp_path):
                        text=True, timeout=120, env=env)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok (8, 8, 3)"
+
+
+def test_port_copy_alone_renders_bpt_and_pssmlt(tmp_path):
+    """fermat_tpu_torch/ copied alone renders a BPT pass and a PSSMLT pass
+    (its seed pass and one step) through RenderingContext."""
+    import shutil
+
+    shutil.copytree(os.path.join(ROOT, "fermat_tpu_torch"), tmp_path / "fermat_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    code = (
+        "import importlib.util, os\n"
+        "import fermat_tpu_torch\n"
+        "assert os.path.dirname(fermat_tpu_torch.__file__).startswith(os.getcwd())\n"
+        "assert importlib.util.find_spec('fermat_tpu') is None\n"
+        "from fermat_tpu_torch.render.context import RenderingContext\n"
+        "from fermat_tpu_torch.scene.procedural import cornell_box, cornell_camera\n"
+        "for r, kw in (('bpt', {}), ('pssmlt', {'n_seed_candidates': 1})):\n"
+        "    ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), 8,\n"
+        "                                  8, renderer=r, device='cpu', max_path_length=3, **kw)\n"
+        "    ctx.render(1)\n"
+        "    assert ctx.hdr_image().mean() > 0, r\n"
+        "print('ok', ctx.image().shape, ctx.renderer_state is not None)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                       text=True, timeout=120, env=env)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok (8, 8, 3) True"
 
 
 def write_golden() -> None:
