@@ -176,6 +176,28 @@ result is printed then):
                 with tracer="auto" and "bvh"; PSSMLT's first step from
                 JAX's stored chains) within the tolerances of
                 tests/test_torch_bpt.py;
+  4k. psf    — the path-space-filtering tracer and the clustered-RL path
+                tracer (`psf_phase`): psfpt and ptrl (sampler="vtl") through
+                RenderingContext, max_path_length=6, on the glossy
+                CornellBox 512x512 (K1a 6, K1b 6 a pass; K2 17 psfpt, 12
+                ptrl: the shade rows, the pdf and light rows or the
+                16-column VTL rows) and on big_room(8300) 1600x896 with
+                tracer="auto" (K5a 6, K5b 6 with their sort keys; psfpt K4 6
+                and K2 11, ptrl K2 12); PSF_PASSES passes a cell from a
+                fresh state, so that ptrl's adapt_every=8 adapts once and
+                the last pass runs on the remapped Q: ms/pass (the median of
+                the passes after the first), Mrays/s, launches per pass,
+                one profiled pass (device kernels, busy, idle share), peak
+                memory; ptrl's host VTL and cut build and its adaptation
+                timed apart. Each cell's pass from its state held to its
+                forced plain versions (the CornellBox at 512x512, big_room
+                at 400x224): rays, psfpt's PSF slots and keys and the owner
+                table bit-equal, its cell sums and image within PSF_RTOL of
+                their max (index_add_ adds in no fixed order on the card);
+                ptrl's image bit-equal (Q is fixed within a pass), its new
+                Q within PSF_RTOL of max; the golden
+                (tests/golden/torch_port_psf_24.npz, JAX on the CPU) on the
+                card within the tolerances of tests/test_torch_psf.py;
   5. parity   — one 512x512 pass with the kernels and one with the plain
                 versions forced in their place: equal `rays`, equal images;
                 then the golden configuration (tests/golden/
@@ -271,8 +293,8 @@ result is printed then):
                 same rays beside it; time, bound and counts each launch.
 Then the card's nvidia-smi line, one JSON line {"kernels": [...]} (each row
 also holds its launches per pass on phase 4g's lit, 4h's textured, 4i's
-options and 4j's BPT and PSSMLT paths and its device time a launch inside
-their profiled passes),
+options, 4j's BPT and PSSMLT and 4k's psfpt and ptrl paths and its device
+time a launch inside their profiled passes),
 and last
 {"ok": true, "device": {...}}.
 """
@@ -384,6 +406,11 @@ OPT_PASSES = 2
 # tolerance against the plain versions, of its max (index_add_ adds in no
 # fixed order on the card)
 BPT_PASSES, PSSMLT_STEPS, BPT_SPLAT_RTOL = 1, 1, 1e-5
+# phase 4k: passes a psfpt or ptrl cell (ptrl's default adapt_every=8
+# adapts once, before pass 8), and the tolerance of psfpt's cell sums and
+# image and of ptrl's new Q against the plain versions, of their max
+# (index_add_ adds in no fixed order on the card)
+PSF_PASSES, PSF_RTOL = 9, 1e-5
 # FP32 operations of one node visit of the walk: the slab test of
 # accel/traverse.py _slab_test, ops/csrc/bvh.cu box_hit (6 subtractions, 6
 # multiplications, 12 min/max; the compare not counted)
@@ -544,10 +571,11 @@ def profile_one_pass(ctx, narrow: bool = False):
     """(device kernels, device-busy ms, top entries, {kernel name: [ms of
     each launch]}) of one pass under torch.profiler; the device is idle for
     the rest of the pass. narrow: the pass goes through render()
-    (NarrowPass when the context has narrow=1)."""
+    (NarrowPass when the context has narrow=1). Device activity only:
+    nothing here reads the host's op records."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         if narrow:
             ctx.render(1)
         else:
@@ -714,11 +742,13 @@ def lit_cornell():
 def forced_plain(dev) -> list:
     """patched() replacements that put every kernel's plain version in the
     pass's place: the dense and frontier tracers, the BVH walk, the light
-    pick and the row gathers (the VPL pick's and the material rows' too)."""
+    pick and the row gathers (the VPL pick's, the material rows' and the
+    VTL rows' too)."""
     import torch
 
     from fermat_tpu_torch.accel.traverse import Hit, walk_any, walk_closest
     from fermat_tpu_torch.integrators import pt
+    from fermat_tpu_torch.integrators import rl as rl_mod
     from fermat_tpu_torch.ops import cdf_gather
     from fermat_tpu_torch.ops import frontier_trace as ft
     from fermat_tpu_torch.ops import gather as gather_mod
@@ -761,7 +791,8 @@ def forced_plain(dev) -> list:
             (lights_mod, "gather_rows", gather_mod._gather_plain),
             (mesh_lights_mod, "gather_rows", gather_mod._gather_plain),
             (textures_mod, "gather_rows", gather_mod._gather_plain),
-            (rng_mod, "gather_rows", gather_mod._gather_plain)]
+            (rng_mod, "gather_rows", gather_mod._gather_plain),
+            (rl_mod, "gather_rows", gather_mod._gather_plain)]
 
 
 def drive_cell(tag: str, cell: str, ctx, passes: int, smi: str, reset_counts, counts,
@@ -1551,6 +1582,234 @@ def bpt_phase(dev, smi: str, reset_counts, counts, bview, lobes: tuple) -> dict:
                       f"splat pixels close {near:.4f}")
     log(f"[4j bpt] the BPT and PSSMLT golden (JAX on the CPU) on the card's kernel path within "
         f"the tolerances of tests/test_torch_bpt.py: " + "; ".join(report)
+        + f"; {time.perf_counter() - t_phase:.1f} s for the phase")
+    return {"cells": cells, "launches": launches}
+
+
+def psf_phase(dev, smi: str, reset_counts, counts, bview, lobes: tuple) -> dict:
+    """Phase 4k: the path-space-filtering tracer and the clustered-RL path
+    tracer on the ported tracers (see the module docstring). Returns the
+    cells' numbers and their launches per pass."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from fermat_tpu_torch.integrators import psfpt, ptrl
+    from fermat_tpu_torch.integrators import rl
+    from fermat_tpu_torch.render.context import RenderingContext
+    from fermat_tpu_torch.render.framebuffer import Framebuffer
+    from fermat_tpu_torch.scene import mesh_lights
+    from fermat_tpu_torch.scene.procedural import cornell_box, cornell_camera
+    from fermat_tpu_torch.scene.spatial_hash import HashAccumulator
+    from fermat_tpu_torch.scene.view import SceneView
+
+    t_phase = time.perf_counter()
+    bits = lambda t: t.contiguous().view(torch.int32)
+    cells, launches = {}, {}
+    of_max = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    dense = {"trace_closest": MPL, "trace_any": MPL}
+    frontier = {"trace_closest_frontier": MPL, "trace_any_frontier": MPL,
+                "frontier_sort_key": 2 * MPL}
+
+    def drive(cell, key, ctx, want):
+        """PSF_PASSES passes through render() from a fresh state (each ends
+        in a sync), launches per pass, one profiled pass after them."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset_counts()
+        rays0 = float(ctx.stats.get("rays", 0.0))
+        ctx.render(PSF_PASSES)
+        per = {n: c / PSF_PASSES for n, c in counts().items() if c}
+        rays = (float(ctx.stats["rays"]) - rays0) / PSF_PASSES
+        times = ctx.stats["pass_times"]
+        ms = 1e3 * float(np.median(times[1:]))
+        hdr = ctx.hdr_image()
+        check(np.isfinite(hdr).all() and float(hdr.mean()) > 0.001,
+              f"{cell}: image not finite or black (mean {hdr.mean()})")
+        check(per == want, f"{cell} launches per pass: {per}, want {want}")
+        n_kern, busy, top, each = profile_one_pass(ctx)
+        in_pass = {n: 1e3 * sum(v) / len(v) for n, k in LIT_IN_PASS.items()
+                   for v in [launches_named(each, k)] if v}
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        log(f"[4k psf] {cell} {ctx.res_x}x{ctx.res_y} mpl={MPL}: {ms:.2f} ms/pass (median of "
+            f"passes 2-{PSF_PASSES}; pass 1 {1e3 * times[0]:.1f} ms, each "
+            + ", ".join(f"{1e3 * t:.1f}" for t in times[1:]) + f"), {rays / ms / 1e3:.3f} "
+            f"Mrays/s ({rays:.0f} rays/pass) on {smi}; image mean {hdr.mean():.4f}; peak memory "
+            f"{peak / 2 ** 30:.2f} GiB above the cell's start; launches per pass: {per}")
+        log(f"[4k psf] {cell}: one pass under torch.profiler: {n_kern} device kernels, device "
+            f"busy {busy:.2f} ms of the {ms:.2f} ms pass (idle share {1 - busy / ms:.3f}); route "
+            "kernels' us a launch in it: " + ", ".join(f"{n} {v:.2f}" for n, v in in_pass.items())
+            + "; top: " + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
+        cells[cell] = dict(ms=ms, mrays=rays / ms / 1e3, rays=rays, kernels=n_kern,
+                           busy_ms=busy, idle=1 - busy / ms, launches=per, in_pass_us=in_pass,
+                           peak_bytes=peak, first_pass_ms=1e3 * times[0],
+                           pass_ms=[1e3 * t for t in times])
+        launches[key] = per
+
+    def forced(fn):
+        """fn() with the kernels, then with every plain version forced."""
+        got = fn()
+        before = counts()
+        with patched(forced_plain(dev)):
+            want = fn()
+        torch.cuda.synchronize()
+        check(before == counts(), "the forced plain pass launched a kernel")
+        return got, want
+
+    def psf_plain(cell, view, opts, res_x, res_y, state):
+        (ik, sk, rk, _, lk), (ip, sp, rp, _, lp) = forced(lambda: psfpt.render_pass(
+            view, opts, res_x, res_y, 1000, state, 0, with_psf=True))
+        check(float(rk) == float(rp), f"{cell}: rays {float(rk)} vs plain {float(rp)}")
+        check(all(torch.equal(a, b) for a, b in zip(lk, lp)),
+              f"{cell}: PSF slots, keys or flags differ from the plain pass")
+        check(torch.equal(sk.cells.key, sp.cells.key) and torch.equal(
+            bits(sk.cells.weight), bits(sp.cells.weight)),
+            f"{cell}: owner table or weights differ from the plain pass")
+        errs = [of_max(getattr(sk.cells, f), getattr(sp.cells, f))
+                for f in ("sum_x", "sum_y", "sum_z")] + [of_max(ik.stack(), ip.stack())]
+        check(max(errs) <= PSF_RTOL, f"{cell}: sums / image {errs} of max from the plain pass")
+        log(f"[4k psf] {cell} {res_x}x{res_y}: kernels vs forced plain versions: rays equal "
+            f"({float(rk):.0f}), PSF slots and keys ({int(lk.has.sum())} lanes with a vertex), "
+            f"owners and weights bit-equal; cell sums within {max(errs[:3]):.2e}, image within "
+            f"{errs[3]:.2e} of max")
+
+    def rl_plain(cell, view, opts, res_x, res_y, run):
+        (ik, sk, rk, _), (ip, sp, rp, _) = forced(lambda: ptrl.render_pass(
+            view, opts, run.clusters, res_x, res_y, 1000, run.state, 0))
+        check(float(rk) == float(rp), f"{cell}: rays {float(rk)} vs plain {float(rp)}")
+        check(torch.equal(bits(ik.stack()), bits(ip.stack())),
+              f"{cell}: kernel vs plain image not bit-equal")
+        err = of_max(sk.qstate.q, sp.qstate.q)
+        check(err <= PSF_RTOL, f"{cell}: Q {err:.3g} of max from the plain pass")
+        log(f"[4k psf] {cell} {res_x}x{res_y}: kernels vs forced plain versions: rays equal "
+            f"({float(rk):.0f}), image bit-equal, new Q within {err:.2e} of max")
+
+    def rl_host(cell, view, opts, run):
+        """ptrl's host work timed apart: the clusters' build (the VTL set and
+        its cut); the adaptation step of pass 8 on a copy of the run, as the
+        pass ran it, and on a copy whose Q's column 0 is 50 times larger, so
+        that the step pays (reclustering and the Q remap included)."""
+        t0 = time.perf_counter()
+        fresh = ptrl.start(view, opts)
+        build_ms = 1e3 * (time.perf_counter() - t0)
+        ms = []
+        for scale in (1.0, 50.0):
+            q = run.state.qstate.q.clone()
+            q[:, 0] *= scale
+            trial = run._replace(passes=opts.adapt_every - 1, cut=copy.deepcopy(run.cut),
+                                 state=ptrl.PtrlState(rl.RLState(q)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            after = ptrl.adapt(trial, opts)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            paid = after.cut.cut != run.cut.cut
+        check(paid, f"{cell}: the adaptation step does not pay with an uneven Q")
+        moved = run.cut.cut != fresh.cut.cut
+        log(f"[4k psf] {cell}: host VTL set and cut build {build_ms:.1f} ms "
+            f"({fresh.clusters.n_vtls} VTLs, {fresh.cut.n_clusters} clusters); the adaptation "
+            f"step {ms[0]:.2f} ms as pass 8 ran it (Q's mean to the host, the cut step; after "
+            f"{PSF_PASSES} passes the cut {'moved' if moved else 'stayed: no step paid'}), "
+            f"{ms[1]:.2f} ms with column 0 of Q x50 (the step pays: reclustering and the Q "
+            f"remap)")
+        cells[cell].update(build_ms=build_ms, adapt_ms=ms[0], adapt_paying_ms=ms[1],
+                           cut_moved=moved, n_vtls=fresh.clusters.n_vtls)
+
+    # ---- the CornellBox: K1a, K1b, K2 ----
+    storage = cornell_box(glossy_boxes=True)
+    ctx = RenderingContext.create(storage, cornell_camera(), RES, RES, renderer="psfpt",
+                                  max_path_length=MPL)
+    drive("CornellBox psfpt", "psfpt_cornell", ctx, {**dense, "gather_rows": 17})
+    psf_plain("CornellBox psfpt", ctx.view, psfpt.PsfptOptions(**ctx.renderer_options), RES,
+              RES, ctx.renderer_state)
+    ctx = RenderingContext.create(storage, cornell_camera(), RES, RES, renderer="ptrl",
+                                  max_path_length=MPL)
+    drive("CornellBox ptrl", "ptrl_cornell", ctx, {**dense, "gather_rows": 12})
+    opts = ptrl.PtrlOptions(**ctx.renderer_options)
+    rl_plain("CornellBox ptrl", ctx.view, opts, RES, RES, ctx.renderer_state)
+    rl_host("CornellBox ptrl", ctx.view, opts, ctx.renderer_state)
+    del ctx
+
+    # ---- big_room: K5a, K5b ((u, v) from the ray), K4 (psfpt), K2 ----
+    ropts = {"max_path_length": MPL, "lobes": lobes}
+    for renderer, want in (("psfpt", {**frontier, "cdf_pick_rows": MPL, "gather_rows": 11}),
+                           ("ptrl", {**frontier, "gather_rows": 12})):
+        cell = f"big_room {renderer}"
+        rctx = RenderingContext(view=bview, res_x=BIG_W, res_y=BIG_H, renderer=renderer,
+                                renderer_options=ropts)
+        rctx.fb = Framebuffer.create(BIG_H, BIG_W, dev)
+        drive(cell, f"{renderer}_big_room", rctx, want)
+        if renderer == "psfpt":
+            psf_plain(cell, bview, psfpt.PsfptOptions(**ropts), PLAIN_W, PLAIN_H,
+                      rctx.renderer_state)
+        else:
+            opts = ptrl.PtrlOptions(**ropts)
+            rl_plain(cell, bview, opts, PLAIN_W, PLAIN_H, rctx.renderer_state)
+            rl_host(cell, bview, opts, rctx.renderer_state)
+        del rctx
+    torch.cuda.empty_cache()
+
+    # ---- the golden on the card's kernel path ----
+    gz = np.load(ROOT / "tests" / "golden" / "torch_port_psf_24.npz")
+    bz = np.load(ROOT / "tests" / "golden" / "torch_port_bigroom_24.npz")
+    gseed = int(gz["seed"])
+    views, report = {}, []
+
+    def view_of(scene):
+        if scene not in views:
+            z, p = (bz, "view.") if scene == "big_room" else (gz, f"{scene}.view.")
+            views[scene] = SceneView.from_numpy({k[len(p):]: z[k] for k in z.files
+                                                 if k.startswith(p)}, dev)
+        return views[scene]
+
+    t = lambda k: torch.from_numpy(gz[k]).to(dev)
+    for name, (scene, renderer, fields, passes) in json.loads(str(gz["cases"])).items():
+        big = scene == "big_room"
+        res = int(gz["big_res"]) if big else int(gz["res"])
+        view, lobes_s = view_of(scene), tuple(bool(x) for x in gz[f"{scene}.lobes"])
+        worst = 1.0
+        for tracer in (("auto", "bvh") if big else ("auto",)):
+            for k in range(1 if tracer == "bvh" else passes):
+                if renderer == "psfpt":
+                    opts = psfpt.PsfptOptions(lobes=lobes_s, tracer=tracer, **fields)
+                    state = (psfpt.init_state(view, opts) if k == 0 else psfpt.PsfptState(
+                        HashAccumulator.from_numpy(*(gz[f"{name}.{k}.cells.{f}"] for f in (
+                            "sum_x", "sum_y", "sum_z", "weight", "key")), dev)))
+                    img, state, rays, _ = psfpt.render_pass(view, opts, res, res, k, state,
+                                                            gseed)
+                else:
+                    opts = ptrl.PtrlOptions(lobes=lobes_s, tracer=tracer, **fields)
+                    run = ptrl.start(view, opts)
+                    if k:
+                        if run.cut is not None:
+                            run.cut.cut = list(gz[f"{name}.{k}.cut"])
+                            run = run._replace(clusters=mesh_lights.VTLView.from_numpy(
+                                {f: gz[f"{name}.{k}.vtl.{f}"]
+                                 for f in mesh_lights.VTLView._fields[:-1]},
+                                opts.n_clusters, dev))
+                        run = run._replace(state=ptrl.PtrlState(rl.RLState(t(f"{name}.{k}.q"))),
+                                           passes=k)
+                    elif f"{name}.q0" in gz.files:
+                        run = run._replace(state=ptrl.PtrlState(rl.RLState(t(f"{name}.q0"))))
+                    img, rays, _, run = ptrl.step(view, opts, run, res, res, k, gseed)
+                    if run.cut is not None:
+                        check(run.cut.cut == list(gz[f"{name}.{k + 1}.cut"]),
+                              f"psf golden {name} pass {k + 1}: the cut differs from JAX's")
+                want = float(gz[f"{name}.{k + 1}.rays"])
+                check(float(rays) == want or (big and abs(float(rays) - want) <= 0.005 * want),
+                      f"psf golden {name} ({tracer}) pass {k + 1}: rays {float(rays)} vs JAX "
+                      f"{want}")
+                ok, near, mean_rel = image_close(img.stack().cpu().numpy(),
+                                                 gz[f"{name}.{k + 1}.img"])
+                check(ok, f"psf golden {name} ({tracer}) pass {k + 1}: {near:.4f} of pixels "
+                          f"close, mean rel {mean_rel:.2e}")
+                worst = min(worst, near)
+        report.append(f"{name} pixels close >= {worst:.4f}")
+    log("[4k psf] the psfpt and ptrl golden (JAX on the CPU; each pass from JAX's state "
+        "before it) on the card's kernel path within the tolerances of "
+        "tests/test_torch_psf.py: " + "; ".join(report)
         + f"; {time.perf_counter() - t_phase:.1f} s for the phase")
     return {"cells": cells, "launches": launches}
 
@@ -2481,6 +2740,9 @@ def main() -> int:
     # ---- 4j. the bidirectional path tracer and PSSMLT ----
     bp = bpt_phase(dev, smi, reset_counts, counts, bview, tuple(bctx.renderer_options["lobes"]))
 
+    # ---- 4k. the path-space-filtering and clustered-RL path tracers ----
+    pf = psf_phase(dev, smi, reset_counts, counts, bview, tuple(bctx.renderer_options["lobes"]))
+
     # ---- 5. parity on the card ----
     opts = pt.PTOptions(**ctx.renderer_options)
     out_k = pt.render_pass(ctx.view, opts, RES, RES, 1000, 0)
@@ -3347,10 +3609,12 @@ def main() -> int:
     for row in rows:  # the kernel's launches per pass on each lit (4g), textured (4h) and
         # options (4i) path
         for cell, per in (*lit["launches"].items(), *tex["launches"].items(),
-                          *opt["launches"].items(), *bp["launches"].items()):
+                          *opt["launches"].items(), *bp["launches"].items(),
+                          *pf["launches"].items()):
             row[f"launches_per_pass_{cell}"] = per.get(row["name"], 0)
         for key, ph in (("in_lit_pass_us", lit), ("in_textured_pass_us", tex),
-                        ("in_options_pass_us", opt), ("in_bpt_pass_us", bp)):
+                        ("in_options_pass_us", opt), ("in_bpt_pass_us", bp),
+                        ("in_psf_pass_us", pf)):
             row[key] = {c: v["in_pass_us"][row["name"]] for c, v in ph["cells"].items()
                         if row["name"] in v.get("in_pass_us", {})}
     log("[summary] lit (4g) " + "; ".join(
@@ -3368,6 +3632,13 @@ def main() -> int:
         + (f", init {v['init_ms']:.1f} ms, {v['mutations_per_s'] / 1e6:.3f} M mutations/s, "
            f"acceptance {v['accept']:.4f}, init peak {v['init_peak_bytes'] / 2 ** 30:.2f} GiB"
            if "init_ms" in v else "") for c, v in bp["cells"].items()))
+    log("[summary] psfpt and ptrl (4k) " + "; ".join(
+        f"{c}: {v['ms']:.2f} ms/pass, {v['mrays']:.3f} Mrays/s, {v['kernels']} device kernels, "
+        f"busy {v['busy_ms']:.2f} ms, idle {v['idle']:.3f}, "
+        f"peak {v['peak_bytes'] / 2 ** 30:.2f} GiB"
+        + (f", host build {v['build_ms']:.1f} ms, adaptation {v['adapt_ms']:.2f} ms "
+           f"({v['adapt_paying_ms']:.2f} ms when it pays)"
+           if "build_ms" in v else "") for c, v in pf["cells"].items()))
     log("[summary] textured (4h) " + "; ".join(
         f"{c}: {v['ms']:.2f} ms" + (f"/pass, {v['mrays']:.3f} Mrays/s, busy {v['busy_ms']:.2f} ms,"
                                      f" idle {v['idle']:.3f}, atlas {v['atlas_bytes']} B"

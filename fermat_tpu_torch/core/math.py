@@ -103,3 +103,14 @@ def to_world(v: Vec3, t: Vec3, b: Vec3, n: Vec3) -> Vec3:
         v.x * t.y + v.y * b.y + v.z * n.y,
         v.x * t.z + v.y * b.z + v.z * n.z,
     )
+
+
+def oct_encode(n: Vec3):
+    """Unit vector -> octahedral (u, v) in [-1, 1]^2 (math.py:176-184)."""
+    inv_l1 = 1.0 / (torch.abs(n.x) + torch.abs(n.y) + torch.abs(n.z) + 1e-20)
+    u = n.x * inv_l1
+    v = n.y * inv_l1
+    # fold the lower hemisphere
+    uf = (1.0 - torch.abs(v)) * torch.sign(torch.where(u == 0.0, 1.0, u))
+    vf = (1.0 - torch.abs(u)) * torch.sign(torch.where(v == 0.0, 1.0, v))
+    return torch.where(n.z < 0.0, uf, u), torch.where(n.z < 0.0, vf, v)

@@ -116,35 +116,6 @@ def _adjoint_corr(wi: Vec3, wo: Vec3, sn: Vec3, gn: Vec3) -> Tensor:
     return torch.clamp_max(num / den, 8.0)
 
 
-class _Tracers(NamedTuple):
-    closest: object
-    anyhit: object
-    uv_from_ray: bool
-
-
-def _tracers(view: SceneView, opts: BPTOptions) -> _Tracers:
-    """The view's own closest and any-hit tracers with detached inputs and
-    hits (JAX's _pick_tracers; no shadow sets, bpt.py:200)."""
-    popts = pt_mod.PTOptions(tracer=opts.tracer)
-    if pt_mod._trace_mode(view.mesh.n_triangles, popts, view.clusters is not None) == "mega":
-        raise NotImplementedError(
-            "tracer='mega' runs the PT pass only: there is no BPT megakernel (JAX's BPT walks a "
-            "BVH under that name)")
-    closest, anyhit, uv_from_ray = pt_mod._raw_tracers(view, popts)
-    return _Tracers(lambda *a: pt_mod._detach_hit(closest(*pt_mod._detach_args(*a))),
-                    lambda *a: anyhit(*pt_mod._detach_args(*a)), uv_from_ray)
-
-
-def _surface(view: SceneView, tr: _Tracers, table: Tensor, hit, o: Vec3, d: Vec3):
-    """(clamped tri, ShadeHit) at the hit: JAX's interpolate and the hit's
-    material row in one fetch of the shade table; (u, v) from the ray on a
-    route whose tracer returns none."""
-    tri_c = torch.clamp_min(hit.tri, 0)
-    if tr.uv_from_ray:
-        return tri_c, view.mesh.shade_fetch_ray(tri_c, o, d, table)
-    return tri_c, view.mesh.shade_fetch(tri_c, hit.u, hit.v, table)
-
-
 def _sample_light(view: SceneView, u0: Tensor, u1: Tensor, u2: Tensor):
     """(pos, normal, Le, pdf_area) of a point on the full light table, Le
     modulated by the emitter's map on a textured view (bpt.py:211-221)."""
@@ -228,7 +199,7 @@ def render_pass(view: SceneView, opts: BPTOptions, res_x: int, res_y: int, insta
     (PSSMLT's MatrixSequence). With `return_splat_list` it also returns each
     lane's light-tracing splats as (pixel (N, L-1) int32, -1 where not lit;
     rgb (N, L-1, 3))."""
-    tr = _tracers(view, opts)
+    tr = pt_mod.view_tracers(view, opts.tracer, "BPT")
     dev = view.device
     if pix is None:
         pix = torch.arange(res_x * res_y, dtype=torch.int64, device=dev)
@@ -276,7 +247,7 @@ def render_pass(view: SceneView, opts: BPTOptions, res_x: int, res_y: int, insta
         hit = tr.closest(o, d, eps, 3.0e38, alive)
         count(alive)
         valid = alive & hit.hit_mask
-        _, sh = _surface(view, tr, table, hit, o, d)
+        _, sh, _, _ = pt_mod.surface(view, tr, table, hit, o, d)
         pos, gn = sh.pos, sh.gn
         wi = -d
         flip = torch.where(dot(gn, wi) < 0.0, -1.0, 1.0)
@@ -372,7 +343,7 @@ def render_pass(view: SceneView, opts: BPTOptions, res_x: int, res_y: int, insta
         env_l = scene_env_radiance(view, d)
         radiance = _add(radiance, missed, Vec3(thr.x * env_l.x, thr.y * env_l.y,
                                                thr.z * env_l.z))
-        tri_c, sh = _surface(view, tr, table, hit, o, d)
+        tri_c, sh, _, _ = pt_mod.surface(view, tr, table, hit, o, d)
         pos, gn = sh.pos, sh.gn
         wi = -d
         flip = torch.where(dot(gn, wi) < 0.0, -1.0, 1.0)

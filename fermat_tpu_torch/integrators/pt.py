@@ -257,6 +257,41 @@ def _pick_shadow_anyhits(view: SceneView, opts: PTOptions, anyhit: Callable):
                  for ss in view.shadow_sets)
 
 
+class ViewTracers(NamedTuple):
+    """The view's own closest and any-hit tracers of the other renderers."""
+
+    closest: Callable  # (o, d, tmin, tmax, active) -> Hit
+    anyhit: Callable  # (o, d, tmin, tmax, active) -> occluded
+    uv_from_ray: bool  # closest returns no barycentrics (shade_fetch_ray)
+
+
+def view_tracers(view: SceneView, tracer: str, renderer: str) -> ViewTracers:
+    """The closest and any-hit tracers of the view's own geometry, with
+    detached inputs and hits, for the renderers that call JAX's
+    _pick_tracers: no shadow sets (bpt.py:200, psfpt.py:78, ptrl.py:77).
+    tracer="mega" raises NotImplementedError: the megakernel runs the PT
+    pass only (JAX's `renderer` walks a BVH under that name)."""
+    popts = PTOptions(tracer=tracer)
+    if _trace_mode(view.mesh.n_triangles, popts, view.clusters is not None) == "mega":
+        raise NotImplementedError(
+            f"tracer='mega' runs the PT pass only: there is no {renderer} megakernel (JAX's "
+            f"{renderer} walks a BVH under that name)")
+    closest, anyhit, uv_from_ray = _raw_tracers(view, popts)
+    return ViewTracers(lambda *a: _detach_hit(closest(*_detach_args(*a))),
+                       lambda *a: anyhit(*_detach_args(*a)), uv_from_ray)
+
+
+def surface(view: SceneView, tr: ViewTracers, table: Tensor, hit: Hit, o: Vec3, d: Vec3):
+    """(clamped tri, ShadeHit, u, v) at the hit: JAX's interpolate and the
+    hit's material row in one fetch of the shade table; (u, v) from the ray
+    on a route whose tracer returns none (JAX shades those hits at u = v =
+    0, a route it meets only on a TPU)."""
+    tri_c = torch.clamp_min(hit.tri, 0)
+    if tr.uv_from_ray:
+        return (tri_c, *view.mesh.shade_fetch_ray_uv(tri_c, o, d, table))
+    return tri_c, view.mesh.shade_fetch(tri_c, hit.u, hit.v, table), hit.u, hit.v
+
+
 def _sample_lights_compact(compact: Tuple[Tensor, Tensor], ul0: Tensor, ul1: Tensor,
                            ul2: Tensor):
     """lights.sample() over the emissive subset (pt.py:169-211): the pick and

@@ -10,20 +10,25 @@ area lights go through SceneView.build(area_light_defs=...). texture_dir is
 where the materials' texture names are looked up (SceneView.build).
 
 The context runs on "cuda" unless the caller passes device="cpu"; with
-device="cuda" and no GPU it raises. The registry holds "pt", "bpt" and
-"pssmlt"; a renderer's options are its options tuple's fields (PTOptions,
-bpt.BPTOptions, pssmlt.PssmltOptions). tracer="bvh", "frontier", "cluster",
+device="cuda" and no GPU it raises. The registry holds "pt", "bpt",
+"pssmlt", "psfpt" and "ptrl"; a renderer's options are its options tuple's
+fields (PTOptions, bpt.BPTOptions, pssmlt.PssmltOptions,
+psfpt.PsfptOptions, ptrl.PtrlOptions). tracer="bvh", "frontier", "cluster",
 "binned" or "mega" picks the tracer (with tracer="bvh" the view gets its BVH,
 SceneView.with_bvh); "mega" is the PT pass's alone. `lobes` defaults to the
-scene's for pt and bpt, `clearcoat` to the scene's for pt, as in JAX
-(context.py:286-298). The renderer option narrow=1 makes render() run each
+scene's for pt, bpt, psfpt and ptrl, `clearcoat` to the scene's for pt, as
+in JAX (context.py:286-298). The renderer option narrow=1 makes render() run each
 PT pass through the narrowing driver (integrators/pt.NarrowPass,
 context.py:316-372); render_batch keeps the monolithic pass, as in JAX.
-"pssmlt" is stateful: its chains (renderer_state) are seeded at the first
-pass (pssmlt.init_state, one chain a pixel) and each pass is one Metropolis
-step whose splat image is COMPOSITED; render and render_batch carry the
-state from pass to pass, restart() drops it, so that the next pass seeds
-new chains from the view as it is then. Its `rays` stays 0, as in JAX.
+"pssmlt", "psfpt" and "ptrl" are stateful: render and render_batch carry
+their renderer_state from pass to pass, and restart() drops it, so that
+the next pass starts it anew from the view as it is then (JAX keeps it,
+context.py:445-448). PSSMLT's chains are seeded at the first pass
+(pssmlt.init_state, one chain a pixel) and each pass is one Metropolis
+step whose splat image is COMPOSITED; its `rays` stays 0, as in JAX.
+PSFPT's state is its hash cells (psfpt.PsfptState), PTRL's a ptrl.PtrlRun:
+the Q table, the light clusters and the VTL cut, built at the first pass
+and adapted every adapt_every passes. Both write COMPOSITED only.
 """
 from __future__ import annotations
 
@@ -39,8 +44,10 @@ from fermat_tpu_torch.bsdf.composite import scene_clearcoat, scene_lobes
 from fermat_tpu_torch.core.camera import Camera
 from fermat_tpu_torch.core.math import Vec3
 from fermat_tpu_torch.integrators import bpt as bpt_mod
+from fermat_tpu_torch.integrators import psfpt as psf_mod
 from fermat_tpu_torch.integrators import pssmlt as ps_mod
 from fermat_tpu_torch.integrators import pt as pt_mod
+from fermat_tpu_torch.integrators import ptrl as ptrl_mod
 from fermat_tpu_torch.ops import pt_mega
 from fermat_tpu_torch.render.framebuffer import Framebuffer, to_rgba8
 from fermat_tpu_torch.scene.mesh import MeshStorage
@@ -82,9 +89,46 @@ def _pssmlt_factory(**kw):
     return pass_fn, opts
 
 
+def _psfpt_factory(**kw):
+    """A stateful pass (context.py:136-167) over the persistent hash cells."""
+    opts = psf_mod.PsfptOptions(**kw)
+
+    def init(view, res_x, res_y, seed):
+        return psf_mod.init_state(view, opts)
+
+    def pass_fn(view, opts_, res_x, res_y, instance, seed, state):
+        out, state, rays, rays_lane = psf_mod.render_pass(view, opts_, res_x, res_y, instance,
+                                                          state, seed)
+        return pt_mod.composited_output(out, rays, rays_lane), state
+
+    pass_fn.stateful = True
+    pass_fn.init = init
+    return pass_fn, opts
+
+
+def _ptrl_factory(**kw):
+    """A stateful pass (context.py:169-240): `init` builds the clusters and
+    Q, each pass adapts the cut on its cadence and renders."""
+    opts = ptrl_mod.PtrlOptions(**kw)
+
+    def init(view, res_x, res_y, seed):
+        return ptrl_mod.start(view, opts)
+
+    def pass_fn(view, opts_, res_x, res_y, instance, seed, run):
+        out, rays, rays_lane, run = ptrl_mod.step(view, opts_, run, res_x, res_y, instance,
+                                                  seed)
+        return pt_mod.composited_output(out, rays, rays_lane), run
+
+    pass_fn.stateful = True
+    pass_fn.init = init
+    return pass_fn, opts
+
+
 register_renderer("pt", _pt_factory)
 register_renderer("bpt", _bpt_factory)
 register_renderer("pssmlt", _pssmlt_factory)
+register_renderer("psfpt", _psfpt_factory)
+register_renderer("ptrl", _ptrl_factory)
 
 
 @dataclass
@@ -99,7 +143,7 @@ class RenderingContext:
     gbuffer: Optional[dict] = None
     instance: int = 0
     stats: dict = field(default_factory=dict)
-    renderer_state: object = None  # a stateful renderer's state (PSSMLT's chains)
+    renderer_state: object = None  # a stateful renderer's state (chains, cells, Q)
     _pass: Optional[tuple] = None
 
     @staticmethod
@@ -117,7 +161,8 @@ class RenderingContext:
         if renderer_options.get("tracer") == "bvh":
             view = view.with_bvh()
         renderer_options = dict(renderer_options)
-        if renderer in ("pt", "bpt"):  # of the registered renderers (context.py:286-298)
+        # of the registered renderers (context.py:286-298)
+        if renderer in ("pt", "bpt", "psfpt", "ptrl"):
             renderer_options.setdefault("lobes", scene_lobes(storage.materials))
         if renderer == "pt":
             renderer_options.setdefault("clearcoat", scene_clearcoat(storage.materials))

@@ -235,10 +235,15 @@ class MeshView(NamedTuple):
         own p0/e1/e2 (Moller-Trumbore barycentrics, mesh.py:372-430), for
         closest tracers that return no barycentrics. inv_det is taken
         wherever det != 0, as there (no 1e-12 gate)."""
+        return self.shade_fetch_ray_uv(tri, o, d, table)[0]
+
+    def shade_fetch_ray_uv(self, tri: Tensor, o: Vec3, d: Vec3, table: Tensor):
+        """(shade_fetch_ray's ShadeHit, the derived u, v)."""
         r = _detach_geometry(gather_rows(table, tri))
         vec = lambda c: Vec3(r[:, c], r[:, c + 1], r[:, c + 2])
         u, v = ray_barycentrics(o, d, vec(0), vec(3), vec(6))
-        return _shade(r, u.detach(), v.detach())  # mesh.py:404-405
+        u, v = u.detach(), v.detach()  # mesh.py:404-405
+        return _shade(r, u, v), u, v
 
     def triangle_areas(self) -> Tensor:
         c = cross(self.e1, self.e2)

@@ -174,13 +174,14 @@ def test_cuda_request_without_a_card_raises():
     # every PTOptions field JAX's PT pass honours is ported (the BVH walk,
     # the VPL set, the LTC lobe, queue compaction, the detach and debug
     # switches: tests/test_torch_options.py, tests/test_torch_bvh.py), and so
-    # are the bpt and pssmlt renderers (tests/test_torch_bpt.py), but not on
-    # the megakernel, which runs the PT pass only; the other renderers, the
-    # brute tracer, and the megakernel on a lit view or with the LTC lobe
-    # (which JAX's megakernel cannot run) still raise
+    # are the bpt, pssmlt, psfpt and ptrl renderers (tests/test_torch_bpt.py,
+    # tests/test_torch_psf.py), but not on the megakernel, which runs the PT
+    # pass only; the other renderers, the brute tracer, and the megakernel
+    # on a lit view or with the LTC lobe (which JAX's megakernel cannot run)
+    # still raise
     {"renderer": "bpt", "tracer": "mega"}, {"renderer": "mlt"}, {"renderer": "cmlt"},
-    {"renderer": "rpt"}, {"renderer": "pssmlt", "tracer": "mega"}, {"renderer": "psfpt"},
-    {"renderer": "ptrl"},
+    {"renderer": "rpt"}, {"renderer": "pssmlt", "tracer": "mega"},
+    {"renderer": "psfpt", "tracer": "mega"}, {"renderer": "ptrl", "tracer": "mega"},
     {"tracer": "brute"}, {"tracer": "mega", "glossy_model": "ltc"},
     {"tracer": "mega", "point_lights": [((0.0, 1.5, 0.0), (1.0, 1.0, 1.0))]},
 ])
