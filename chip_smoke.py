@@ -198,6 +198,29 @@ result is printed then):
                 Q within PSF_RTOL of max; the golden
                 (tests/golden/torch_port_psf_24.npz, JAX on the CPU) on the
                 card within the tolerances of tests/test_torch_psf.py;
+  4l. mlt    — path-space MLT and charted MLT (`mlt_phase`): mlt and cmlt
+                through RenderingContext with default options
+                (max_path_length=6; mlt 12 steps a pass, an ST swap every
+                4th; cmlt 8 seed rounds, a chart swap every 3rd step), one
+                chain a pixel, on the glossy CornellBox 512x512 (K1a, K1b,
+                K2) and on big_room(8300) 1600x896 with tracer="auto" (K5a,
+                K5b with their sort keys, K2): MLT_PASSES passes or
+                CMLT_STEPS steps a cell, each pass's tracer launches held to
+                the count its options give, ms/pass, Mrays/s (the renderer's
+                own ray counter), one profiled pass (device kernels, busy,
+                idle share), peak memory (reckoned first on big_room),
+                cmlt's init_state ms; mlt's presample and steps 0-3 and
+                cmlt's steps 0-2 held to their forced plain versions (the
+                CornellBox at 512x512, big_room at 400x224): chain states
+                bit-equal, rays equal, splats within BPT_SPLAT_RTOL of their
+                max (index_add_ adds in no fixed order), with the share of
+                chains that moved each step; the golden
+                (tests/golden/torch_port_mlt_24.npz, JAX on the CPU; each
+                step from JAX's stored state) within the tolerances of
+                tests/test_torch_mlt.py; convergence to PT on JAX's test
+                scene at 32x32 (mlt 64 passes of 8 steps, cmlt 512 passes,
+                mlt with st_swap_frequency=2; PT 192 passes, rr=False)
+                within the bounds of tests/test_mlt.py and test_cmlt.py;
   5. parity   — one 512x512 pass with the kernels and one with the plain
                 versions forced in their place: equal `rays`, equal images;
                 then the golden configuration (tests/golden/
@@ -293,8 +316,8 @@ result is printed then):
                 same rays beside it; time, bound and counts each launch.
 Then the card's nvidia-smi line, one JSON line {"kernels": [...]} (each row
 also holds its launches per pass on phase 4g's lit, 4h's textured, 4i's
-options, 4j's BPT and PSSMLT and 4k's psfpt and ptrl paths and its device
-time a launch inside their profiled passes),
+options, 4j's BPT and PSSMLT, 4k's psfpt and ptrl and 4l's mlt and cmlt
+paths and its device time a launch inside their profiled passes),
 and last
 {"ok": true, "device": {...}}.
 """
@@ -306,6 +329,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -383,6 +407,9 @@ AD_PLAIN_RTOL = 1e-4
 ENV_W, ENV_H = 2048, 1024
 LIT_PASSES = 2  # a batch, both lit scenes (the lit CornellBox's pass is host-bound, ~1 s)
 # device kernel names of the route kernels, for their time inside a profiled lit pass
+# captures of one profiled pass before its expected kernels are given up
+# (profile_one_pass)
+PROFILE_TRIES = 3
 LIT_IN_PASS = {"trace_closest": "closest_kernel", "trace_any": "any_kernel",
                "gather_rows": "gather_rows_kernel", "trace_closest_frontier": "trace_kernel<true>",
                "trace_any_frontier": "trace_kernel<false>", "cdf_pick_rows": "pick_kernel",
@@ -411,6 +438,17 @@ BPT_PASSES, PSSMLT_STEPS, BPT_SPLAT_RTOL = 1, 1, 1e-5
 # image and of ptrl's new Q against the plain versions, of their max
 # (index_add_ adds in no fixed order on the card)
 PSF_PASSES, PSF_RTOL = 9, 1e-5
+# phase 4l: mlt passes and cmlt steps a cell (a cmlt pass is one step; step
+# 2 is a chart swap), and the side of the convergence checks' images (JAX's
+# tests/test_mlt.py and test_cmlt.py); the splats are held to the plain
+# versions within BPT_SPLAT_RTOL
+MLT_PASSES, CMLT_STEPS, CONV_RES = 2, 3, 32
+# the convergence renders, each a process of its own: tag -> (renderer,
+# passes, options beyond max_path_length=4), and a process's time limit (s)
+CONV_CASES = {"pt": ("pt", 192, {"rr": False}), "mlt": ("mlt", 64, {"steps_per_pass": 8}),
+              "cmlt": ("cmlt", 512, {}),
+              "mlt_swap2": ("mlt", 64, {"steps_per_pass": 8, "st_swap_frequency": 2})}
+CONV_TIMEOUT = 400
 # FP32 operations of one node visit of the walk: the slab test of
 # accel/traverse.py _slab_test, ops/csrc/bvh.cu box_hit (6 subtractions, 6
 # multiplications, 12 min/max; the compare not counted)
@@ -439,12 +477,24 @@ def peaks_for(name: str):
     return part, PEAKS[part]
 
 
-def _on_device(event) -> bool:
-    """A kernel (or memcpy/memset) on the card, not the CPU op that launched
-    it: the profiler books a kernel's time on both."""
+def device_records(prof) -> list:
+    """(name, ms) of each kernel, memcpy and memset the card ran under the
+    torch.profiler `prof`, not the CPU ops that launched them, read from the
+    profiler's raw records: prof.events() builds a Python object and its
+    tree links for every record first, which takes tens of seconds for a
+    pass of 190,000 kernels."""
     import torch
 
-    return event.device_type == torch.autograd.DeviceType.CUDA
+    names, out = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        raw = e.name()
+        if raw not in names:
+            names[raw] = torch._C._demangle(raw)
+        ms = e.duration_ns() / 1e6 if hasattr(e, "duration_ns") else e.duration_us() / 1e3
+        out.append((names[raw], ms))
+    return out
 
 
 def device_ms(fn, reps: int = REPLAYS, cold: bool = True) -> dict:
@@ -558,34 +608,41 @@ def device_split(fn, reps: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
     split = {"scan": 0.0, "sort": 0.0, "test": 0.0, "other": 0.0}
-    for e in prof.events():
-        if _on_device(e):
-            n = e.name.lower()
-            k = ("scan" if "scan_kernel" in n else "test" if "test_kernel" in n
-                 else "sort" if "sort" in n else "other")
-            split[k] += e.self_device_time_total
-    return {k: v / 1e3 / reps for k, v in split.items()}
+    for name, ms in device_records(prof):
+        n = name.lower()
+        k = ("scan" if "scan_kernel" in n else "test" if "test_kernel" in n
+             else "sort" if "sort" in n else "other")
+        split[k] += ms
+    return {k: v / reps for k, v in split.items()}
 
 
-def profile_one_pass(ctx, narrow: bool = False):
+def profile_one_pass(ctx, narrow: bool = False, expect: tuple = ()):
     """(device kernels, device-busy ms, top entries, {kernel name: [ms of
     each launch]}) of one pass under torch.profiler; the device is idle for
     the rest of the pass. narrow: the pass goes through render()
     (NarrowPass when the context has narrow=1). Device activity only:
-    nothing here reads the host's op records."""
+    nothing here reads the host's op records. expect: parts of the names of
+    device kernels the pass launches; a capture that holds no record of one
+    of them (CUPTI now and then drops a pass's device records) is taken
+    again, up to PROFILE_TRIES captures, and the last is returned."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        if narrow:
-            ctx.render(1)
-        else:
-            ctx.render_batch(1)
-    by_name, each = {}, {}
-    for e in prof.events():
-        if _on_device(e):
-            t, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.self_device_time_total, c + 1)
-            each.setdefault(e.name, []).append(e.self_device_time_total / 1e3)
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if narrow:
+                ctx.render(1)
+            else:
+                ctx.render_batch(1)
+        by_name, each = {}, {}
+        for name, ms in device_records(prof):
+            t, c = by_name.get(name, (0.0, 0))
+            by_name[name] = (t + 1e3 * ms, c + 1)
+            each.setdefault(name, []).append(ms)
+        missing = [k for k in expect if not launches_named(each, k)]
+        if not missing:
+            break
+        log(f"[profile] capture {attempt} of {PROFILE_TRIES} holds no record of {missing} "
+            f"({sum(c for _, c in by_name.values())} device kernels recorded)")
     busy_ms = sum(t for t, _ in by_name.values()) / 1e3
     n_kern = sum(c for _, c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
@@ -795,6 +852,20 @@ def forced_plain(dev) -> list:
             (rl_mod, "gather_rows", gather_mod._gather_plain)]
 
 
+def kernels_then_plain(dev, counts, fn):
+    """(fn() with the kernels, fn() with every plain version forced); the
+    forced call launches no kernel."""
+    import torch
+
+    got = fn()
+    before = counts()
+    with patched(forced_plain(dev)):
+        want = fn()
+    torch.cuda.synchronize()
+    check(before == counts(), "the forced plain pass launched a kernel")
+    return got, want
+
+
 def drive_cell(tag: str, cell: str, ctx, passes: int, smi: str, reset_counts, counts,
                narrow: bool = False) -> dict:
     """Phases 4g and 4h: a warm-up pass, best of REPS batches of `passes`,
@@ -814,7 +885,8 @@ def drive_cell(tag: str, cell: str, ctx, passes: int, smi: str, reset_counts, co
     hdr = ctx.hdr_image()
     check(np.isfinite(hdr).all() and float(hdr.mean()) > 0.001,
           f"{cell}: image not finite or black (mean {hdr.mean()})")
-    n_kern, busy, top, each = profile_one_pass(ctx, narrow=narrow)
+    n_kern, busy, top, each = profile_one_pass(
+        ctx, narrow=narrow, expect=tuple(LIT_IN_PASS[n] for n in per if n in LIT_IN_PASS))
     ms = best / passes * 1e3
     # each route kernel's device time a launch inside the profiled pass (us)
     in_pass = {n: 1e3 * sum(v) / len(v) for n, k in LIT_IN_PASS.items()
@@ -1629,7 +1701,8 @@ def psf_phase(dev, smi: str, reset_counts, counts, bview, lobes: tuple) -> dict:
         check(np.isfinite(hdr).all() and float(hdr.mean()) > 0.001,
               f"{cell}: image not finite or black (mean {hdr.mean()})")
         check(per == want, f"{cell} launches per pass: {per}, want {want}")
-        n_kern, busy, top, each = profile_one_pass(ctx)
+        n_kern, busy, top, each = profile_one_pass(
+            ctx, expect=tuple(LIT_IN_PASS[n] for n in per if n in LIT_IN_PASS))
         in_pass = {n: 1e3 * sum(v) / len(v) for n, k in LIT_IN_PASS.items()
                    for v in [launches_named(each, k)] if v}
         peak = torch.cuda.max_memory_allocated(dev) - base
@@ -1648,15 +1721,7 @@ def psf_phase(dev, smi: str, reset_counts, counts, bview, lobes: tuple) -> dict:
                            pass_ms=[1e3 * t for t in times])
         launches[key] = per
 
-    def forced(fn):
-        """fn() with the kernels, then with every plain version forced."""
-        got = fn()
-        before = counts()
-        with patched(forced_plain(dev)):
-            want = fn()
-        torch.cuda.synchronize()
-        check(before == counts(), "the forced plain pass launched a kernel")
-        return got, want
+    forced = lambda fn: kernels_then_plain(dev, counts, fn)
 
     def psf_plain(cell, view, opts, res_x, res_y, state):
         (ik, sk, rk, _, lk), (ip, sp, rp, _, lp) = forced(lambda: psfpt.render_pass(
@@ -1814,6 +1879,341 @@ def psf_phase(dev, smi: str, reset_counts, counts, bview, lobes: tuple) -> dict:
     return {"cells": cells, "launches": launches}
 
 
+def reckon_peak(renderer: str, n: int, K: int, rounds: int = 8) -> int:
+    """Phase 4l's reckoning of a cell's peak device bytes above its start,
+    printed before the big_room run: the shade rows (52 float32) the step
+    keeps alive, one a vertex, plus the chain state; for cmlt's init_state
+    a walk's slots and the (round, chart, lane) luminances with their
+    float64 and float32 prefix sums."""
+    LS = max(K - 2, 1)
+    row = 52 * 4
+    if renderer == "mlt":
+        # a step: K + LS old and new vertices and y_0, the state, the temporaries
+        return n * ((2 * (K + LS) + 1) * row + 3 * 4 * (K + LS) + 600)
+    n_charts = sum(K + 2 - t for t in range(2, K + 2)) + K - 1
+    return n * ((K + LS) * (row + 26 * 4) + rounds * n_charts * (4 + 8 + 4) + 600)
+
+
+def mlt_phase(dev, smi: str, reset_counts, counts, bview, lobes: tuple) -> dict:
+    """Phase 4l: path-space MLT and charted MLT on the ported tracers (see
+    the module docstring). Returns the cells' numbers and their launches
+    per pass (a cmlt step is a pass)."""
+    import numpy as np
+    import torch
+
+    from fermat_tpu_torch.integrators import cmlt, mlt
+    from fermat_tpu_torch.render.context import RenderingContext
+    from fermat_tpu_torch.render.framebuffer import Framebuffer
+    from fermat_tpu_torch.scene.procedural import cornell_box, cornell_camera
+    from fermat_tpu_torch.scene.view import SceneView
+
+    t_phase = time.perf_counter()
+    bits = lambda t: t.contiguous().view(torch.int32)
+    cells, launches = {}, {}
+    of_max = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    K = MPL
+    LS = K - 2
+    routes = {"dense": ("trace_closest", "trace_any"),
+              "frontier": ("trace_closest_frontier", "trace_any_frontier")}
+
+    def mlt_launches(route):
+        """The tracer launches of a default MLT pass: the presample's LS + K
+        closest and K-1 + pairs shadow launches, K + LS + 1 closest and one
+        shadow launch a perturbation step, none in an ST swap."""
+        opts = mlt.MLTOptions(max_path_length=K)
+        pert = sum(not mlt.is_swap_step(opts, i) for i in range(opts.steps_per_pass))
+        pairs = sum(1 for i in range(K) for j in range(LS) if i + j + 3 <= K)
+        c, a = routes[route]
+        return {c: LS + K + pert * (K + LS + 1), a: K - 1 + pairs + pert}
+
+    def cmlt_launches(route, swap):
+        """A cmlt step's tracer launches: one walk (2K - 2 closest) and one
+        connection, twice in a chart swap."""
+        c, a = routes[route]
+        return {c: (2 if swap else 1) * (2 * K - 2), a: 2 if swap else 1}
+
+    def states_equal(a, b) -> bool:
+        for x, y in zip(a, b):
+            if isinstance(x, torch.Tensor):
+                if x.dtype == torch.float32:
+                    x, y = bits(x), bits(y)
+                if not torch.equal(x, y):
+                    return False
+            elif x != y:
+                return False
+        return True
+
+    def moved(new, old):
+        out = None
+        for x, y in zip(new, old):
+            if isinstance(x, torch.Tensor) and x.ndim:
+                m = (x != y).reshape(x.shape[0], -1).any(dim=1)
+                out = m if out is None else out | m
+        return out
+
+    def drive(cell, key, ctx, passes, want, init=None):
+        """`passes` passes through render(), each synced, its launches held
+        to want(i) (the tracer launches; K2 counted), one profiled pass
+        after them; cmlt's init_state timed apart first."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        extra, state0 = {}, None
+        if init is not None:
+            t0 = time.perf_counter()
+            ctx.renderer_state = state0 = init()
+            torch.cuda.synchronize()
+            extra = dict(init_ms=1e3 * (time.perf_counter() - t0),
+                         init_peak_bytes=torch.cuda.max_memory_allocated(dev) - base)
+        per, rays = [], []
+        for i in range(passes):
+            reset_counts()
+            ctx.render(1)
+            got = {n: c for n, c in counts().items() if c}
+            tr = {n: c for n, c in got.items() if n in want(i)}
+            check(tr == want(i) and got.get("gather_rows", 0) > 0
+                  and set(got) <= set(want(i)) | {"gather_rows", "frontier_sort_key"},
+                  f"{cell} pass {i + 1} launches {got}, want the tracers' {want(i)}")
+            per.append(got)
+            rays.append(float(ctx.gbuffer["rays"]))
+        times = ctx.stats["pass_times"][-passes:]
+        ms = 1e3 * float(np.median(times))
+        hdr = ctx.hdr_image()
+        check(np.isfinite(hdr).all() and float(hdr.mean()) > 0.001,
+              f"{cell}: image not finite or black (mean {hdr.mean()})")
+        n_kern, busy, top, each = profile_one_pass(
+            ctx, expect=tuple(LIT_IN_PASS[n] for n in per[-1] if n in LIT_IN_PASS))
+        prof_ms = 1e3 * ctx.stats["batch_times"][-1][1]
+        in_pass = {n: 1e3 * sum(v) / len(v) for n, k in LIT_IN_PASS.items()
+                   for v in [launches_named(each, k)] if v}
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        avg = {n: sum(p.get(n, 0) for p in per) / passes for n in set().union(*per)}
+        ray = float(np.mean(rays))
+        log(f"[4l mlt] {cell} {ctx.res_x}x{ctx.res_y} mpl={K}: {ms:.2f} ms/pass (median of "
+            f"{passes}: " + ", ".join(f"{1e3 * t:.1f}" for t in times) + f"), "
+            f"{ray / ms / 1e3:.3f} Mrays/s ({ray:.0f} rays/pass) on {smi}; image mean "
+            f"{hdr.mean():.4f}; peak memory {peak / 2 ** 30:.2f} GiB above the cell's start"
+            + (f"; init_state {extra['init_ms']:.1f} ms (peak "
+               f"{extra['init_peak_bytes'] / 2 ** 30:.2f} GiB)" if extra else "")
+            + f"; launches per pass: {per}")
+        log(f"[4l mlt] {cell}: one pass under torch.profiler: {n_kern} device kernels, device "
+            f"busy {busy:.2f} ms of the {prof_ms:.2f} ms pass (idle share "
+            f"{1 - busy / prof_ms:.3f}); route kernels' us a launch in it: "
+            + ", ".join(f"{n} {v:.2f}" for n, v in in_pass.items())
+            + "; top: " + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
+        cells[cell] = dict(ms=ms, mrays=ray / ms / 1e3, rays=ray, kernels=n_kern, busy_ms=busy,
+                           prof_ms=prof_ms, idle=1 - busy / prof_ms, launches=avg,
+                           in_pass_us=in_pass, peak_bytes=peak,
+                           pass_ms=[1e3 * t for t in times], **extra)
+        launches[key] = avg
+        return state0
+
+    forced = lambda fn: kernels_then_plain(dev, counts, fn)
+
+    def chains_plain(cell, what, run):
+        """run() -> (chain states, the steps' splats, rays) with the kernels
+        and with every plain version forced: the states bit-equal, the rays
+        equal, the splats within BPT_SPLAT_RTOL of max. Returns the share of
+        chains that moved at each step of the kernels' run."""
+        (sk, pk, rk), (sp, pp, rp) = forced(run)
+        check(rk == rp, f"{cell}: rays {rk} vs plain {rp}")
+        check(all(states_equal(a, b) for a, b in zip(sk, sp)),
+              f"{cell}: kernel vs plain chain states not bit-equal")
+        err = max(of_max(a, b) for a, b in zip(pk, pp))
+        check(err <= BPT_SPLAT_RTOL, f"{cell}: splat {err:.3g} of max from the plain steps")
+        acc = [float(moved(b, a).float().mean()) for a, b in zip(sk, sk[1:])]
+        log(f"[4l mlt] {cell}: {what} vs forced plain versions: rays equal ("
+            + ", ".join(f"{r:.0f}" for r in rk) + f"), states bit-equal, splats within {err:.2e}"
+            " of max; chains that moved a step: " + ", ".join(f"{a:.4f}" for a in acc))
+        return acc
+
+    def mlt_run(view, opts, res_x, res_y):
+        """The presample and steps 0-3 (step 3 an ST swap)."""
+        def run():
+            st, r = mlt.presample(view, opts, res_x, res_y, 1000, 0)
+            states, splats, rays = [st], [], [float(r)]
+            for k in range(4):
+                st, sp, r = mlt.step(view, opts, res_x, res_y, 1000, 0, st, k)
+                states.append(st)
+                splats.append(sp)
+                rays.append(float(r))
+            return states, splats, rays
+        return run
+
+    def cmlt_run(view, opts, res_x, res_y, state):
+        """Steps 0-2 (step 2 a chart swap) from `state`."""
+        def run():
+            st, states, splats, rays = state, [state], [], []
+            for _ in range(3):
+                st, sp, r = cmlt.step(view, opts, res_x, res_y, st)
+                states.append(st)
+                splats.append(sp)
+                rays.append(float(r))
+            return states, splats, rays
+        return run
+
+    storage = cornell_box(glossy_boxes=True)
+    ropts = {"max_path_length": K, "lobes": lobes}
+    n_big = BIG_W * BIG_H
+
+    def room_ctx(renderer):
+        ctx = RenderingContext(view=bview, res_x=BIG_W, res_y=BIG_H, renderer=renderer,
+                               renderer_options=dict(ropts))
+        ctx.fb = Framebuffer.create(BIG_H, BIG_W, dev)
+        return ctx
+
+    # ---- the timed cells: mlt, then cmlt, on the CornellBox (K1a, K1b, K2)
+    # and on big_room (K5a, K5b, K2) ----
+    ctx = RenderingContext.create(storage, cornell_camera(), RES, RES, renderer="mlt",
+                                  max_path_length=K)
+    cb_view, m_opts = ctx.view, mlt.MLTOptions(**ctx.renderer_options)
+    drive("CornellBox mlt", "mlt_cornell", ctx, MLT_PASSES, lambda i: mlt_launches("dense"))
+    del ctx
+    log(f"[4l mlt] big_room mlt: reckoned peak {reckon_peak('mlt', n_big, K) / 2 ** 30:.2f} GiB "
+        f"above the cell's start at {n_big} chains")
+    drive("big_room mlt", "mlt_big_room", room_ctx("mlt"), MLT_PASSES,
+          lambda i: mlt_launches("frontier"))
+    torch.cuda.empty_cache()
+    copts = lambda: cmlt.CMLTOptions(**ropts)
+    swap = lambda i: cmlt.is_swap_step(copts(), i)
+    ctx = RenderingContext.create(storage, cornell_camera(), RES, RES, renderer="cmlt",
+                                  max_path_length=K)
+    c_opts = cmlt.CMLTOptions(**ctx.renderer_options)
+    cb_s0 = drive("CornellBox cmlt", "cmlt_cornell", ctx, CMLT_STEPS,
+                  lambda i: cmlt_launches("dense", swap(i)),
+                  init=lambda: cmlt.init_state(cb_view, c_opts, RES, RES, RES * RES, 0))
+    del ctx
+    log(f"[4l mlt] big_room cmlt: reckoned init_state peak "
+        f"{reckon_peak('cmlt', n_big, K) / 2 ** 30:.2f} GiB above the cell's start at {n_big} "
+        "chains")
+    drive("big_room cmlt", "cmlt_big_room", room_ctx("cmlt"), CMLT_STEPS,
+          lambda i: cmlt_launches("frontier", swap(i)),
+          init=lambda: cmlt.init_state(bview, copts(), BIG_W, BIG_H, n_big, 0))
+    torch.cuda.empty_cache()
+
+    def golden_held():
+        """The golden on the card's kernel path."""
+        gz = np.load(ROOT / "tests" / "golden" / "torch_port_mlt_24.npz")
+        bz = np.load(ROOT / "tests" / "golden" / "torch_port_bigroom_24.npz")
+        gseed, views, report = int(gz["seed"]), {}, []
+        for name, (scene, renderer, fields) in json.loads(str(gz["cases"])).items():
+            if scene not in views:
+                z, p = (bz, "view.") if scene == "big_room" else (gz, f"{scene}.view.")
+                views[scene] = SceneView.from_numpy({k[len(p):]: z[k] for k in z.files
+                                                     if k.startswith(p)}, dev)
+            view = views[scene]
+            res = int(gz["big_res"]) if scene == "big_room" else int(gz["res"])
+            lobes_s = tuple(bool(x) for x in gz[f"{scene}.lobes"])
+            if renderer == "mlt":
+                opts, cls = mlt.MLTOptions(lobes=lobes_s, **fields), mlt.ChainState
+                n_steps = opts.steps_per_pass
+                state = mlt.presample(view, opts, res, res, 0, gseed)[0]
+            else:
+                opts, cls = cmlt.CMLTOptions(lobes=lobes_s, **fields), cmlt.CMLTState
+                state, n_steps = cmlt.init_state(view, opts, res, res, res * res, gseed), 3
+            load = lambda k: cls.from_numpy({f: gz[f"{name}.{k}.{f}"] for f in cls._fields},
+                                            dev)
+            seeded = min(float((x == y).reshape(x.shape[0], -1).all(dim=1).float().mean())
+                         for x, y in zip(state, load(0)) if isinstance(x, torch.Tensor)
+                         and x.dtype in (torch.int32, torch.int64, torch.bool))
+            check(seeded >= 0.99,
+                  f"mlt golden {name}: seeded ids equal on {seeded:.4f} of chains")
+            worst, same_min = 1.0, 1.0
+            for k in range(n_steps):
+                old = load(k)
+                if renderer == "mlt":
+                    new, splat, rays = mlt.step(view, opts, res, res, 0, gseed, old, k)
+                else:
+                    new, splat, rays = cmlt.step(view, opts, res, res, old)
+                same = float((moved(new, old) == moved(load(k + 1), old)).float().mean())
+                ok, near, mean_rel = image_close(splat.cpu().numpy(),
+                                                 gz[f"{name}.{k + 1}.splat"])
+                want = float(gz[f"{name}.{k + 1}.rays"])
+                check(same >= 0.99 and ok and abs(float(rays) - want) <= 0.005 * want,
+                      f"mlt golden {name} step {k}: same decision on {same:.4f}, splat pixels "
+                      f"close {near:.4f} (mean rel {mean_rel:.2e}), rays {float(rays)} vs {want}")
+                worst, same_min = min(worst, near), min(same_min, same)
+            report.append(f"{name} seeded ids {seeded:.4f}, decisions >= {same_min:.4f}, splat "
+                          f"pixels >= {worst:.4f}")
+        log("[4l mlt] the mlt and cmlt golden (JAX on the CPU; each step from JAX's state "
+            "before it) on the card's kernel path within the tolerances of "
+            "tests/test_torch_mlt.py: " + "; ".join(report))
+
+    # ---- convergence to PT on JAX's test scene (tests/test_mlt.py,
+    # test_cmlt.py): the four renders are host-bound, so each runs in a
+    # process of its own, started after the timed cells; the checks against
+    # the plain versions and the golden, untimed, run meanwhile ----
+    cres = CONV_RES
+    t0 = time.perf_counter()
+    imgs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        procs = {}
+        try:
+            for tag in CONV_CASES:
+                with open(tmp / f"{tag}.log", "w") as out:
+                    procs[tag] = subprocess.Popen(
+                        [sys.executable, str(ROOT / "chip_smoke.py"), "--convergence", tag,
+                         str(tmp / f"{tag}.npz")], stdout=out, stderr=subprocess.STDOUT)
+            m_steps = "presample and steps 0-3 (step 3 the ST swap)"
+            c_steps = "steps 0-2 (step 2 the chart swap)"
+            cells["CornellBox mlt"]["accept"] = chains_plain(
+                f"CornellBox mlt {RES}x{RES}", m_steps, mlt_run(cb_view, m_opts, RES, RES))
+            cells["big_room mlt"]["accept"] = chains_plain(
+                f"big_room mlt {PLAIN_W}x{PLAIN_H}", m_steps,
+                mlt_run(bview, mlt.MLTOptions(**ropts), PLAIN_W, PLAIN_H))
+            cells["CornellBox cmlt"]["accept"] = chains_plain(
+                f"CornellBox cmlt {RES}x{RES}", c_steps, cmlt_run(cb_view, c_opts, RES, RES,
+                                                                  cb_s0))
+            del cb_s0
+            s0 = cmlt.init_state(bview, copts(), PLAIN_W, PLAIN_H, PLAIN_W * PLAIN_H, 0)
+            cells["big_room cmlt"]["accept"] = chains_plain(
+                f"big_room cmlt {PLAIN_W}x{PLAIN_H}", c_steps,
+                cmlt_run(bview, copts(), PLAIN_W, PLAIN_H, s0))
+            del s0
+            torch.cuda.empty_cache()
+            golden_held()
+            t_wait = time.perf_counter()
+            for tag, proc in procs.items():
+                rc = proc.wait(timeout=CONV_TIMEOUT)
+                check(rc == 0, f"convergence {tag}: exit {rc}: "
+                               f"{(tmp / f'{tag}.log').read_text()[-2000:]}")
+                z = np.load(tmp / f"{tag}.npz")
+                imgs[tag] = (z["img"], float(z["seconds"]))
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    log(f"[4l mlt] the convergence processes ran {time.perf_counter() - t0:.1f} s, "
+        f"{time.perf_counter() - t_wait:.1f} s of it waited for after the checks above")
+
+    def pool(x):
+        return x.reshape(4, cres // 4, 4, cres // 4, 3).mean((1, 3))
+
+    img_pt, t_pt = imgs["pt"]
+    m_pt = img_pt.mean((0, 1))
+    conv = {}
+    for tag, pooled in (("mlt", 0.15), ("cmlt", 0.17), ("mlt_swap2", None)):
+        img, secs = imgs[tag]
+        check(np.isfinite(img).all(), f"convergence {tag}: image not finite")
+        m = img.mean((0, 1))
+        rel = float((np.abs(m_pt - m) / np.maximum(m_pt, 1e-3)).max())
+        a, b = pool(img_pt), pool(img)
+        relp = float((np.abs(a - b) / np.maximum(np.maximum(a, b), 0.05)).mean())
+        check(rel < 0.08 and (pooled is None or relp < pooled),
+              f"convergence {tag}: channel means {m} vs PT {m_pt} (max rel {rel:.4f}, bound "
+              f"0.08), pooled error {relp:.4f} (bound {pooled})")
+        conv[tag] = dict(rel=rel, pooled=relp, seconds=secs)
+        renderer, passes, kw = CONV_CASES[tag]
+        log(f"[4l mlt] convergence {tag} ({renderer}, {passes} passes {kw} at {cres}x{cres}, "
+            f"{secs:.1f} s) to PT (192 passes, rr=False, {t_pt:.1f} s): channel means {m} vs "
+            f"{m_pt}, max rel {rel:.4f} (< 0.08), 4x4-pooled error {relp:.4f}"
+            + (f" (< {pooled})" if pooled else ""))
+    log(f"[4l mlt] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"cells": cells, "launches": launches, "convergence": conv}
+
+
 def walk_rows(dev, bw: float, fp32: float, bview, opt: dict, lcalls: dict, k5_plain: dict,
               bvhk: dict, max_err: dict) -> list:
     """Phase 6's rows of the BVH walk, at big_room's bounce-0 and bounce-1
@@ -1955,6 +2355,30 @@ def walk_rows(dev, bw: float, fp32: float, bview, opt: dict, lcalls: dict, k5_pl
     return rows
 
 
+def convergence_render(tag: str, out: str) -> int:
+    """Phase 4l's convergence render `tag` of CONV_CASES in a process of
+    its own: JAX's test scene (tests/test_mlt.py) at CONV_RES x CONV_RES,
+    max_path_length=4, on the card; writes the HDR image and the seconds to
+    `out` (.npz)."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from fermat_tpu_torch.render.context import RenderingContext
+    from fermat_tpu_torch.scene.procedural import cornell_box, cornell_camera
+
+    renderer, passes, kw = CONV_CASES[tag]
+    t0 = time.perf_counter()
+    ctx = RenderingContext.create(cornell_box(light_scale=0.5, light_size=2.0, glossy_boxes=True),
+                                  cornell_camera(), CONV_RES, CONV_RES, renderer=renderer,
+                                  max_path_length=4, **kw)
+    ctx.render_batch(passes)
+    np.savez(out, img=ctx.hdr_image(), seconds=time.perf_counter() - t0)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2023,9 +2447,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    part, (bw, fp32) = peaks_for(name)
-    log(f"[1 device] {name} ({torch.cuda.device_count()} visible); nvidia-smi: {smi}; "
+    device_name = torch.cuda.get_device_name(0)
+    part, (bw, fp32) = peaks_for(device_name)
+    log(f"[1 device] {device_name} ({torch.cuda.device_count()} visible); nvidia-smi: {smi}; "
         f"bounds use H100 {part} peaks {bw / 1e12:.2f} TB/s, {fp32 / 1e12:.0f} TFLOP/s FP32")
 
     # ---- 2. build ----
@@ -2315,7 +2739,8 @@ def main() -> int:
         f"{mrays:.2f} Mrays/s ({best_rays / PASSES:.0f} rays/pass; best of {REPS} x "
         f"{PASSES} passes) on {smi}; image mean {hdr.mean():.4f}; launches over "
         f"{n_main} passes: {launches}")
-    n_kern, busy_ms, top, d_each = profile_one_pass(ctx)
+    n_kern, busy_ms, top, d_each = profile_one_pass(
+        ctx, expect=("closest_kernel", "any_kernel", "gather_rows_kernel"))
     # the dense kernels' own device time inside the profiled pass, beside
     # phase 6's replays
     d_in_pass = {"trace_closest": launches_named(d_each, "closest_kernel"),
@@ -2348,7 +2773,7 @@ def main() -> int:
         f"{m_mrays:.2f} Mrays/s ({m_rays / PASSES:.0f} rays/pass; best of {REPS} x {PASSES} "
         f"passes) on {smi}; image mean {m_hdr.mean():.4f}; launches over {n_main} passes: "
         f"{m_launches}")
-    mk_n, m_busy, m_top, m_each = profile_one_pass(mctx)
+    mk_n, m_busy, m_top, m_each = profile_one_pass(mctx, expect=("mega_forward_kernel",))
     # the kernels' own device time inside the profiled passes, beside phase
     # 6's replays of the same kernels
     in_pass = {"mega_forward": launches_named(m_each, "mega_forward_kernel")}
@@ -2426,7 +2851,8 @@ def main() -> int:
                   f"big_room monolithic: {counts()} over {n_big} passes of {MPL} bounces")
         b_ms = b_best / BIG_PASSES * 1e3
         b_mrays = b_rays / b_best / 1e6
-        n_kern, busy_ms, top, each = profile_one_pass(bctx, narrow=narrow)
+        n_kern, busy_ms, top, each = profile_one_pass(
+            bctx, narrow=narrow, expect=("trace_kernel<true>", "trace_kernel<false>"))
         if not narrow:
             in_pass.update(trace_closest_frontier=launches_named(each, "trace_kernel<true>"),
                            trace_any_frontier=launches_named(each, "trace_kernel<false>"),
@@ -2623,9 +3049,8 @@ def main() -> int:
             ad_step(ctx.view, a_opts, RES, RES, a_inst)  # K2b's inputs for phase 6
             torch.cuda.synchronize()
     a_each = {}
-    for e in prof.events():
-        if _on_device(e):
-            a_each.setdefault(e.name, []).append(e.self_device_time_total / 1e3)
+    for kern, ms in device_records(prof):
+        a_each.setdefault(kern, []).append(ms)
     a_busy = sum(sum(v) for v in a_each.values())
     # K2b's device time a launch inside the step (its kernels summed over its
     # launches), and K1b's
@@ -2702,10 +3127,9 @@ def main() -> int:
             ad_step(bview, bopts, BIG_W, BIG_H, 4)
             torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if _on_device(e):
-            t, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.self_device_time_total, c + 1)
+    for kern, ms in device_records(prof):
+        t, c = by_name.get(kern, (0.0, 0))
+        by_name[kern] = (t + 1e3 * ms, c + 1)
     b_busy = sum(t for t, _ in by_name.values()) / 1e3
     b_kern = sum(c for _, c in by_name.values())
     b_top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
@@ -2742,6 +3166,9 @@ def main() -> int:
 
     # ---- 4k. the path-space-filtering and clustered-RL path tracers ----
     pf = psf_phase(dev, smi, reset_counts, counts, bview, tuple(bctx.renderer_options["lobes"]))
+
+    # ---- 4l. path-space MLT and charted MLT ----
+    ml = mlt_phase(dev, smi, reset_counts, counts, bview, tuple(bctx.renderer_options["lobes"]))
 
     # ---- 5. parity on the card ----
     opts = pt.PTOptions(**ctx.renderer_options)
@@ -3062,7 +3489,8 @@ def main() -> int:
         tests_ms = m_ops["tests"] / fp32 * 1e3
         no_pwl_ms = (ops - m_ops["pwl"]) / fp32 * 1e3
         kern = mega[kname]
-        if kname == "mega_forward":  # its device time in phase 4b's profiled pass
+        # its device time in phase 4b's profiled pass, where a capture held it
+        if kname == "mega_forward" and in_pass["mega_forward"]:
             t["in_pass_ms"] = sum(in_pass["mega_forward"]) / len(in_pass["mega_forward"])
         rows.append({
             "name": kname, "route": "cuda",
@@ -3610,11 +4038,11 @@ def main() -> int:
         # options (4i) path
         for cell, per in (*lit["launches"].items(), *tex["launches"].items(),
                           *opt["launches"].items(), *bp["launches"].items(),
-                          *pf["launches"].items()):
+                          *pf["launches"].items(), *ml["launches"].items()):
             row[f"launches_per_pass_{cell}"] = per.get(row["name"], 0)
         for key, ph in (("in_lit_pass_us", lit), ("in_textured_pass_us", tex),
                         ("in_options_pass_us", opt), ("in_bpt_pass_us", bp),
-                        ("in_psf_pass_us", pf)):
+                        ("in_psf_pass_us", pf), ("in_mlt_pass_us", ml)):
             row[key] = {c: v["in_pass_us"][row["name"]] for c, v in ph["cells"].items()
                         if row["name"] in v.get("in_pass_us", {})}
     log("[summary] lit (4g) " + "; ".join(
@@ -3639,6 +4067,16 @@ def main() -> int:
         + (f", host build {v['build_ms']:.1f} ms, adaptation {v['adapt_ms']:.2f} ms "
            f"({v['adapt_paying_ms']:.2f} ms when it pays)"
            if "build_ms" in v else "") for c, v in pf["cells"].items()))
+    log("[summary] mlt and cmlt (4l) " + "; ".join(
+        f"{c}: {v['ms']:.2f} ms/" + ("step" if "init_ms" in v else "pass")
+        + f", {v['mrays']:.3f} Mrays/s, {v['kernels']} device kernels, busy {v['busy_ms']:.2f}"
+        f" ms, idle {v['idle']:.3f}, peak {v['peak_bytes'] / 2 ** 30:.2f} GiB, acceptance "
+        + "/".join(f"{a:.4f}" for a in v["accept"])
+        + (f", init {v['init_ms']:.1f} ms" if "init_ms" in v else "")
+        for c, v in ml["cells"].items())
+        + "; convergence to PT: " + "; ".join(
+            f"{t} max rel {v['rel']:.4f}, pooled {v['pooled']:.4f}"
+            for t, v in ml["convergence"].items()))
     log("[summary] textured (4h) " + "; ".join(
         f"{c}: {v['ms']:.2f} ms" + (f"/pass, {v['mrays']:.3f} Mrays/s, busy {v['busy_ms']:.2f} ms,"
                                      f" idle {v['idle']:.3f}, atlas {v['atlas_bytes']} B"
@@ -3646,10 +4084,12 @@ def main() -> int:
         + f", peak {v['peak_bytes'] / 2 ** 30:.2f} GiB" for c, v in tex["cells"].items()))
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--convergence"]:
+        sys.exit(convergence_render(*sys.argv[2:4]))
     sys.exit(main())

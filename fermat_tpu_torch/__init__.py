@@ -26,8 +26,12 @@ the shadow sets of materials flagged FLAG_SHADOW_*_IGNORE, textures, and
 every PTOptions field of JAX's PT pass: VPL NEE, the LTC glossy lobe, queue
 compaction, the detach and debug switches, and tracer="bvh" (the skip-link
 BVH walk, ops/bvh_trace.py). The bidirectional path tracer
-(integrators/bpt.py) and PSSMLT (integrators/pssmlt.py) render through the
-same tracers and gathers. Every kernel is hand-written CUDA.
+(integrators/bpt.py), PSSMLT (integrators/pssmlt.py), path-space MLT
+(integrators/mlt.py), charted MLT (integrators/cmlt.py, its chart swaps
+through bsdf/inversion.py), the path-space-filtering tracer
+(integrators/psfpt.py) and the clustered-RL path tracer
+(integrators/ptrl.py) render through the same tracers and gathers. Every
+kernel is hand-written CUDA.
 """
 from __future__ import annotations
 

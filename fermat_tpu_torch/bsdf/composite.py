@@ -234,6 +234,11 @@ def f_and_pdf(p: BsdfParams, wi: Vec3, wo: Vec3, lobes=ALL_LOBES,
     return Vec3(fx, fy, fz), mix
 
 
+def f(p: BsdfParams, wi: Vec3, wo: Vec3, lobes=ALL_LOBES) -> Vec3:
+    """The composite BSDF value alone (composite.py:188-191)."""
+    return f_and_pdf(p, wi, wo, lobes)[0]
+
+
 def f_split(p: BsdfParams, wi: Vec3, wo: Vec3, lobes=ALL_LOBES,
             clearcoat: bool = False, glossy: str = "ggx",
             e_fn=None) -> Tuple[Vec3, Vec3, Tensor]:

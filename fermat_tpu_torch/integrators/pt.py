@@ -93,6 +93,7 @@ from fermat_tpu_torch.ops.cdf_gather import cdf_pick_rows
 from fermat_tpu_torch.ops.cluster_trace import trace_any_cluster, trace_closest_cluster
 from fermat_tpu_torch.ops.frontier_trace import trace_any_frontier, trace_closest_frontier
 from fermat_tpu_torch.ops.trace import trace_any, trace_closest
+from fermat_tpu_torch.scene.envmap import scene_env_radiance
 from fermat_tpu_torch.scene.lights import row_sample, row_uv
 from fermat_tpu_torch.scene.textures import modulate
 from fermat_tpu_torch.scene.view import DENSE_MAX_TRIANGLES, SceneView
@@ -848,6 +849,28 @@ def composited_output(comp: Vec3, rays: Tensor, rays_lane: Tensor) -> _PassOutpu
         uv=torch.zeros((n, 2), device=dev),
         material=torch.full((n,), -1, dtype=torch.int32, device=dev), rays=rays,
         rays_lane=rays_lane)
+
+
+def direct_env_image(view: SceneView, res_x: int, res_y: int, instance: int,
+                     seed: int = 0) -> Tuple[Tensor, Tensor]:
+    """(H*W, 3) directly-visible environment radiance (the camera rays that
+    miss) and the rays it traced (pt.py:439-475): the term the MCMC
+    renderers add outside their chains, whose paths end on surfaces or
+    escape only after a bounce. One camera ray a pixel from the
+    TiledSequence of (seed, instance) at dimension 0, traced with the view's
+    own closest tracer of tracer="auto". A view with no environment (no map,
+    a zero constant; decided on the host) gives zeros and a zero count
+    without tracing."""
+    n, dev = res_x * res_y, view.device
+    if view.env_map is None and not bool((view.env != 0.0).any()):
+        return torch.zeros((n, 3), device=dev), torch.zeros((), device=dev)
+    tr = view_tracers(view, "auto", "the direct environment term")
+    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    jx, jy = TiledSequence.create(seed).set_instance(instance).sample_2d(pix, 0)
+    o, d, _ = generate_camera_rays(view.camera, res_x, res_y, jx, jy, pix)
+    hit = tr.closest(o, d, 1e-4, 3.0e38, torch.ones(n, dtype=torch.bool, device=dev))
+    img = select(~hit.hit_mask, scene_env_radiance(view, d)).stack()
+    return img, torch.full((), float(n), device=dev)
 
 
 def _permute_carry(c: Carry, dest: Tensor) -> Carry:

@@ -10,22 +10,28 @@ area lights go through SceneView.build(area_light_defs=...). texture_dir is
 where the materials' texture names are looked up (SceneView.build).
 
 The context runs on "cuda" unless the caller passes device="cpu"; with
-device="cuda" and no GPU it raises. The registry holds "pt", "bpt",
-"pssmlt", "psfpt" and "ptrl"; a renderer's options are its options tuple's
-fields (PTOptions, bpt.BPTOptions, pssmlt.PssmltOptions,
-psfpt.PsfptOptions, ptrl.PtrlOptions). tracer="bvh", "frontier", "cluster",
-"binned" or "mega" picks the tracer (with tracer="bvh" the view gets its BVH,
+device="cuda" and no GPU it raises. The registry holds "pt", "bpt", "mlt",
+"cmlt", "pssmlt", "psfpt" and "ptrl"; a renderer's options are its options
+tuple's fields (PTOptions, bpt.BPTOptions, mlt.MLTOptions,
+cmlt.CMLTOptions, pssmlt.PssmltOptions, psfpt.PsfptOptions,
+ptrl.PtrlOptions). tracer="bvh", "frontier", "cluster", "binned" or "mega"
+picks the tracer (with tracer="bvh" the view gets its BVH,
 SceneView.with_bvh); "mega" is the PT pass's alone. `lobes` defaults to the
-scene's for pt, bpt, psfpt and ptrl, `clearcoat` to the scene's for pt, as
-in JAX (context.py:286-298). The renderer option narrow=1 makes render() run each
-PT pass through the narrowing driver (integrators/pt.NarrowPass,
+scene's for every renderer but pssmlt, `clearcoat` to the scene's for pt,
+as in JAX (context.py:286-298). An "mlt" pass presamples its chains anew
+and runs steps_per_pass steps; its COMPOSITED is the chains' image plus the
+directly visible environment (pt.direct_env_image), and so is each "cmlt"
+pass, one step of the chains. The renderer option narrow=1 makes render()
+run each PT pass through the narrowing driver (integrators/pt.NarrowPass,
 context.py:316-372); render_batch keeps the monolithic pass, as in JAX.
-"pssmlt", "psfpt" and "ptrl" are stateful: render and render_batch carry
-their renderer_state from pass to pass, and restart() drops it, so that
-the next pass starts it anew from the view as it is then (JAX keeps it,
-context.py:445-448). PSSMLT's chains are seeded at the first pass
-(pssmlt.init_state, one chain a pixel) and each pass is one Metropolis
-step whose splat image is COMPOSITED; its `rays` stays 0, as in JAX.
+"cmlt", "pssmlt", "psfpt" and "ptrl" are stateful: render and render_batch
+carry their renderer_state from pass to pass, and restart() drops it, so
+that the next pass starts it anew from the view as it is then (JAX keeps
+it, context.py:445-448). CMLT's chains are seeded at the first pass
+(cmlt.init_state, one chain a pixel unless n_chains is set), and so are
+PSSMLT's (pssmlt.init_state, one chain a pixel); a PSSMLT pass is one
+Metropolis step whose splat image is COMPOSITED; its `rays` stays 0, as in
+JAX.
 PSFPT's state is its hash cells (psfpt.PsfptState), PTRL's a ptrl.PtrlRun:
 the Q table, the light clusters and the VTL cut, built at the first pass
 and adapted every adapt_every passes. Both write COMPOSITED only.
@@ -44,6 +50,8 @@ from fermat_tpu_torch.bsdf.composite import scene_clearcoat, scene_lobes
 from fermat_tpu_torch.core.camera import Camera
 from fermat_tpu_torch.core.math import Vec3
 from fermat_tpu_torch.integrators import bpt as bpt_mod
+from fermat_tpu_torch.integrators import cmlt as cmlt_mod
+from fermat_tpu_torch.integrators import mlt as mlt_mod
 from fermat_tpu_torch.integrators import psfpt as psf_mod
 from fermat_tpu_torch.integrators import pssmlt as ps_mod
 from fermat_tpu_torch.integrators import pt as pt_mod
@@ -124,8 +132,32 @@ def _ptrl_factory(**kw):
     return pass_fn, opts
 
 
+def _mlt_factory(**kw):
+    return mlt_mod.render_pass_fb, mlt_mod.MLTOptions(**kw)
+
+
+def _cmlt_factory(**kw):
+    """A stateful pass (context.py:65-101): `init` seeds the chains (one a
+    pixel when n_chains is 0), each pass is one step plus the directly
+    visible environment."""
+    opts = cmlt_mod.CMLTOptions(**kw)
+
+    def init(view, res_x, res_y, seed):
+        n = opts.n_chains if opts.n_chains > 0 else res_x * res_y
+        return cmlt_mod.init_state(view, opts, res_x, res_y, n, seed)
+
+    def pass_fn(view, opts_, res_x, res_y, instance, seed, state):
+        return cmlt_mod.render_step_fb(view, opts_, res_x, res_y, instance, seed, state)
+
+    pass_fn.stateful = True
+    pass_fn.init = init
+    return pass_fn, opts
+
+
 register_renderer("pt", _pt_factory)
 register_renderer("bpt", _bpt_factory)
+register_renderer("mlt", _mlt_factory)
+register_renderer("cmlt", _cmlt_factory)
 register_renderer("pssmlt", _pssmlt_factory)
 register_renderer("psfpt", _psfpt_factory)
 register_renderer("ptrl", _ptrl_factory)
@@ -162,7 +194,7 @@ class RenderingContext:
             view = view.with_bvh()
         renderer_options = dict(renderer_options)
         # of the registered renderers (context.py:286-298)
-        if renderer in ("pt", "bpt", "psfpt", "ptrl"):
+        if renderer in ("pt", "bpt", "psfpt", "ptrl", "mlt", "cmlt"):
             renderer_options.setdefault("lobes", scene_lobes(storage.materials))
         if renderer == "pt":
             renderer_options.setdefault("clearcoat", scene_clearcoat(storage.materials))

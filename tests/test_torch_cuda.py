@@ -1567,3 +1567,226 @@ def test_psfpt_and_ptrl_render_through_the_context_on_card(dev):
         assert ctx.renderer_state is not None
         img = ctx.hdr_image()
         assert np.isfinite(img).all() and img.mean() > 0.0
+
+
+MLT_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                          "torch_port_mlt_24.npz")
+
+
+def _mcmc_view(scene, dev):
+    from fermat_tpu_torch.scene.procedural import big_room_camera
+
+    if scene == "cornell":
+        return SceneView.build(cornell_box(glossy_boxes=True), cornell_camera(), dev), 48
+    return SceneView.build(big_room(400), big_room_camera(), dev), 32
+
+
+def _states_equal(a, b) -> bool:
+    """Two chain states bit for bit (floats by their bits)."""
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor):
+            if x.dtype == torch.float32:
+                x, y = _bits(x), _bits(y)
+            if not torch.equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def _splat_close(a, b) -> bool:
+    return float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["cornell", "big_room400"])
+def test_mlt_steps_kernels_match_plain_on_card(dev, scene, monkeypatch):
+    """An MLT presample and steps 0-3 (max_path_length 4; step 3 an ST
+    swap) with the kernels, then with every plain version forced: each
+    chain state bit-equal, the rays equal, each step's splat (index_add_,
+    no fixed order) within 1e-5 of its max; 2 + 4 closest and 6 shadow
+    launches in the presample, 4 + 2 + 1 closest and 1 shadow launch a
+    perturbation step, none in the swap."""
+    from fermat_tpu_torch.integrators import mlt
+
+    view, res = _mcmc_view(scene, dev)
+    opts = mlt.MLTOptions(max_path_length=4, steps_per_pass=4)
+
+    def run():
+        st, rays = mlt.presample(view, opts, res, res, 2, 0)
+        states, splats, n_rays = [st], [], [float(rays)]
+        for k in range(opts.steps_per_pass):
+            st, sp, r = mlt.step(view, opts, res, res, 2, 0, st, k)
+            states.append(st)
+            splats.append(sp)
+            n_rays.append(float(r))
+        return states, splats, n_rays
+
+    before = _bpt_launches()
+    got = run()
+    torch.cuda.synchronize()
+    moved = [b - a for a, b in zip(before, _bpt_launches())]
+    want_moved = [6 + 3 * 7, 6 + 3]
+    assert moved[:4] == (want_moved + [0, 0] if scene == "cornell" else [0, 0] + want_moved)
+    assert moved[4] > 0
+    for mod, name, value in _forced_plain(dev):
+        monkeypatch.setattr(mod, name, value)
+    after = _bpt_launches()
+    want = run()
+    torch.cuda.synchronize()
+    assert _bpt_launches() == after
+    assert got[2] == want[2] and got[2][4] == 0.0
+    assert all(_states_equal(a, b) for a, b in zip(got[0], want[0]))
+    assert all(_splat_close(a, b) for a, b in zip(got[1], want[1]))
+    assert float(got[1][1].sum()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["cornell", "big_room400"])
+def test_cmlt_steps_kernels_match_plain_on_card(dev, scene, monkeypatch):
+    """CMLT's init_state (max_path_length 4, two seed rounds) and three
+    steps (step 2 a chart swap) with the kernels, then with every plain
+    version forced: the states bit-equal, the rays equal, the splats within
+    1e-5 of their max."""
+    from fermat_tpu_torch.integrators import cmlt
+
+    view, res = _mcmc_view(scene, dev)
+    opts = cmlt.CMLTOptions(max_path_length=4, n_seed_rounds=2)
+
+    def run():
+        st = cmlt.init_state(view, opts, res, res, res * res, 0)
+        states, splats, n_rays = [st], [], []
+        for _ in range(3):
+            st, sp, r = cmlt.step(view, opts, res, res, st)
+            states.append(st)
+            splats.append(sp)
+            n_rays.append(float(r))
+        return states, splats, n_rays
+
+    got = run()
+    for mod, name, value in _forced_plain(dev):
+        monkeypatch.setattr(mod, name, value)
+    after = _bpt_launches()
+    want = run()
+    torch.cuda.synchronize()
+    assert _bpt_launches() == after
+    assert got[2] == want[2]
+    assert all(_states_equal(a, b) for a, b in zip(got[0], want[0]))
+    assert all(_splat_close(a, b) for a, b in zip(got[1], want[1]))
+    assert float(got[1][0].sum()) > 0.0
+
+
+def _mlt_cases():
+    import json
+
+    return list(json.loads(str(np.load(MLT_GOLDEN)["cases"])))
+
+
+def _moved_chains(new, old):
+    out = None
+    for x, y in zip(new, old):
+        if isinstance(x, torch.Tensor) and x.ndim:
+            m = (x != y).reshape(x.shape[0], -1).any(dim=1)
+            out = m if out is None else out | m
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _mlt_cases())
+def test_mlt_golden_on_card(dev, name):
+    """tests/golden/torch_port_mlt_24.npz (JAX on the CPU) on the card's
+    kernel path: the seeded chains' integer fields equal on >= 99% of
+    chains, and each step from JAX's stored state the same accept decision
+    on >= 99% of chains, its splat within the image tolerance and its rays
+    within 0.5% (tests/test_torch_mlt.py's tolerances)."""
+    import json
+
+    from fermat_tpu_torch.integrators import cmlt, mlt
+
+    gz = np.load(MLT_GOLDEN)
+    scene, renderer, fields = json.loads(str(gz["cases"]))[name]
+    if scene == "big_room":
+        z, p, res = np.load(os.path.join(os.path.dirname(MLT_GOLDEN),
+                                         "torch_port_bigroom_24.npz")), "view.", int(gz["big_res"])
+    else:
+        z, p, res = gz, f"{scene}.view.", int(gz["res"])
+    view = SceneView.from_numpy({k[len(p):]: z[k] for k in z.files if k.startswith(p)}, dev)
+    lobes = tuple(bool(x) for x in gz[f"{scene}.lobes"])
+    seed = int(gz["seed"])
+    if renderer == "mlt":
+        opts, cls = mlt.MLTOptions(lobes=lobes, **fields), mlt.ChainState
+        state = mlt.presample(view, opts, res, res, 0, seed)[0]
+        n_steps = opts.steps_per_pass
+    else:
+        opts, cls = cmlt.CMLTOptions(lobes=lobes, **fields), cmlt.CMLTState
+        state = cmlt.init_state(view, opts, res, res, res * res, seed)
+        n_steps = 3
+    load = lambda k: cls.from_numpy({f: gz[f"{name}.{k}.{f}"] for f in cls._fields}, dev)
+    for x, y in zip(state, load(0)):
+        if isinstance(x, torch.Tensor) and x.dtype in (torch.int32, torch.int64, torch.bool):
+            assert float((x == y).reshape(x.shape[0], -1).all(dim=1).float().mean()) >= 0.99
+    for k in range(n_steps):
+        old = load(k)
+        if renderer == "mlt":
+            new, splat, rays = mlt.step(view, opts, res, res, 0, seed, old, k)
+        else:
+            new, splat, rays = cmlt.step(view, opts, res, res, old)
+        same = (_moved_chains(new, old) == _moved_chains(load(k + 1), old)).float().mean()
+        assert float(same) >= 0.99, k
+        assert _image_ok(splat.T, torch.from_numpy(gz[f"{name}.{k + 1}.splat"]).to(dev).T), k
+        want = float(gz[f"{name}.{k + 1}.rays"])
+        assert abs(float(rays) - want) <= 0.005 * want, k
+
+
+@pytest.mark.cuda
+def test_mlt_and_cmlt_render_through_the_context_on_card(dev):
+    """RenderingContext's "mlt" and "cmlt" default to the card, launch the
+    dense kernels there, and cmlt carries its chains from pass to pass."""
+    from fermat_tpu_torch.render.context import RenderingContext
+
+    for renderer, kw in (("mlt", {"steps_per_pass": 4}), ("cmlt", {"n_seed_rounds": 1})):
+        ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), 32, 32,
+                                      renderer=renderer, max_path_length=3, **kw)
+        assert ctx.device.type == "cuda"
+        before = trace_mod.CLOSEST.launches
+        ctx.render(2)
+        assert trace_mod.CLOSEST.launches > before
+        assert (ctx.renderer_state is not None) == (renderer == "cmlt")
+        img = ctx.hdr_image()
+        assert np.isfinite(img).all() and img.mean() > 0.0
+
+
+@pytest.mark.cuda
+def test_direct_env_image_on_card_matches_plain(dev, monkeypatch):
+    """pt.direct_env_image on the env-lit floor of tests/test_torch_mlt.py:
+    one K1a launch, n rays, the image bit-equal to the same call with the
+    plain versions forced and within 1e-5 of the CPU's on >= 99% of pixels;
+    and mlt and cmlt
+    render the floor through the context with it."""
+    from fermat_tpu_torch.core.camera import Camera
+    from fermat_tpu_torch.render.context import RenderingContext
+    from fermat_tpu_torch.scene.procedural import floor_quad
+
+    cam = Camera.create((0, 2.0, 2.0), (0, 0, 0), (0, 1, 0), 0.7)
+    env = np.full((8, 16, 3), 0.8, np.float32)
+    view = SceneView.build(floor_quad(1.0, (0.6, 0.6, 0.6)), cam, dev, env_map=env)
+    before = trace_mod.CLOSEST.launches
+    got = tpt.direct_env_image(view, 32, 24, 3, 1)
+    assert trace_mod.CLOSEST.launches == before + 1 and float(got[1]) == 768.0
+    cpu = tpt.direct_env_image(SceneView.build(floor_quad(1.0, (0.6, 0.6, 0.6)), cam, "cpu",
+                                               env_map=env), 32, 24, 3, 1)
+    # the camera rays round apart on the two devices: a ray on the floor's
+    # edge may flip between hit and miss
+    near = ((got[0].cpu() - cpu[0]).abs() <= 1e-5).all(dim=1).float().mean()
+    assert float(near) >= 0.99 and float(cpu[0].max()) > 0.5
+    with monkeypatch.context() as m:
+        for mod, name, value in _forced_plain(dev):
+            m.setattr(mod, name, value)
+        want = tpt.direct_env_image(view, 32, 24, 3, 1)
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    for renderer, kw in (("mlt", {"steps_per_pass": 4}), ("cmlt", {"n_seed_rounds": 1})):
+        ctx = RenderingContext.create(floor_quad(1.0, (0.6, 0.6, 0.6)), cam, 32, 32,
+                                      renderer=renderer, max_path_length=3, env_map=env, **kw)
+        ctx.render(2)
+        img = ctx.hdr_image()
+        assert np.isfinite(img).all() and img.mean() > 0.4

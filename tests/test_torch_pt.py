@@ -174,12 +174,14 @@ def test_cuda_request_without_a_card_raises():
     # every PTOptions field JAX's PT pass honours is ported (the BVH walk,
     # the VPL set, the LTC lobe, queue compaction, the detach and debug
     # switches: tests/test_torch_options.py, tests/test_torch_bvh.py), and so
-    # are the bpt, pssmlt, psfpt and ptrl renderers (tests/test_torch_bpt.py,
-    # tests/test_torch_psf.py), but not on the megakernel, which runs the PT
+    # are the bpt, pssmlt, psfpt, ptrl, mlt and cmlt renderers
+    # (tests/test_torch_bpt.py, tests/test_torch_psf.py,
+    # tests/test_torch_mlt.py), but not on the megakernel, which runs the PT
     # pass only; the other renderers, the brute tracer, and the megakernel
     # on a lit view or with the LTC lobe (which JAX's megakernel cannot run)
     # still raise
-    {"renderer": "bpt", "tracer": "mega"}, {"renderer": "mlt"}, {"renderer": "cmlt"},
+    {"renderer": "bpt", "tracer": "mega"}, {"renderer": "mlt", "tracer": "mega"},
+    {"renderer": "cmlt", "tracer": "mega"},
     {"renderer": "rpt"}, {"renderer": "pssmlt", "tracer": "mega"},
     {"renderer": "psfpt", "tracer": "mega"}, {"renderer": "ptrl", "tracer": "mega"},
     {"tracer": "brute"}, {"tracer": "mega", "glossy_model": "ltc"},
