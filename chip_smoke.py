@@ -221,6 +221,34 @@ result is printed then):
                 scene at 32x32 (mlt 64 passes of 8 steps, cmlt 512 passes,
                 mlt with st_swap_frequency=2; PT 192 passes, rr=False)
                 within the bounds of tests/test_mlt.py and test_cmlt.py;
+  4m. rpt    — the reuse path tracer (`rpt_phase`) through
+                RenderingContext, max_path_length=6, 4x4 tiles, two reuse
+                shadow samples, on the glossy CornellBox 512x512 (K1a 6,
+                K1b 8, K2) and on big_room(8300) 1600x896 (K5a 6, K5b 8
+                with their sort keys, K4 6, K2; 22.9 M (pixel, VPL) pairs):
+                a warm-up pass, RPT_PASSES passes with their launches held
+                to those counts, ms/pass, Mrays/s by its own ray counter,
+                peak memory, one profiled pass (device kernels, busy, idle
+                share, the kernels' us a launch); one pass with the kernels
+                and one with every plain version forced (the CornellBox at
+                512x512, big_room at 400x224): rays, rays per pixel and
+                radiance bit-equal; tracer="brute" and "pallas" (JAX's
+                names): K1a 6 a PT pass, bit-equal to tracer="dense"; JAX's
+                convergence bounds at 32x32, each render a process of its own
+                (RPT_CONV_CASES): rpt (96 passes) to PT (160, rr=False) on
+                cornell_box(light_scale=0.5, light_size=2.0), channel means
+                within 6% and the 4x4-pooled error under 0.12
+                (tests/test_rpt.py); rpt to PT on the env-lit floor, means
+                within 6% (tests/test_envmap.py);
+  4n. cli    — `python -m fermat_tpu_torch` as two processes on the card
+                (`cli_phase`), on a CornellBox OBJ+MTL and a camera file
+                written at run time: -pt at 512x512, 4 passes, and -rpt at
+                64x64, 2 passes, each with -benchmark; each exits 0 and
+                writes its TGA, its -benchmark JSON has rays_per_s and a
+                cuda device; the -pt TGA equals, byte for byte, that of a
+                RenderingContext in this process on the loaded scene with
+                the same seed and passes; dump_speed_stats(detailed=True)
+                there gives rt_ms + shadow_rt_ms + shade_ms > 0;
   5. parity   — one 512x512 pass with the kernels and one with the plain
                 versions forced in their place: equal `rays`, equal images;
                 then the golden configuration (tests/golden/
@@ -316,8 +344,8 @@ result is printed then):
                 same rays beside it; time, bound and counts each launch.
 Then the card's nvidia-smi line, one JSON line {"kernels": [...]} (each row
 also holds its launches per pass on phase 4g's lit, 4h's textured, 4i's
-options, 4j's BPT and PSSMLT, 4k's psfpt and ptrl and 4l's mlt and cmlt
-paths and its device time a launch inside their profiled passes),
+options, 4j's BPT and PSSMLT, 4k's psfpt and ptrl, 4l's mlt and cmlt and
+4m's rpt paths and its device time a launch inside their profiled passes),
 and last
 {"ok": true, "device": {...}}.
 """
@@ -449,6 +477,19 @@ CONV_CASES = {"pt": ("pt", 192, {"rr": False}), "mlt": ("mlt", 64, {"steps_per_p
               "cmlt": ("cmlt", 512, {}),
               "mlt_swap2": ("mlt", 64, {"steps_per_pass": 8, "st_swap_frequency": 2})}
 CONV_TIMEOUT = 400
+# phase 4m: rpt passes a cell, and its convergence renders at CONV_RES
+# (JAX's tests/test_rpt.py:34-52 on the CornellBox, max_path_length=4,
+# rr=False; tests/test_envmap.py:216-239 on the env-lit floor,
+# max_path_length=2), each a process of its own: tag -> (renderer, passes,
+# scene, options); the floor's map is ENV_FLOOR's value on an 8x16 grid
+RPT_PASSES = 2
+RPT_CONV_CASES = {"rpt_pt": ("pt", 160, "cornell", {"max_path_length": 4, "rr": False}),
+                  "rpt": ("rpt", 96, "cornell", {"max_path_length": 4, "rr": False}),
+                  "env_pt": ("pt", 8, "floor", {"max_path_length": 2}),
+                  "env_rpt": ("rpt", 8, "floor", {"max_path_length": 2})}
+ENV_FLOOR = 0.8
+# phase 4n: the command line's passes at RES x RES, and the -rpt run's side
+CLI_PASSES, CLI_RPT_RES = 4, 64
 # FP32 operations of one node visit of the walk: the slab test of
 # accel/traverse.py _slab_test, ops/csrc/bvh.cu box_hit (6 subtractions, 6
 # multiplications, 12 min/max; the compare not counted)
@@ -2214,6 +2255,268 @@ def mlt_phase(dev, smi: str, reset_counts, counts, bview, lobes: tuple) -> dict:
     return {"cells": cells, "launches": launches, "convergence": conv}
 
 
+def start_processes(tmp: Path, jobs: dict) -> dict:
+    """Popen each argv of `jobs` (tag -> argv), its output to tmp/<tag>.log."""
+    procs = {}
+    for tag, argv in jobs.items():
+        with open(tmp / f"{tag}.log", "w") as out:
+            procs[tag] = subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT, cwd=ROOT)
+    return procs
+
+
+def wait_processes(tmp: Path, procs: dict, timeout: float) -> None:
+    """Wait for every process; a non-zero exit fails with its log's tail."""
+    for tag, proc in procs.items():
+        rc = proc.wait(timeout=timeout)
+        check(rc == 0, f"{tag}: exit {rc}: {(tmp / f'{tag}.log').read_text()[-2000:]}")
+
+
+def stop_processes(procs: dict) -> None:
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def rpt_phase(dev, smi: str, reset_counts, counts, bview, lobes: tuple) -> dict:
+    """Phase 4m: the reuse path tracer and JAX's tracer names (see the
+    module docstring). Returns the cells' numbers and their launches per
+    pass."""
+    import numpy as np
+    import torch
+
+    from fermat_tpu_torch.integrators import pt
+    from fermat_tpu_torch.integrators import rpt
+    from fermat_tpu_torch.render.context import RenderingContext
+    from fermat_tpu_torch.render.framebuffer import Framebuffer
+    from fermat_tpu_torch.scene.procedural import cornell_box, cornell_camera
+
+    t_phase = time.perf_counter()
+    bits = lambda t: t.contiguous().view(torch.int32)
+    cells, launches = {}, {}
+    # x, y and MPL - 2 walk bounces; NEE at x, y and each walk vertex, and
+    # the two reuse connections
+    n_any = MPL + rpt.RPTOptions().reuse_shadow_samples
+    dense = {"trace_closest": MPL, "trace_any": n_any}
+    frontier = {"trace_closest_frontier": MPL, "trace_any_frontier": n_any,
+                "cdf_pick_rows": MPL, "frontier_sort_key": MPL + n_any}
+
+    def drive(cell, key, ctx, want):
+        """A warm-up pass, RPT_PASSES passes through render() (each synced),
+        their launches held to `want` (K2 counted), one profiled pass."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ctx.render(1)
+        per, rays = [], []
+        for i in range(RPT_PASSES):
+            reset_counts()
+            ctx.render(1)
+            got = {n: c for n, c in counts().items() if c}
+            check({n: c for n, c in got.items() if n in want} == want
+                  and got.get("gather_rows", 0) > 0 and set(got) <= set(want) | {"gather_rows"},
+                  f"{cell} pass {i + 1} launches {got}, want {want} and K2")
+            per.append(got)
+            rays.append(float(ctx.gbuffer["rays"]))
+        times = ctx.stats["pass_times"][-RPT_PASSES:]
+        ms = 1e3 * float(np.median(times))
+        hdr = ctx.hdr_image()
+        check(np.isfinite(hdr).all() and float(hdr.mean()) > 0.001,
+              f"{cell}: image not finite or black (mean {hdr.mean()})")
+        n_kern, busy, top, each = profile_one_pass(
+            ctx, expect=tuple(LIT_IN_PASS[n] for n in per[-1] if n in LIT_IN_PASS))
+        prof_ms = 1e3 * ctx.stats["batch_times"][-1][1]
+        in_pass = {n: 1e3 * sum(v) / len(v) for n, k in LIT_IN_PASS.items()
+                   for v in [launches_named(each, k)] if v}
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        ray = float(np.mean(rays))
+        log(f"[4m rpt] {cell} {ctx.res_x}x{ctx.res_y} mpl={MPL}: {ms:.2f} ms/pass (median of "
+            f"{RPT_PASSES}: " + ", ".join(f"{1e3 * t:.1f}" for t in times) + f"), "
+            f"{ray / ms / 1e3:.3f} Mrays/s ({ray:.0f} rays/pass by its counter) on {smi}; image "
+            f"mean {hdr.mean():.4f}; peak memory {peak / 2 ** 30:.2f} GiB above the cell's start;"
+            f" launches per pass: {per[-1]}")
+        log(f"[4m rpt] {cell}: one pass under torch.profiler: {n_kern} device kernels, device "
+            f"busy {busy:.2f} ms of the {prof_ms:.2f} ms pass (idle share "
+            f"{1 - busy / prof_ms:.3f}); route kernels' us a launch in it: "
+            + ", ".join(f"{n} {v:.2f}" for n, v in in_pass.items())
+            + "; top: " + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
+        cells[cell] = dict(ms=ms, mrays=ray / ms / 1e3, rays=ray, kernels=n_kern, busy_ms=busy,
+                           prof_ms=prof_ms, idle=1 - busy / prof_ms, launches=per[-1],
+                           in_pass_us=in_pass, peak_bytes=peak,
+                           pass_ms=[1e3 * t for t in times])
+        launches[key] = per[-1]
+
+    def rpt_plain(cell, view, opts, res_x, res_y):
+        """One pass with the kernels and one with every plain version
+        forced: rays, the rays per pixel and the radiance bit-equal."""
+        run = lambda: rpt.render_pass(view, opts, res_x, res_y, 1000, 0)
+        (rk, nk, lk), (rp, np_, lp) = kernels_then_plain(dev, counts, run)
+        check(float(nk) == float(np_) and torch.equal(lk, lp)
+              and torch.equal(bits(rk.stack()), bits(rp.stack())),
+              f"{cell}: the rpt pass is not bit-equal to its forced plain versions (rays "
+              f"{float(nk)} vs {float(np_)})")
+        log(f"[4m rpt] {cell} {res_x}x{res_y}: a pass with the kernels and one with every "
+            f"plain version forced: rays equal ({float(nk):.0f}), radiance and rays per pixel "
+            "bit-equal")
+
+    # ---- the timed cells: the glossy CornellBox (K1a, K1b, K2) and big_room
+    # (K5a, K5b, K4, K2) ----
+    ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), RES, RES,
+                                  renderer="rpt", max_path_length=MPL)
+    drive("CornellBox rpt", "rpt_cornell", ctx, dense)
+    cb_view, cb_opts = ctx.view, rpt.RPTOptions(**ctx.renderer_options)
+    del ctx
+    n_big, pairs = BIG_W * BIG_H, BIG_W * BIG_H * 16
+    log(f"[4m rpt] big_room rpt: {pairs} (pixel, VPL) pairs, one (tiles, 16, 16) float32 "
+        f"tensor {pairs * 4 / 2 ** 20:.1f} MiB")
+    rctx = RenderingContext(view=bview, res_x=BIG_W, res_y=BIG_H, renderer="rpt",
+                            renderer_options={"max_path_length": MPL, "lobes": lobes})
+    rctx.fb = Framebuffer.create(BIG_H, BIG_W, dev)
+    drive("big_room rpt", "rpt_big_room", rctx, frontier)
+    del rctx
+    torch.cuda.empty_cache()
+
+    # ---- JAX's convergence bounds (tests/test_rpt.py, tests/test_envmap.py)
+    # in processes of their own, started after the timed cells; the checks
+    # against the plain versions run meanwhile ----
+    t0 = time.perf_counter()
+    imgs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        procs = {}
+        try:
+            procs = start_processes(tmp, {
+                tag: [sys.executable, str(ROOT / "chip_smoke.py"), "--convergence", tag,
+                      str(tmp / f"{tag}.npz")] for tag in RPT_CONV_CASES})
+            rpt_plain("CornellBox rpt", cb_view, cb_opts, RES, RES)
+            rpt_plain("big_room rpt", bview, rpt.RPTOptions(max_path_length=MPL, lobes=lobes),
+                      PLAIN_W, PLAIN_H)
+            # JAX's tracer names: the dense route, bit-equal to tracer="dense"
+            for name in ("brute", "pallas"):
+                outs = []
+                for tracer in (name, "dense"):
+                    reset_counts()
+                    outs.append(pt.render_pass(cb_view, pt.PTOptions(tracer=tracer,
+                                                                     lobes=cb_opts.lobes),
+                                               RES, RES, 7, 0))
+                    torch.cuda.synchronize()
+                    check(counts()["trace_closest"] == MPL,
+                          f"tracer={tracer!r}: {counts()['trace_closest']} K1a launches")
+                check(float(outs[0].rays) == float(outs[1].rays)
+                      and all(torch.equal(bits(getattr(outs[0], c).stack()),
+                                          bits(getattr(outs[1], c).stack()))
+                              for c in ("composited", "direct", "diffuse", "specular")),
+                      f"tracer={name!r}: the pass is not bit-equal to tracer='dense'")
+            log(f"[4m rpt] tracer='brute' and 'pallas': K1a {MPL} a pass, each PT pass at "
+                f"{RES}x{RES} bit-equal to tracer='dense'")
+            del outs
+            t_wait = time.perf_counter()
+            wait_processes(tmp, procs, CONV_TIMEOUT)
+            for tag in RPT_CONV_CASES:
+                z = np.load(tmp / f"{tag}.npz")
+                imgs[tag] = (z["img"], float(z["seconds"]))
+        finally:
+            stop_processes(procs)
+    log(f"[4m rpt] the convergence processes ran {time.perf_counter() - t0:.1f} s, "
+        f"{time.perf_counter() - t_wait:.1f} s of it waited for after the checks above")
+    cres = CONV_RES
+    pool = lambda x: x.reshape(4, cres // 4, 4, cres // 4, 3).mean((1, 3))
+    (a_pt, s_pt), (a_rpt, s_rpt) = imgs["rpt_pt"], imgs["rpt"]
+    check(np.isfinite(a_rpt).all(), "convergence rpt: image not finite")
+    m_pt, m_rpt = a_pt.mean((0, 1)), a_rpt.mean((0, 1))
+    rel = float((np.abs(m_pt - m_rpt) / np.maximum(m_pt, 1e-3)).max())
+    a, b = pool(a_pt), pool(a_rpt)
+    relp = float((np.abs(a - b) / np.maximum(np.maximum(a, b), 0.05)).mean())
+    check(rel < 0.06 and relp < 0.12,
+          f"convergence rpt: channel means {m_rpt} vs PT {m_pt} (max rel {rel:.4f}, bound "
+          f"0.06), pooled error {relp:.4f} (bound 0.12)")
+    (e_pt, _), (e_rpt, _) = imgs["env_pt"], imgs["env_rpt"]
+    rel_env = float(abs(e_rpt.mean() - e_pt.mean()) / e_pt.mean())
+    check(np.isfinite(e_rpt).all() and e_pt.mean() > 0.2 and rel_env < 0.06,
+          f"convergence rpt on the env-lit floor: mean {e_rpt.mean()} vs PT {e_pt.mean()} "
+          f"(rel {rel_env:.4f}, bound 0.06)")
+    conv = dict(rel=rel, pooled=relp, env_rel=rel_env, seconds=s_rpt, pt_seconds=s_pt)
+    log(f"[4m rpt] convergence at {cres}x{cres} (JAX's bounds): rpt (96 passes, {s_rpt:.1f} s) "
+        f"to PT (160 passes, rr=False, {s_pt:.1f} s) on cornell_box(light_scale=0.5, "
+        f"light_size=2.0): channel means {m_rpt} vs {m_pt}, max rel {rel:.4f} (< 0.06), 4x4-"
+        f"pooled error {relp:.4f} (< 0.12); the env-lit floor (8 passes each): mean "
+        f"{e_rpt.mean():.4f} vs {e_pt.mean():.4f}, rel {rel_env:.4f} (< 0.06)")
+    log(f"[4m rpt] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"cells": cells, "launches": launches, "convergence": conv}
+
+
+def cli_phase(dev, smi: str) -> dict:
+    """Phase 4n: `python -m fermat_tpu_torch` on the card (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from fermat_tpu_torch.core.camera import load_camera_file
+    from fermat_tpu_torch.render.context import RenderingContext
+    from fermat_tpu_torch.scene.loaders.obj import load_obj, save_obj
+    from fermat_tpu_torch.scene.procedural import cornell_box
+    from fermat_tpu_torch.utils.image import read_tga, write_tga
+
+    t_phase = time.perf_counter()
+    seed = 5
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        scene, cam = tmp / "cornell.obj", tmp / "camera.txt"
+        save_obj(cornell_box(glossy_boxes=True), str(scene))
+        cam.write_text("0 1 3.5\n0 1 0\n0 1 0\n0.8\n")
+        cli = [sys.executable, "-m", "fermat_tpu_torch", "-i", str(scene), "-c", str(cam),
+               "-seed", str(seed)]
+        jobs = {
+            "cli_pt": cli + ["-pt", "-r", str(RES), str(RES), "-passes", str(CLI_PASSES),
+                             "-o", str(tmp / "pt.tga"), "-benchmark", str(tmp / "pt.json")],
+            "cli_rpt": cli + ["-rpt", "-r", str(CLI_RPT_RES), str(CLI_RPT_RES), "-passes", "2",
+                              "-o", str(tmp / "rpt.tga"), "-benchmark", str(tmp / "rpt.json")]}
+        procs = {}
+        t0 = time.perf_counter()
+        try:
+            procs = start_processes(tmp, jobs)
+            # the same scene, loaded and rendered in this process meanwhile
+            ctx = RenderingContext.create(load_obj(str(scene)), load_camera_file(str(cam)),
+                                          RES, RES, seed=seed, texture_dir=str(tmp))
+            ctx.render(CLI_PASSES)
+            write_tga(str(tmp / "want.tga"), ctx.image())
+            stats = ctx.dump_speed_stats(detailed=True)
+            wait_processes(tmp, procs, CONV_TIMEOUT)
+        finally:
+            stop_processes(procs)
+        wall = time.perf_counter() - t0
+        bench = {k: json.loads((tmp / f"{k}.json").read_text()) for k in ("pt", "rpt")}
+        for k, res in (("pt", RES), ("rpt", CLI_RPT_RES)):
+            img = read_tga(str(tmp / f"{k}.tga"))
+            check(img.shape == (res, res, 3) and img.mean() > 1.0,
+                  f"-{k}: the TGA is {img.shape}, mean {img.mean()}")
+            b = bench[k]
+            check(b["device"].startswith("cuda") and b["rays_per_s"] > 0
+                  and b["renderer"] == k and b["passes"] == (CLI_PASSES if k == "pt" else 2),
+                  f"-{k}: -benchmark {b}")
+        same = (tmp / "pt.tga").read_bytes() == (tmp / "want.tga").read_bytes()
+        check(same, "-pt: the CLI's TGA differs from the in-process RenderingContext's")
+        stage = stats["rt_ms"] + stats["shadow_rt_ms"] + stats["shade_ms"]
+        check(stage > 0.0, f"dump_speed_stats(detailed=True): {stats}")
+        for k in ("pt", "rpt"):
+            log(f"[4n cli] python -m fermat_tpu_torch -{k} on {bench[k]['device']}: "
+                f"{bench[k]['resolution']}, {bench[k]['passes']} passes, "
+                f"{bench[k]['mean_pass_ms']:.2f} ms/pass, {bench[k]['rays_per_s'] / 1e6:.3f} "
+                f"Mrays/s (-benchmark; alongside the other process) on {smi}; the "
+                f"{(tmp / f'cli_{k}.log').read_text().strip().splitlines()[-1][:120]}")
+        log(f"[4n cli] -pt's TGA equals the in-process RenderingContext's byte for byte "
+            f"({RES}x{RES}, {CLI_PASSES} passes, seed {seed}); dump_speed_stats(detailed=True):"
+            f" rt {stats['rt_ms']:.2f} ms, shadow_rt {stats['shadow_rt_ms']:.2f} ms, shade "
+            f"{stats['shade_ms']:.2f} ms of the profiled pass; both processes {wall:.1f} s")
+        out = dict(bench=bench, stages={k: stats[k] for k in ("rt_ms", "shadow_rt_ms",
+                                                             "shade_ms")}, wall_s=wall)
+    del ctx
+    torch.cuda.empty_cache()
+    log(f"[4n cli] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def walk_rows(dev, bw: float, fp32: float, bview, opt: dict, lcalls: dict, k5_plain: dict,
               bvhk: dict, max_err: dict) -> list:
     """Phase 6's rows of the BVH walk, at big_room's bounce-0 and bounce-1
@@ -2356,24 +2659,35 @@ def walk_rows(dev, bw: float, fp32: float, bview, opt: dict, lcalls: dict, k5_pl
 
 
 def convergence_render(tag: str, out: str) -> int:
-    """Phase 4l's convergence render `tag` of CONV_CASES in a process of
-    its own: JAX's test scene (tests/test_mlt.py) at CONV_RES x CONV_RES,
-    max_path_length=4, on the card; writes the HDR image and the seconds to
-    `out` (.npz)."""
+    """A convergence render of phase 4l (CONV_CASES: JAX's test scene of
+    tests/test_mlt.py, max_path_length=4) or 4m (RPT_CONV_CASES) in a
+    process of its own, at CONV_RES x CONV_RES on the card; writes the HDR
+    image and the seconds to `out` (.npz)."""
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         return 1
     sys.path.insert(0, str(ROOT))
+    from fermat_tpu_torch.core.camera import Camera
     from fermat_tpu_torch.render.context import RenderingContext
-    from fermat_tpu_torch.scene.procedural import cornell_box, cornell_camera
+    from fermat_tpu_torch.scene.procedural import cornell_box, cornell_camera, floor_quad
 
-    renderer, passes, kw = CONV_CASES[tag]
     t0 = time.perf_counter()
-    ctx = RenderingContext.create(cornell_box(light_scale=0.5, light_size=2.0, glossy_boxes=True),
-                                  cornell_camera(), CONV_RES, CONV_RES, renderer=renderer,
-                                  max_path_length=4, **kw)
+    if tag in CONV_CASES:
+        renderer, passes, kw = CONV_CASES[tag]
+        scene = (cornell_box(light_scale=0.5, light_size=2.0, glossy_boxes=True),
+                 cornell_camera())
+        kw = {"max_path_length": 4, **kw}
+    else:
+        renderer, passes, key, kw = RPT_CONV_CASES[tag]
+        if key == "cornell":
+            scene = cornell_box(light_scale=0.5, light_size=2.0), cornell_camera()
+        else:
+            scene = (floor_quad(1.0, (0.6, 0.6, 0.6)),
+                     Camera.create((0, 2.0, 2.0), (0, 0, 0), (0, 1, 0), 0.7))
+            kw = {**kw, "env_map": np.full((8, 16, 3), ENV_FLOOR, np.float32)}
+    ctx = RenderingContext.create(*scene, CONV_RES, CONV_RES, renderer=renderer, **kw)
     ctx.render_batch(passes)
     np.savez(out, img=ctx.hdr_image(), seconds=time.perf_counter() - t0)
     return 0
@@ -3169,6 +3483,12 @@ def main() -> int:
 
     # ---- 4l. path-space MLT and charted MLT ----
     ml = mlt_phase(dev, smi, reset_counts, counts, bview, tuple(bctx.renderer_options["lobes"]))
+
+    # ---- 4m. the reuse path tracer and JAX's tracer names ----
+    rm = rpt_phase(dev, smi, reset_counts, counts, bview, tuple(bctx.renderer_options["lobes"]))
+
+    # ---- 4n. the command line ----
+    cli = cli_phase(dev, smi)
 
     # ---- 5. parity on the card ----
     opts = pt.PTOptions(**ctx.renderer_options)
@@ -4038,11 +4358,13 @@ def main() -> int:
         # options (4i) path
         for cell, per in (*lit["launches"].items(), *tex["launches"].items(),
                           *opt["launches"].items(), *bp["launches"].items(),
-                          *pf["launches"].items(), *ml["launches"].items()):
+                          *pf["launches"].items(), *ml["launches"].items(),
+                          *rm["launches"].items()):
             row[f"launches_per_pass_{cell}"] = per.get(row["name"], 0)
         for key, ph in (("in_lit_pass_us", lit), ("in_textured_pass_us", tex),
                         ("in_options_pass_us", opt), ("in_bpt_pass_us", bp),
-                        ("in_psf_pass_us", pf), ("in_mlt_pass_us", ml)):
+                        ("in_psf_pass_us", pf), ("in_mlt_pass_us", ml),
+                        ("in_rpt_pass_us", rm)):
             row[key] = {c: v["in_pass_us"][row["name"]] for c, v in ph["cells"].items()
                         if row["name"] in v.get("in_pass_us", {})}
     log("[summary] lit (4g) " + "; ".join(
@@ -4077,11 +4399,20 @@ def main() -> int:
         + "; convergence to PT: " + "; ".join(
             f"{t} max rel {v['rel']:.4f}, pooled {v['pooled']:.4f}"
             for t, v in ml["convergence"].items()))
+    log("[summary] rpt (4m) " + "; ".join(
+        f"{c}: {v['ms']:.2f} ms/pass, {v['mrays']:.3f} Mrays/s, {v['kernels']} device kernels, "
+        f"busy {v['busy_ms']:.2f} ms, idle {v['idle']:.3f}, peak {v['peak_bytes'] / 2 ** 30:.2f} "
+        "GiB" for c, v in rm["cells"].items())
+        + f"; convergence to PT: max rel {rm['convergence']['rel']:.4f}, pooled "
+          f"{rm['convergence']['pooled']:.4f}, env floor {rm['convergence']['env_rel']:.4f}; "
+          f"the CLI (4n): -pt {cli['bench']['pt']['mean_pass_ms']:.2f} ms/pass, stages "
+          + ", ".join(f"{k} {v:.2f}" for k, v in cli["stages"].items()))
     log("[summary] textured (4h) " + "; ".join(
         f"{c}: {v['ms']:.2f} ms" + (f"/pass, {v['mrays']:.3f} Mrays/s, busy {v['busy_ms']:.2f} ms,"
                                      f" idle {v['idle']:.3f}, atlas {v['atlas_bytes']} B"
                                      if "mrays" in v else "/step")
         + f", peak {v['peak_bytes'] / 2 ** 30:.2f} GiB" for c, v in tex["cells"].items()))
+    log(f"[summary] chip_smoke.py ran {time.perf_counter() - _T0:.1f} s in total")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

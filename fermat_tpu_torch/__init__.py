@@ -30,8 +30,18 @@ BVH walk, ops/bvh_trace.py). The bidirectional path tracer
 (integrators/mlt.py), charted MLT (integrators/cmlt.py, its chart swaps
 through bsdf/inversion.py), the path-space-filtering tracer
 (integrators/psfpt.py) and the clustered-RL path tracer
-(integrators/ptrl.py) render through the same tracers and gathers. Every
-kernel is hand-written CUDA.
+(integrators/ptrl.py), and the reuse path tracer (integrators/rpt.py)
+render through the same tracers and gathers: JAX's eight renderers. JAX's
+tracer names "brute" and "pallas" take the dense route. Every kernel is
+hand-written CUDA.
+
+The command line renders a scene file (OBJ+MTL, PLY, STL, OFF, .fa,
+.pbrt; scene/loaders/) on the card, or on the CPU with -cpu:
+
+    python -m fermat_tpu_torch -pt -i scene.obj -c camera.txt -r 512 512 \
+        -passes 16 -o out.tga [-benchmark stats.json] [-cpu]
+
+(utils/cli.py lists every flag; -rpt, -bpt, ... pick the renderer).
 """
 from __future__ import annotations
 

@@ -154,3 +154,15 @@ def generate_camera_rays(cam: Camera, res_x: int, res_y: int,
     o = Vec3(cam.eye.x.expand_as(d.x), cam.eye.y.expand_as(d.y),
              cam.eye.z.expand_as(d.z))
     return o, d, pix
+
+
+def load_camera_file(path: str, device="cpu") -> Camera:
+    """The eye / aim / up / fov camera text files (camera.py:177-185,
+    renderer.cu:510-522): ten numbers, split by whitespace or commas."""
+    vals = []
+    with open(path, "r") as f:
+        for line in f:
+            vals.extend(float(tok) for tok in line.replace(",", " ").split())
+    if len(vals) < 10:
+        raise ValueError(f"camera file {path}: expected 10 floats, got {len(vals)}")
+    return Camera.create(vals[0:3], vals[3:6], vals[6:9], vals[9], device=device)

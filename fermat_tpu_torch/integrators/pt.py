@@ -151,8 +151,12 @@ def _trace_mode(n_triangles: int, opts: PTOptions, has_clusters: bool) -> str:
     plain versions on a CPU view.) tracer="frontier", "cluster" and "binned"
     ask for one of the three cluster-table tracers at any size; they need
     the view's cluster table, which SceneView.build makes at every size, as
-    in JAX."""
+    in JAX. JAX's names "brute" (its dense brute force) and "pallas" (K1)
+    take the dense route at any size: the port's dense tracer is K1 on a
+    CUDA view and its plain twin, the brute force, on a CPU view."""
     mode = opts.tracer
+    if mode in ("brute", "pallas"):
+        return "dense"
     if mode == "auto":
         if n_triangles <= DENSE_MAX_TRIANGLES:
             return "dense"
@@ -161,8 +165,8 @@ def _trace_mode(n_triangles: int, opts: PTOptions, has_clusters: bool) -> str:
         return mode
     if mode not in _CLUSTER_TRACERS:
         raise NotImplementedError(
-            f"tracer={opts.tracer!r}: only 'auto', 'bvh', 'frontier', 'cluster', 'binned' "
-            "and 'mega' are ported")
+            f"tracer={opts.tracer!r}: the tracers are 'auto', 'dense', 'brute', 'pallas', "
+            "'bvh', 'frontier', 'cluster', 'binned' and 'mega'")
     if not has_clusters:
         raise NotImplementedError(
             f"{n_triangles} triangles and no cluster table: tracer {mode!r} needs one "

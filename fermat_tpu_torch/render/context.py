@@ -10,18 +10,22 @@ area lights go through SceneView.build(area_light_defs=...). texture_dir is
 where the materials' texture names are looked up (SceneView.build).
 
 The context runs on "cuda" unless the caller passes device="cpu"; with
-device="cuda" and no GPU it raises. The registry holds "pt", "bpt", "mlt",
-"cmlt", "pssmlt", "psfpt" and "ptrl"; a renderer's options are its options
-tuple's fields (PTOptions, bpt.BPTOptions, mlt.MLTOptions,
-cmlt.CMLTOptions, pssmlt.PssmltOptions, psfpt.PsfptOptions,
-ptrl.PtrlOptions). tracer="bvh", "frontier", "cluster", "binned" or "mega"
-picks the tracer (with tracer="bvh" the view gets its BVH,
-SceneView.with_bvh); "mega" is the PT pass's alone. `lobes` defaults to the
-scene's for every renderer but pssmlt, `clearcoat` to the scene's for pt,
-as in JAX (context.py:286-298). An "mlt" pass presamples its chains anew
-and runs steps_per_pass steps; its COMPOSITED is the chains' image plus the
-directly visible environment (pt.direct_env_image), and so is each "cmlt"
-pass, one step of the chains. The renderer option narrow=1 makes render()
+device="cuda" and no GPU it raises. The registry holds JAX's eight
+renderers, "pt", "bpt", "mlt", "cmlt", "rpt", "pssmlt", "psfpt" and
+"ptrl", and what a plugin registers (register_renderer); a renderer's
+options are its options tuple's fields (PTOptions, bpt.BPTOptions,
+mlt.MLTOptions, cmlt.CMLTOptions, rpt.RPTOptions, pssmlt.PssmltOptions,
+psfpt.PsfptOptions, ptrl.PtrlOptions). tracer="bvh", "frontier",
+"cluster", "binned", "dense" (JAX's "brute" and "pallas") or "mega" picks
+the tracer (with tracer="bvh" the view gets its BVH, SceneView.with_bvh);
+"mega" is the PT pass's alone. `lobes` defaults to the scene's for every
+renderer but pssmlt, `clearcoat` to the scene's for pt, as in JAX
+(context.py:286-298). rmse_vs holds the image to a reference;
+dump_speed_stats(detailed=True) profiles one more pass and splits its time
+into rt_ms, shadow_rt_ms and shade_ms (utils/profiling.py). An "mlt" pass
+presamples its chains anew and runs steps_per_pass steps; its COMPOSITED
+is the chains' image plus the directly visible environment
+(pt.direct_env_image), and so is each "cmlt" pass, one step of the chains. The renderer option narrow=1 makes render()
 run each PT pass through the narrowing driver (integrators/pt.NarrowPass,
 context.py:316-372); render_batch keeps the monolithic pass, as in JAX.
 "cmlt", "pssmlt", "psfpt" and "ptrl" are stateful: render and render_batch
@@ -56,8 +60,9 @@ from fermat_tpu_torch.integrators import psfpt as psf_mod
 from fermat_tpu_torch.integrators import pssmlt as ps_mod
 from fermat_tpu_torch.integrators import pt as pt_mod
 from fermat_tpu_torch.integrators import ptrl as ptrl_mod
+from fermat_tpu_torch.integrators import rpt as rpt_mod
 from fermat_tpu_torch.ops import pt_mega
-from fermat_tpu_torch.render.framebuffer import Framebuffer, to_rgba8
+from fermat_tpu_torch.render.framebuffer import Framebuffer, rmse, to_rgba8
 from fermat_tpu_torch.scene.mesh import MeshStorage
 from fermat_tpu_torch.scene.view import SceneView
 
@@ -66,6 +71,8 @@ _RENDERER_REGISTRY: Dict[str, Callable] = {}
 
 
 def register_renderer(name: str, factory: Callable) -> None:
+    """The plugin entry point (context.py:33-37): factory(**options) ->
+    (render_pass_fn, options)."""
     _RENDERER_REGISTRY[name] = factory
 
 
@@ -132,6 +139,10 @@ def _ptrl_factory(**kw):
     return pass_fn, opts
 
 
+def _rpt_factory(**kw):
+    return rpt_mod.render_pass_fb, rpt_mod.RPTOptions(**kw)
+
+
 def _mlt_factory(**kw):
     return mlt_mod.render_pass_fb, mlt_mod.MLTOptions(**kw)
 
@@ -158,6 +169,7 @@ register_renderer("pt", _pt_factory)
 register_renderer("bpt", _bpt_factory)
 register_renderer("mlt", _mlt_factory)
 register_renderer("cmlt", _cmlt_factory)
+register_renderer("rpt", _rpt_factory)
 register_renderer("pssmlt", _pssmlt_factory)
 register_renderer("psfpt", _psfpt_factory)
 register_renderer("ptrl", _ptrl_factory)
@@ -194,7 +206,7 @@ class RenderingContext:
             view = view.with_bvh()
         renderer_options = dict(renderer_options)
         # of the registered renderers (context.py:286-298)
-        if renderer in ("pt", "bpt", "psfpt", "ptrl", "mlt", "cmlt"):
+        if renderer in ("pt", "bpt", "psfpt", "ptrl", "mlt", "cmlt", "rpt"):
             renderer_options.setdefault("lobes", scene_lobes(storage.materials))
         if renderer == "pt":
             renderer_options.setdefault("clearcoat", scene_clearcoat(storage.materials))
@@ -293,9 +305,20 @@ class RenderingContext:
     def hdr_image(self) -> np.ndarray:
         return self.fb.composited.cpu().numpy()
 
-    def dump_speed_stats(self) -> dict:
+    def rmse_vs(self, ref_hdr: np.ndarray) -> float:
+        """RMSE of the accumulated image against a reference (context.py:475)."""
+        ref = torch.as_tensor(np.asarray(ref_hdr, np.float32), device=self.device)
+        return float(rmse(self.fb.composited, ref))
+
+    def dump_speed_stats(self, detailed: bool = False) -> dict:
         """Pass-time stats and the ray rate from the `rays` counter
-        (PathTracer::dump_speed_stats, pathtracer_impl.h:342-350)."""
+        (PathTracer::dump_speed_stats, pathtracer_impl.h:342-350). With
+        `detailed` one more pass renders under torch.profiler and its time
+        is split into the closest tracers' (rt_ms), the any-hit tracers'
+        (shadow_rt_ms) and the rest (shade_ms) (context.py:478-523;
+        utils/profiling.stage_split): on the card by device kernel, on the
+        CPU by the tracer wrappers' record_function ranges. A profile, not a
+        gate: CUPTI loses device records now and then."""
         times = self.stats.get("pass_times", [])
         if not times:
             return {}
@@ -307,4 +330,8 @@ class RenderingContext:
             rays = float(self.gbuffer["rays"])
             out["rays_per_pass"] = rays
             out["rays_per_s"] = rays / mean
+        if detailed:
+            from fermat_tpu_torch.utils.profiling import stage_split
+
+            out.update(stage_split(lambda: self.render(1), self.device))
         return out

@@ -8,7 +8,7 @@ triangle soup, pre-gathered per corner.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +32,10 @@ class MeshStorage:
     uv_indices: np.ndarray = field(default_factory=lambda: np.zeros((0, 3), np.int32))  # -1 => zero uv
     material_ids: np.ndarray = field(default_factory=lambda: np.zeros((0,), np.int32))
     materials: List[HostMaterial] = field(default_factory=list)
+    # the loaders' groups (mesh.py:43-44): names and triangle offsets, host
+    # metadata the device view does not read
+    group_names: List[str] = field(default_factory=list)
+    group_offsets: np.ndarray = field(default_factory=lambda: np.zeros((1,), np.int32))
 
     @property
     def n_triangles(self) -> int:
@@ -53,9 +57,10 @@ class MeshStorage:
         return self
 
     def merge(self, other: "MeshStorage") -> "MeshStorage":
-        """Append another mesh in place (mesh.py:107-140). An empty
-        per-corner index array means "no attribute"; once meshes are merged
-        it becomes explicit -1 rows so the row count stays n_triangles."""
+        """Append another mesh in place, its groups too (mesh.py:107-140).
+        An empty per-corner index array means "no attribute"; once meshes
+        are merged it becomes explicit -1 rows so the row count stays
+        n_triangles."""
         mat_off = len(self.materials)
         vtx_off = self.n_vertices
         nrm_off = self.normals.shape[0]
@@ -77,12 +82,22 @@ class MeshStorage:
         self.triangles = np.concatenate([self.triangles, other.triangles + vtx_off])
         self.material_ids = np.concatenate([self.material_ids, other.material_ids + mat_off])
         self.materials = self.materials + list(other.materials)
+        self.group_names = self.group_names + list(other.group_names)
+        self.group_offsets = np.concatenate([self.group_offsets[:-1],
+                                             other.group_offsets + tri_off])
         return self
+
+    def bbox(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(min, max) corners of the vertices, zeros for an empty mesh
+        (mesh.py:142-145)."""
+        if self.n_vertices == 0:
+            return np.zeros(3, np.float32), np.zeros(3, np.float32)
+        return self.vertices.min(0), self.vertices.max(0)
 
     def filtered(self, keep: np.ndarray) -> "MeshStorage":
         """A copy with only the triangles where keep[t], vertices, normals,
-        uvs and materials shared (mesh.py:147-172): the occlusion geometry
-        of a shadow set."""
+        uvs and materials shared, its groups one (mesh.py:147-172): the
+        occlusion geometry of a shadow set."""
         keep = np.asarray(keep, bool)
         t = self.triangles[keep]
 
@@ -98,6 +113,8 @@ class MeshStorage:
             uv_indices=rows(self.uv_indices),
             material_ids=self.material_ids[keep],
             materials=self.materials,
+            group_names=["shadow"],
+            group_offsets=np.asarray([0, t.shape[0]], np.int32),
         )
 
     def device_view(self, device) -> "MeshView":

@@ -1,7 +1,7 @@
 """Image I/O: TGA, PFM and Radiance HDR (fermat_tpu/utils/image.py:20-187).
 
 The port's own numpy copy: uncompressed and RLE TGA, PFM, and RGBE .hdr
-reading, with the TGA and PFM writers. Other formats raise ValueError, as the
+reading, with the TGA, PFM and .hdr writers. Other formats raise ValueError, as the
 JAX package does where imageio is not installed.
 """
 from __future__ import annotations
@@ -94,6 +94,27 @@ def read_pfm(path: str) -> np.ndarray:
         data = data.byteswap()
     img = data.reshape(h, w, ch) if color else data.reshape(h, w)
     return img[::-1].copy()
+
+
+def write_hdr(path: str, img: np.ndarray) -> None:
+    """Radiance RGBE .hdr: the shared-exponent 8+8+8+8 encoding, flat
+    scanlines (image.py:107-125)."""
+    img = np.asarray(img, np.float32)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, -1)
+    h, w = img.shape[:2]
+    rgb = np.maximum(img[..., :3], 0.0)
+    mx = rgb.max(-1)
+    nz = mx >= 1e-32
+    _m, ev = np.frexp(np.where(nz, mx, 1.0))
+    scale = np.where(nz, np.ldexp(1.0, -ev) * 256.0, 0.0)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.minimum(rgb * scale[..., None], 255.0).astype(np.uint8)
+    rgbe[..., 3] = np.where(nz, ev + 128, 0).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        f.write(rgbe.tobytes())
 
 
 def read_hdr(path: str) -> np.ndarray:

@@ -170,6 +170,8 @@ def test_context_narrow_option():
     # the BVH walk: asked for at any size, and "auto" above 4096 triangles
     # on a view without a cluster table (JAX's route off the TPU)
     (4097, "auto", False, "bvh"), (36, "bvh", False, "bvh"),
+    # JAX's names of the dense tracer, at any size
+    (36, "brute", False, "dense"), (4097, "pallas", True, "dense"),
 ])
 def test_trace_mode_routes(n_tris, tracer, has_clusters, mode):
     assert tpt._trace_mode(n_tris, tpt.PTOptions(tracer=tracer), has_clusters) == mode

@@ -1790,3 +1790,92 @@ def test_direct_env_image_on_card_matches_plain(dev, monkeypatch):
         ctx.render(2)
         img = ctx.hdr_image()
         assert np.isfinite(img).all() and img.mean() > 0.4
+
+
+def _rpt_launches():
+    return (trace_mod.CLOSEST.launches, trace_mod.ANY.launches, ft.CLOSEST.launches,
+            ft.ANY.launches, gather_mod.GATHER.launches, cdf_gather.PICK.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["cornell", "big_room400"])
+def test_rpt_pass_kernels_match_plain_on_card(dev, scene, monkeypatch):
+    """An RPT pass (max_path_length 4, two reuse shadow samples) with the
+    kernels against the same pass with every plain version forced: rays
+    equal, the radiance and the rays per pixel bit-equal; 4 closest
+    launches (x, y, two walk bounces) and 6 any-hit launches (NEE at x, at
+    y and at the two walk vertices, two reuse connections) a pass, and K4
+    for each of the four light picks on big_room."""
+    from fermat_tpu_torch.integrators import rpt
+    from fermat_tpu_torch.scene.procedural import big_room_camera
+
+    if scene == "cornell":
+        view, res = SceneView.build(cornell_box(glossy_boxes=True), cornell_camera(), dev), 64
+    else:
+        view, res = SceneView.build(big_room(400), big_room_camera(), dev), 48
+    opts = rpt.RPTOptions(max_path_length=4)
+    before = _rpt_launches()
+    got = rpt.render_pass(view, opts, res, res, 3, 0)
+    torch.cuda.synchronize()
+    moved = [b - a for a, b in zip(before, _rpt_launches())]
+    assert moved[:4] == ([4, 6, 0, 0] if scene == "cornell" else [0, 0, 4, 6]), moved
+    assert moved[4] > 0 and moved[5] == (0 if scene == "cornell" else 4), moved
+    for mod, name, value in _forced_plain(dev):
+        monkeypatch.setattr(mod, name, value)
+    after = _rpt_launches()
+    want = rpt.render_pass(view, opts, res, res, 3, 0)
+    torch.cuda.synchronize()
+    assert _rpt_launches() == after
+    assert float(got[1]) == float(want[1]) and torch.equal(got[2], want[2])
+    assert torch.equal(_bits(got[0].stack()), _bits(want[0].stack()))
+    assert float(got[0].stack().mean()) > 0.0
+
+
+@pytest.mark.cuda
+def test_rpt_renders_through_the_context_on_card(dev):
+    """RenderingContext's "rpt" defaults to the card and launches the dense
+    kernels there; an untiled resolution raises."""
+    from fermat_tpu_torch.render.context import RenderingContext
+
+    ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), 32, 32,
+                                  renderer="rpt", max_path_length=3)
+    assert ctx.device.type == "cuda"
+    before = trace_mod.CLOSEST.launches
+    ctx.render(2)
+    assert trace_mod.CLOSEST.launches == before + 2 * 3
+    img = ctx.hdr_image()
+    assert np.isfinite(img).all() and img.mean() > 0.0
+    bad = RenderingContext.create(cornell_box(), cornell_camera(), 30, 32, renderer="rpt")
+    with pytest.raises(ValueError, match="tiles evenly"):
+        bad.render(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["brute", "pallas"])
+def test_jax_tracer_names_match_dense_on_card(dev, name):
+    """tracer="brute" and "pallas" launch K1 (6 closest a 6-bounce pass) and
+    render a pass bit-equal to tracer="dense"."""
+    view = SceneView.build(cornell_box(glossy_boxes=True), cornell_camera(), dev)
+    outs = []
+    for tracer in (name, "dense"):
+        before = trace_mod.CLOSEST.launches
+        outs.append(tpt.render_pass(view, tpt.PTOptions(tracer=tracer), 64, 64, 2, 0))
+        torch.cuda.synchronize()
+        assert trace_mod.CLOSEST.launches == before + 6
+    assert float(outs[0].rays) == float(outs[1].rays)
+    for c in ("composited", "direct", "diffuse", "specular"):
+        assert torch.equal(_bits(getattr(outs[0], c).stack()),
+                           _bits(getattr(outs[1], c).stack())), c
+
+
+@pytest.mark.cuda
+def test_dump_speed_stats_detailed_on_card(dev):
+    """dump_speed_stats(detailed=True) buckets the profiled pass's device
+    kernels: the closest and any-hit tracer kernels and the rest."""
+    from fermat_tpu_torch.render.context import RenderingContext
+
+    ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), 64, 64)
+    ctx.render(2)
+    stats = ctx.dump_speed_stats(detailed=True)
+    assert stats["rt_ms"] + stats["shadow_rt_ms"] + stats["shade_ms"] > 0.0
+    assert stats["device"].startswith("cuda")

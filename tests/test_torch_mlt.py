@@ -290,9 +290,11 @@ def test_cmlt_context_carries_its_chains_and_restart_drops_them():
 
 
 def test_registry_lists_the_seven_ported_renderers():
-    """Seven renderers; mlt's pass holds no state between passes (JAX's
+    """JAX's eight renderers (rpt since the reuse tracer's slice; the test
+    keeps its name); mlt's pass holds no state between passes (JAX's
     render_pass_fb), cmlt's carries its chains (context.py:65-101)."""
-    assert sorted(_RENDERER_REGISTRY) == ["bpt", "cmlt", "mlt", "psfpt", "pssmlt", "pt", "ptrl"]
+    assert sorted(_RENDERER_REGISTRY) == ["bpt", "cmlt", "mlt", "psfpt", "pssmlt", "pt", "ptrl",
+                                         "rpt"]
     mlt_pass, mlt_opts = _RENDERER_REGISTRY["mlt"]()
     cmlt_pass, cmlt_opts = _RENDERER_REGISTRY["cmlt"](n_seed_rounds=2)
     assert mlt_pass is tmlt.render_pass_fb and mlt_opts == tmlt.MLTOptions()

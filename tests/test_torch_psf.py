@@ -273,7 +273,8 @@ def test_context_renders_the_golden_and_restart_drops_the_state(golden, renderer
 
 
 def test_registry_lists_the_ported_renderers():
-    assert sorted(_RENDERER_REGISTRY) == ["bpt", "cmlt", "mlt", "psfpt", "pssmlt", "pt", "ptrl"]
+    assert sorted(_RENDERER_REGISTRY) == ["bpt", "cmlt", "mlt", "psfpt", "pssmlt", "pt", "ptrl",
+                                         "rpt"]
     view = SceneView.build(*build_scene("cornell", "fermat_tpu_torch")[:2], "cpu")
     with pytest.raises(NotImplementedError, match="PSFPT"):
         tpsf.render_pass(view, tpsf.PsfptOptions(tracer="mega"), 4, 4, 0,

@@ -174,17 +174,16 @@ def test_cuda_request_without_a_card_raises():
     # every PTOptions field JAX's PT pass honours is ported (the BVH walk,
     # the VPL set, the LTC lobe, queue compaction, the detach and debug
     # switches: tests/test_torch_options.py, tests/test_torch_bvh.py), and so
-    # are the bpt, pssmlt, psfpt, ptrl, mlt and cmlt renderers
-    # (tests/test_torch_bpt.py, tests/test_torch_psf.py,
-    # tests/test_torch_mlt.py), but not on the megakernel, which runs the PT
-    # pass only; the other renderers, the brute tracer, and the megakernel
-    # on a lit view or with the LTC lobe (which JAX's megakernel cannot run)
-    # still raise
+    # are JAX's tracer names and the bpt, pssmlt, psfpt, ptrl, mlt, cmlt and
+    # rpt renderers (tests/test_torch_bpt.py, tests/test_torch_psf.py,
+    # tests/test_torch_mlt.py, tests/test_torch_rpt.py), but not on the
+    # megakernel, which runs the PT pass only; the megakernel on a lit view
+    # or with the LTC lobe (which JAX's megakernel cannot run) still raises
     {"renderer": "bpt", "tracer": "mega"}, {"renderer": "mlt", "tracer": "mega"},
     {"renderer": "cmlt", "tracer": "mega"},
-    {"renderer": "rpt"}, {"renderer": "pssmlt", "tracer": "mega"},
+    {"renderer": "rpt", "tracer": "mega"}, {"renderer": "pssmlt", "tracer": "mega"},
     {"renderer": "psfpt", "tracer": "mega"}, {"renderer": "ptrl", "tracer": "mega"},
-    {"tracer": "brute"}, {"tracer": "mega", "glossy_model": "ltc"},
+    {"tracer": "mega", "glossy_model": "ltc"},
     {"tracer": "mega", "point_lights": [((0.0, 1.5, 0.0), (1.0, 1.0, 1.0))]},
 ])
 def test_options_outside_the_slice_raise(option):
@@ -192,6 +191,21 @@ def test_options_outside_the_slice_raise(option):
         ctx = RenderingContext.create(tproc.cornell_box(), tproc.cornell_camera(), 4, 4,
                                       device="cpu", **option)
         ctx.render(1)
+
+
+@pytest.mark.parametrize("name", ["brute", "pallas"])
+def test_jax_tracer_names_render_the_dense_pass(name):
+    """JAX's tracer names: "brute" (its dense brute force) and "pallas"
+    (K1) take the port's dense route at any scene size, so a pass is
+    bit-equal to tracer="dense"."""
+    assert tpt._trace_mode(5000, tpt.PTOptions(tracer=name), True) == "dense"
+    imgs = []
+    for tracer in (name, "dense"):
+        ctx = RenderingContext.create(tproc.cornell_box(), tproc.cornell_camera(), 8, 8,
+                                      device="cpu", tracer=tracer)
+        ctx.render(1)
+        imgs.append((ctx.hdr_image(), float(ctx.gbuffer["rays"])))
+    assert np.array_equal(imgs[0][0], imgs[1][0]) and imgs[0][1] == imgs[1][1]
 
 
 def test_scene_over_4096_triangles_raises():
