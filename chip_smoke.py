@@ -249,6 +249,36 @@ result is printed then):
                 RenderingContext in this process on the loaded scene with
                 the same seed and passes; dump_speed_stats(detailed=True)
                 there gives rt_ms + shadow_rt_ms + shade_ms > 0;
+  4o. slice  — the last slice's modules (`slice_phase`): big_room(8300)
+                written as an OBJ of ~8 MiB (scene/loaders/obj.save_obj),
+                its native parse and native BVH build timed against the
+                Python parser and builder on the same file (equal meshes),
+                the library built into fermat_tpu_torch/_build/; five
+                processes of `python -m fermat_tpu_torch -pt` on the card
+                meanwhile: that OBJ at 1600x896, 3 passes (-benchmark, with
+                the run's launches), the glossy
+                CornellBox written as .gltf, .glb and .dae at 512x512 (each
+                TGA equal, byte for byte, to the in-process context's on
+                the loaded mesh), and -view on the .glb fed a scripted key
+                stream through a pipe (TAB through all 14 shading modes,
+                `filtered` included, a step forward, q: 15 frames);
+                build_lbvh_for_mesh on big_room(8300) (best of 3) equal to
+                its CPU build array for array; knn (k=4) on 2^20 queries
+                over 2^16 points, its first 2^11 held to the CPU's;
+                filtered_image with eaw and xbl on the CornellBox at
+                512x512 and big_room at 1600x896 (best of 3), the denoised
+                images held to the same call on the CPU within
+                DENOISE_RTOL / DENOISE_ATOL, every pixel for EAW and 99%
+                for XBL (big_room's at 400x224);
+                checkpoints of pt (512x512) and pssmlt (256x256): saved
+                after 2 passes, restored into a new context and rendered 1
+                more, equal to 3 passes (pssmlt: its chains bit-equal, its
+                splatted channels within BPT_SPLAT_RTOL of their max); render_pass_sharded,
+                render_bpt_pass_sharded and train_step_sharded at world
+                size 1 on nccl equal to the unsharded pass and step, the
+                sharded pass's launches counted and its time beside the
+                unsharded pass's (5 rounds, alternating, after the
+                processes ended);
   5. parity   — one 512x512 pass with the kernels and one with the plain
                 versions forced in their place: equal `rays`, equal images;
                 then the golden configuration (tests/golden/
@@ -490,6 +520,19 @@ RPT_CONV_CASES = {"rpt_pt": ("pt", 160, "cornell", {"max_path_length": 4, "rr": 
 ENV_FLOOR = 0.8
 # phase 4n: the command line's passes at RES x RES, and the -rpt run's side
 CLI_PASSES, CLI_RPT_RES = 4, 64
+# phase 4o: the seed of its renders and data, the kNN cell, the PSSMLT
+# checkpoint's side, the denoisers' tolerance against the CPU (the CPU test's,
+# tests/test_torch_denoise.py) and the CLI processes' time limit (s)
+SLICE_SEED = 11
+KNN_POINTS, KNN_QUERIES, KNN_K, KNN_CPU_QUERIES = 1 << 16, 1 << 20, 4, 1 << 11
+CKPT_PSSMLT_RES = 256
+DENOISE_RTOL, DENOISE_ATOL = 2e-5, 1e-6
+# the share of pixels held there: every one for EAW; XBL's taps sit at
+# round(10 r cos(phi)), so an ulp of sin or cos apart moves a tap now and
+# then and its pixel with it
+DENOISE_NEAR = {"eaw": 1.0, "xbl": 0.99}
+SLICE_TIMEOUT = 300
+SHARD_ROUNDS = 5
 # FP32 operations of one node visit of the walk: the slab test of
 # accel/traverse.py _slab_test, ops/csrc/bvh.cu box_hit (6 subtractions, 6
 # multiplications, 12 min/max; the compare not counted)
@@ -2517,6 +2560,317 @@ def cli_phase(dev, smi: str) -> dict:
     return out
 
 
+def camera_text(cam) -> str:
+    """A camera file's text (core/camera.load_camera_file): eye, aim, up, fov."""
+    row = lambda v: " ".join(repr(float(x)) for x in v.stack().tolist())
+    return f"{row(cam.eye)}\n{row(cam.aim)}\n{row(cam.up)}\n{float(cam.fov)!r}\n"
+
+
+def slice_phase(dev, smi: str, reset_counts, counts, bview, room_options: dict) -> dict:
+    """Phase 4o: the modules of the last slice on the card (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fermat_tpu_torch.accel.bvh import build_bvh_for_mesh
+    from fermat_tpu_torch.accel.kdtree import build_kdtree, knn
+    from fermat_tpu_torch.accel.lbvh import build_lbvh_for_mesh
+    from fermat_tpu_torch.core.camera import load_camera_file
+    from fermat_tpu_torch.core.math import Vec3
+    from fermat_tpu_torch.integrators import bpt as bpt_mod
+    from fermat_tpu_torch.integrators import pt
+    from fermat_tpu_torch.parallel import mesh as pmesh
+    from fermat_tpu_torch.render.checkpoint import load_checkpoint, save_checkpoint
+    from fermat_tpu_torch.render.context import RenderingContext
+    from fermat_tpu_torch.render.denoise import denoise
+    from fermat_tpu_torch.render.framebuffer import Framebuffer
+    from fermat_tpu_torch.scene.loaders import obj as obj_mod
+    from fermat_tpu_torch.scene.loaders.dae import save_dae
+    from fermat_tpu_torch.scene.loaders.fa import load_mesh_any
+    from fermat_tpu_torch.scene.loaders.gltf import save_gltf
+    from fermat_tpu_torch.scene.procedural import big_room, big_room_camera, cornell_box
+    from fermat_tpu_torch.utils import native
+    from fermat_tpu_torch.utils.image import read_tga, write_tga
+
+    t_phase = time.perf_counter()
+    out = {}
+    sync = torch.cuda.synchronize
+
+    def timed(fn, reps=1):
+        """(result, best seconds of reps synced calls)."""
+        best, r = float("inf"), None
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            r = fn()
+            sync()
+            best = min(best, time.perf_counter() - t0)
+        return r, best
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        room, box = big_room(BIG_BOXES), cornell_box(glossy_boxes=True)
+        t0 = time.perf_counter()
+        obj_mod.save_obj(room, str(tmp / "room.obj"))
+        t_write = time.perf_counter() - t0
+        for ext in ("gltf", "glb"):
+            save_gltf(box, str(tmp / f"cornell.{ext}"))
+        save_dae(box, str(tmp / "cornell.dae"))
+        (tmp / "room.txt").write_text(camera_text(big_room_camera()))
+        cam = tmp / "camera.txt"
+        cam.write_text("0 1 3.5\n0 1 0\n0 1 0\n0.8\n")
+        # the viewer's keys, one 64-byte read a frame: TAB through the 13
+        # other modes, a step forward, quit
+        keys = b"".join(k.ljust(64) for k in [b"\t"] * 13 + [b"w", b"q"])
+        cli = [sys.executable, "-m", "fermat_tpu_torch", "-pt", "-seed", str(SLICE_SEED)]
+        jobs = {"room": cli + ["-i", str(tmp / "room.obj"), "-c", str(tmp / "room.txt"), "-r",
+                               str(BIG_W), str(BIG_H), "-passes", "3", "-o",
+                               str(tmp / "room.tga"), "-benchmark", str(tmp / "room.json")]}
+        for ext in ("gltf", "glb", "dae"):
+            jobs[ext] = cli + ["-i", str(tmp / f"cornell.{ext}"), "-c", str(cam), "-r",
+                               str(RES), str(RES), "-o", str(tmp / f"{ext}.tga")]
+        procs = {}
+        try:
+            procs = start_processes(tmp, jobs)
+            with open(tmp / "view.log", "w") as log_f:
+                procs["view"] = subprocess.Popen(
+                    cli + ["-i", str(tmp / "cornell.glb"), "-c", str(cam), "-r", str(RES),
+                           str(RES), "-passes", "20", "-o", str(tmp / "view.tga"), "-view"],
+                    stdin=subprocess.PIPE, stdout=log_f, stderr=subprocess.STDOUT, cwd=ROOT)
+            procs["view"].stdin.write(keys)
+            procs["view"].stdin.close()
+
+            # -- the native runtime against the Python parser and builder --
+            lib = native.build()
+            check(lib.parent == native.BUILD_DIR and "native" not in lib.parts[-2:],
+                  f"the native library is built at {lib}")
+            mesh_n, t_native = timed(lambda: obj_mod.load_obj(str(tmp / "room.obj")))
+            mesh_p, t_python = timed(lambda: obj_mod._load_obj_python(str(tmp / "room.obj")))
+            names = lambda m: np.array([m.materials[i].name for i in m.material_ids])
+            check(all(np.array_equal(getattr(mesh_n, k), getattr(mesh_p, k))
+                      for k in ("vertices", "triangles", "normal_indices", "uv_indices"))
+                  and (names(mesh_n) == names(mesh_p)).all(),
+                  "the native OBJ parse differs from the Python parse")
+            mv = mesh_n.device_view(dev)
+            bvh_n, tb_native = timed(lambda: build_bvh_for_mesh(mv))
+            bvh_p, tb_python = timed(lambda: build_bvh_for_mesh(mv, use_native=False))
+            check(bvh_n.n_nodes > 1 and bvh_p.n_nodes > 1, "empty BVH")
+            log(f"[4o slice] big_room({BIG_BOXES}) as OBJ: {mesh_n.n_triangles} triangles, "
+                f"{(tmp / 'room.obj').stat().st_size / 2 ** 20:.1f} MiB written in "
+                f"{t_write:.2f} s; parse {t_native * 1e3:.1f} ms native vs {t_python * 1e3:.1f} "
+                f"ms Python (equal meshes); BVH {tb_native * 1e3:.1f} ms native "
+                f"({bvh_n.n_nodes} nodes) vs {tb_python * 1e3:.1f} ms Python "
+                f"({bvh_p.n_nodes} nodes), host work, beside {smi}")
+            out["native"] = dict(parse_ms=t_native * 1e3, parse_python_ms=t_python * 1e3,
+                                 bvh_ms=tb_native * 1e3, bvh_python_ms=tb_python * 1e3,
+                                 triangles=int(mesh_n.n_triangles))
+            del mv, bvh_n, bvh_p
+
+            # -- the LBVH on the card, held to its CPU build --
+            _, _ = timed(lambda: build_lbvh_for_mesh(bview.mesh))
+            lb, t_lbvh = timed(lambda: build_lbvh_for_mesh(bview.mesh), reps=3)
+            cpu_mesh = bview.mesh._replace(**{k: Vec3(*(c.cpu() for c in getattr(bview.mesh, k)))
+                                              for k in ("p0", "e1", "e2")})
+            lb_cpu = build_lbvh_for_mesh(cpu_mesh)
+            for k in ("lo_x", "lo_y", "lo_z", "hi_x", "hi_y", "hi_z", "skip", "prim_start",
+                      "is_leaf", "prims", "child"):
+                check(torch.equal(getattr(lb, k).cpu(), getattr(lb_cpu, k)),
+                      f"the LBVH's {k} on the card differs from its CPU build")
+            log(f"[4o slice] build_lbvh_for_mesh on big_room({BIG_BOXES}): {t_lbvh * 1e3:.2f} ms"
+                f" (best of 3, after a warm-up; {lb.n_nodes} nodes), equal to its CPU build array "
+                f"for array, on {smi}")
+            out["lbvh_ms"] = t_lbvh * 1e3
+            del lb, lb_cpu
+
+            # -- kNN on 2^20 queries --
+            gen = np.random.default_rng(SLICE_SEED)
+            pts = gen.random((KNN_POINTS, 3), dtype=np.float32)
+            q = torch.from_numpy(gen.random((KNN_QUERIES, 3), dtype=np.float32))
+            tree, t_kd = timed(lambda: build_kdtree(pts, device=dev))
+            qd = q.to(dev)
+            (d2, ids), t_knn = timed(lambda: knn(tree, qd[:, 0], qd[:, 1], qd[:, 2], k=KNN_K))
+            tree_cpu = build_kdtree(pts, device="cpu")
+            n_cpu = KNN_CPU_QUERIES
+            d2c, idc = knn(tree_cpu, q[:n_cpu, 0], q[:n_cpu, 1], q[:n_cpu, 2], k=KNN_K)
+            check(torch.equal(ids[:n_cpu].cpu(), idc)
+                  and torch.allclose(d2[:n_cpu].cpu(), d2c, rtol=1e-6, atol=0),
+                  "knn on the card differs from the CPU's")
+            log(f"[4o slice] knn k={KNN_K}: {KNN_QUERIES} queries over {KNN_POINTS} points in "
+                f"{t_knn * 1e3:.1f} ms on the card (host tree build {t_kd * 1e3:.0f} ms); the first "
+                f"{n_cpu} queries' ids equal to the CPU's, distances within 1e-6, on {smi}")
+            out["knn_ms"] = t_knn * 1e3
+            del tree, qd, d2, ids
+
+            # -- the CornellBox files in this process, each with a pass at RES --
+            ctxs = {}
+            for ext in ("gltf", "glb", "dae"):
+                ctxs[ext] = RenderingContext.create(
+                    load_mesh_any(str(tmp / f"cornell.{ext}")), load_camera_file(str(cam)),
+                    RES, RES, seed=SLICE_SEED)
+                ctxs[ext].render(1)
+                write_tga(str(tmp / f"want_{ext}.tga"), ctxs[ext].image())
+
+            # -- the denoisers: timed at full size, held to the same call on
+            # the CPU (big_room's at PLAIN_W x PLAIN_H: the CPU's EAW takes
+            # ~40 s at 1600x896)
+            def room_ctx(w, h):
+                c = RenderingContext(view=bview, res_x=w, res_y=h,
+                                     renderer_options=dict(room_options), seed=SLICE_SEED,
+                                     fb=Framebuffer.create(h, w, dev))
+                c.render(1)
+                return c
+
+            out["denoise"] = {}
+            for cell, c, held in (("cornell", ctxs["glb"], ctxs["glb"]),
+                                  ("big_room", room_ctx(BIG_W, BIG_H), room_ctx(PLAIN_W, PLAIN_H))):
+                gb = held.gbuffer
+                args = (held.fb, gb["normal"], gb["position"], gb["miss"], held.view.camera)
+                cpu_args = (Framebuffer(*(t.cpu() for t in held.fb)),
+                            *(gb[k].cpu() for k in ("normal", "position", "miss")),
+                            held.view.camera.to("cpu"))
+                for method in ("eaw", "xbl"):
+                    c.filtered_image(method=method)  # a warm-up
+                    _, t_f = timed(lambda: c.filtered_image(method=method), reps=3)
+                    got = denoise(*args, instance=held.instance - 1, method=method).cpu()
+                    want = denoise(*cpu_args, instance=held.instance - 1, method=method)
+                    off = ((got - want).abs() / (want.abs() * DENOISE_RTOL + DENOISE_ATOL))
+                    near = float((off <= 1.0).all(-1).double().mean())
+                    check(near >= DENOISE_NEAR[method], f"denoise {method} on {cell} "
+                          f"{held.res_x}x{held.res_y}: {near:.6f} of the pixels within (rtol "
+                          f"{DENOISE_RTOL}, atol {DENOISE_ATOL}) of the CPU's, max "
+                          f"{float(off.max()):.2f} x")
+                    log(f"[4o slice] filtered_image({method!r}) on {cell} {c.res_x}x{c.res_y}: "
+                        f"{t_f * 1e3:.2f} ms (best of 3, RGBA8 on the host included); at "
+                        f"{held.res_x}x{held.res_y} {near:.6f} of the denoised pixels within "
+                        f"(rtol {DENOISE_RTOL}, atol {DENOISE_ATOL}) of the CPU's (the CPU "
+                        f"test's), the rest at most {float(off.max()):.3f} x that, on {smi}")
+                    out["denoise"][f"{cell}_{method}"] = t_f * 1e3
+
+            # -- checkpoints: restored after 2 passes + 1 equals 3 passes --
+            for renderer, res in (("pt", RES), ("pssmlt", CKPT_PSSMLT_RES)):
+                mk = lambda: RenderingContext.create(box, load_camera_file(str(cam)), res, res,
+                                                     renderer=renderer, seed=SLICE_SEED)
+                full = mk()
+                full.render(2)
+                save_checkpoint(str(tmp / f"{renderer}.npz"), full)
+                full.render(1)
+                resumed = mk()
+                load_checkpoint(str(tmp / f"{renderer}.npz"), resumed)
+                resumed.render(1)
+                if renderer == "pt":
+                    same = all(torch.equal(a, b) for a, b in zip(resumed.fb, full.fb))
+                    how = "every framebuffer channel equal"
+                else:  # the splat is an index_add_, in no fixed order on the card
+                    same = all(float((a - b).abs().max()) <= BPT_SPLAT_RTOL * float(
+                        b.abs().max()) for a, b in zip(resumed.fb, full.fb)) and all(
+                        torch.equal(getattr(resumed.renderer_state, f),
+                                    getattr(full.renderer_state, f))
+                        for f in ("u", "i_lum", "contrib", "pixel", "brightness"))
+                    how = (f"the chains (u, i_lum, contrib, pixel, b) bit-equal, every channel "
+                           f"within {BPT_SPLAT_RTOL} of its max")
+                check(same, f"{renderer}: the restored run differs from the uninterrupted one")
+                log(f"[4o slice] checkpoint {renderer} {res}x{res}: saved after 2 passes, "
+                    f"restored in a new context ({(tmp / f'{renderer}.npz').stat().st_size} B) "
+                    f"and rendered 1 more: {how} to 3 passes")
+
+            wait_processes(tmp, procs, SLICE_TIMEOUT)  # the card to this process alone
+
+            # -- the sharded passes and train step at world size 1 on nccl --
+            dist.init_process_group("nccl", init_method=f"file://{tmp / 'rendezvous'}",
+                                    world_size=1, rank=0, device_id=dev)
+            try:
+                mesh = pmesh.make_mesh(dev)
+                view = ctxs["glb"].view
+                opts = pt.PTOptions(**ctxs["glb"].renderer_options)
+                inst = 7
+                pmesh.render_pass_sharded(view, opts, RES, RES, inst, mesh)
+                reset_counts()
+                o_s, t_s = timed(lambda: pmesh.render_pass_sharded(view, opts, RES, RES, inst,
+                                                                   mesh))
+                launched = {k: v for k, v in counts().items() if v}
+                o_u, t_u = timed(lambda: pt.render_pass(view, opts, RES, RES, inst))
+                ts, tu = [], []
+                for _ in range(SHARD_ROUNDS):  # alternating, the host clock swings
+                    ts.append(timed(lambda: pmesh.render_pass_sharded(view, opts, RES, RES,
+                                                                      inst, mesh))[1])
+                    tu.append(timed(lambda: pt.render_pass(view, opts, RES, RES, inst))[1])
+                check(all(torch.equal(getattr(o_s, f).stack() if isinstance(getattr(o_s, f), Vec3)
+                                      else getattr(o_s, f),
+                                      getattr(o_u, f).stack() if isinstance(getattr(o_u, f), Vec3)
+                                      else getattr(o_u, f)) for f in o_s._fields),
+                      "render_pass_sharded at world size 1 differs from render_pass")
+                check(launched.get("trace_closest", 0) > 0 and launched.get("gather_rows", 0) > 0,
+                      f"the sharded pass launched {launched}")
+                target = torch.rand((RES * RES, 3), generator=torch.Generator(dev).manual_seed(3),
+                                    device=dev)
+                v_s, loss_s = pmesh.train_step_sharded(view, target, opts, RES, RES, inst, mesh)
+                leaf = view.mesh.materials.diffuse.stack().detach().clone().requires_grad_(True)
+                mats = view.mesh.materials._replace(diffuse=Vec3(leaf[:, 0], leaf[:, 1],
+                                                                 leaf[:, 2]))
+                with torch.enable_grad():
+                    o = pt.render_pass(view._replace(mesh=view.mesh._replace(materials=mats)),
+                                       opts, RES, RES, inst)
+                    d = o.composited.stack() - target
+                    loss = torch.mean(d * d) * 1.0  # train_step_sharded's at one rank
+                    loss.backward()
+                new = torch.clamp(leaf.detach() - 0.05 * leaf.grad, 0.0, 1.0)
+                check(torch.equal(loss_s, loss.detach())
+                      and torch.equal(v_s.mesh.materials.diffuse.stack(), new),
+                      "train_step_sharded at world size 1 differs from the unsharded step")
+                bopts = bpt_mod.BPTOptions(lobes=opts.lobes)
+                rad_s, splat_s, rays_s = pmesh.render_bpt_pass_sharded(view, bopts, RES, RES,
+                                                                        inst, mesh)
+                rad, splat, rays, _ = bpt_mod.render_pass(view, bopts, RES, RES, inst)
+                scale = float(splat.abs().max())
+                check(torch.equal(rad_s.stack(), rad.stack()) and torch.equal(rays_s, rays)
+                      and float((splat_s - splat).abs().max()) <= BPT_SPLAT_RTOL * scale,
+                      "render_bpt_pass_sharded at world size 1 differs from the BPT pass")
+            finally:
+                dist.destroy_process_group()
+            med = lambda xs: sorted(xs)[len(xs) // 2]
+            log(f"[4o slice] render_pass_sharded at world size 1 on nccl, CornellBox {RES}x{RES} "
+                f"mpl={MPL}: {med(ts) * 1e3:.2f} ms vs {med(tu) * 1e3:.2f} ms unsharded (medians "
+                f"of {SHARD_ROUNDS} synced calls each, alternating; the first {t_s * 1e3:.2f} / "
+                f"{t_u * 1e3:.2f} ms), bit-equal, "
+                f"launches {launched}; train_step_sharded equal to the unsharded step (loss "
+                f"{float(loss_s):.6g}); render_bpt_pass_sharded equal (splat within "
+                f"{BPT_SPLAT_RTOL} of its max); on {smi}")
+            out["sharded"] = dict(ms=med(ts) * 1e3, unsharded_ms=med(tu) * 1e3,
+                                  launches=launched)
+        finally:
+            stop_processes(procs)
+        for ext in ("gltf", "glb", "dae"):
+            same = (tmp / f"{ext}.tga").read_bytes() == (tmp / f"want_{ext}.tga").read_bytes()
+            check(same, f"-i cornell.{ext}: the CLI's TGA differs from the in-process context's")
+        bench = json.loads((tmp / "room.json").read_text())
+        img = read_tga(str(tmp / "room.tga"))
+        check(img.shape == (BIG_H, BIG_W, 3) and img.mean() > 1.0 and
+              bench["device"].startswith("cuda") and bench["rays_per_s"] > 0 and
+              all(bench["launches"].get(k, 0) > 0 for k in (
+                  "trace_closest_frontier", "trace_any_frontier", "cdf_pick_rows",
+                  "gather_rows")),
+              f"-i room.obj: the TGA is {img.shape} (mean {img.mean()}), -benchmark {bench}")
+        view_log = (tmp / "view.log").read_text(errors="replace")
+        modes = re.findall(r"pass (\d+) mode=(\w+)", view_log)
+        seen = {m for _, m in modes}
+        check(len(seen) == 14 and "viewer: 15 frames" in view_log
+              and modes[-1] == ("1", "depth"),
+              f"-view: modes {modes}; {view_log[-300:]}")
+        log(f"[4o slice] python -m fermat_tpu_torch -pt -i room.obj ({BIG_W}x{BIG_H}, the native "
+            f"parse and BVH route): {bench['mean_pass_ms']:.2f} ms/pass, "
+            f"{bench['rays_per_s'] / 1e6:.3f} Mrays/s (-benchmark, beside four other processes), "
+            f"launches {bench['launches']}; "
+            f"-i cornell.gltf / .glb / .dae at {RES}x{RES}: each TGA equal to the in-process "
+            f"context's byte for byte; -view through a pipe: 15 frames, all 14 modes drawn, the "
+            f"camera moved (pass 1 again), q; on {smi}")
+        out["cli_room"] = bench
+    torch.cuda.empty_cache()
+    log(f"[4o slice] phase {time.perf_counter() - t_phase:.1f} s")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def walk_rows(dev, bw: float, fp32: float, bview, opt: dict, lcalls: dict, k5_plain: dict,
               bvhk: dict, max_err: dict) -> list:
     """Phase 6's rows of the BVH walk, at big_room's bounce-0 and bounce-1
@@ -2756,6 +3110,17 @@ def main() -> int:
     def counts():
         return {n: k.launches for n, k in {**kernels, **helpers}.items()}
 
+    phase_s = {}
+    last = [None, time.perf_counter()]
+
+    def mark(name):
+        """Close the running phase and start `name` (the seconds-per-phase line)."""
+        now = time.perf_counter()
+        if last[0] is not None:
+            phase_s[last[0]] = round(now - last[1], 1)
+        last[:] = [name, now]
+
+    mark("1")
     # ---- 1. device ----
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2766,6 +3131,7 @@ def main() -> int:
     log(f"[1 device] {device_name} ({torch.cuda.device_count()} visible); nvidia-smi: {smi}; "
         f"bounds use H100 {part} peaks {bw / 1e12:.2f} TB/s, {fp32 / 1e12:.0f} TFLOP/s FP32")
 
+    mark("2")
     # ---- 2. build ----
     t0 = time.perf_counter()
     built = _cuda.build(sorted({k.source for k in (*kernels.values(), *helpers.values())}))
@@ -2776,6 +3142,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"    ptxas {r.source}: {line.split(':', 1)[-1].strip()}")
 
+    mark("3")
     # ---- 3. kernel vs plain on the card ----
     gen = torch.Generator(device=dev).manual_seed(20261016)
     max_err = {k: 0.0 for k in kernels}
@@ -2863,6 +3230,7 @@ def main() -> int:
             f"{float((out - ref).abs().max()):.3g} = {rel:.3g} of sum|g| (tolerance "
             f"{gather_mod.BWD_RTOL:g}); two launches bit-equal: {same}")
 
+    mark("3b")
     # ---- 3b. megakernels vs plain on the card ----
     # the CornellBox has no transmissive or coated material, so its three
     # lobe sets trace the same paths; glass_cornell_box drives those lobes
@@ -2917,6 +3285,7 @@ def main() -> int:
         log(f"[3b mega] mega_grad {label}, {MEGA_RES}x{MEGA_RES} mpl={MPL}, MSE vs 0.2: "
             f"max |g - plain| {err:.3g} = {err / scale:.2e} of max|g| {scale:.4g}")
 
+    mark("3c")
     # ---- 3c. large-scene kernels vs plain on the card ----
     t0 = time.perf_counter()
     room = big_room(BIG_BOXES)
@@ -3031,6 +3400,7 @@ def main() -> int:
         log(f"[3c large] cdf_pick_rows {label} ({rows.shape[0]}x{rows.shape[1]}) x {N_RAYS} "
             f"(u = cdf entries, NaN, 1.0, 1.5 included): bit-equal")
 
+    mark("4")
     # ---- 4. main path ----
     ctx = RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), RES, RES,
                                   renderer="pt", max_path_length=MPL)
@@ -3067,6 +3437,7 @@ def main() -> int:
         f"{1 - busy_ms / ms_pass:.3f}); top by device time: "
         + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
 
+    mark("4b")
     # ---- 4b. the megakernel path ----
     mctx = RenderingContext.create(glossy, cornell_camera(), RES, RES, renderer="pt",
                                    max_path_length=MPL, tracer="mega")
@@ -3095,6 +3466,7 @@ def main() -> int:
         f"{m_busy:.3f} ms of the {m_ms:.3f} ms pass (idle share {1 - m_busy / m_ms:.3f}); top: "
         + "; ".join(f"{n[:50]} {t / 1e3:.3f} ms x{c}" for n, (t, c) in m_top))
 
+    mark("4c")
     # ---- 4c. train step (bench.py:129-150) ----
     t_opts = pt.PTOptions(**mctx.renderer_options)
     check(pt_mega.mega_grad_eligible(mctx.view, t_opts), "mega_grad_eligible fails")
@@ -3135,6 +3507,7 @@ def main() -> int:
         f"loss {float(loss):.5g}; launches over {REPS} steps: {t_launches}; dL/d diffuse "
         f"{np.round(t_grad.cpu().numpy(), 6).tolist()}")
 
+    mark("4d")
     # ---- 4d. the large-scene path: big_room 1600x896 (tools/bench_secondaries.py) ----
     bopts = pt.PTOptions(**bctx.renderer_options)
     n_big = BIG_PASSES * REPS
@@ -3190,6 +3563,7 @@ def main() -> int:
     bctx.renderer_options.pop("narrow")
     bctx.restart()
 
+    mark("4e")
     # ---- 4e. tracer="cluster" and tracer="binned" on big_room ----
     groups = {"closest": 0, "any": 0}
 
@@ -3300,6 +3674,7 @@ def main() -> int:
         + f" ({time.perf_counter() - t0:.1f} s for the four passes)")
     del out_c, out_b, out_p, out_f
 
+    mark("4f")
     # ---- 4f. the differentiable pass: AD train steps (bench.py:152-163) ----
     bwd_calls = {"cornell": [], "big_room": []}
 
@@ -3466,30 +3841,43 @@ def main() -> int:
     del b_grad, prof
     torch.cuda.empty_cache()
 
+    mark("4g")
     # ---- 4g. the light model: the lit CornellBox and big_room, their golden ----
     lit = lit_phase(dev, smi, reset_counts, counts)
 
+    mark("4h")
     # ---- 4h. textures, their gradients and the blue-noise sampler ----
     tex = textured_phase(dev, smi, reset_counts, counts)
 
+    mark("4i")
     # ---- 4i. the remaining PT options and the BVH walk ----
     opt = options_phase(dev, smi, reset_counts, counts, bview, dict(bctx.renderer_options))
 
+    mark("4j")
     # ---- 4j. the bidirectional path tracer and PSSMLT ----
     bp = bpt_phase(dev, smi, reset_counts, counts, bview, tuple(bctx.renderer_options["lobes"]))
 
+    mark("4k")
     # ---- 4k. the path-space-filtering and clustered-RL path tracers ----
     pf = psf_phase(dev, smi, reset_counts, counts, bview, tuple(bctx.renderer_options["lobes"]))
 
+    mark("4l")
     # ---- 4l. path-space MLT and charted MLT ----
     ml = mlt_phase(dev, smi, reset_counts, counts, bview, tuple(bctx.renderer_options["lobes"]))
 
+    mark("4m")
     # ---- 4m. the reuse path tracer and JAX's tracer names ----
     rm = rpt_phase(dev, smi, reset_counts, counts, bview, tuple(bctx.renderer_options["lobes"]))
 
+    mark("4n")
     # ---- 4n. the command line ----
     cli = cli_phase(dev, smi)
 
+    mark("4o")
+    # ---- 4o. the last slice's modules ----
+    sl = slice_phase(dev, smi, reset_counts, counts, bview, dict(bctx.renderer_options))
+
+    mark("5")
     # ---- 5. parity on the card ----
     opts = pt.PTOptions(**ctx.renderer_options)
     out_k = pt.render_pass(ctx.view, opts, RES, RES, 1000, 0)
@@ -3529,6 +3917,7 @@ def main() -> int:
         f"image: rays {grays:.0f} vs {float(gz['rays']):.0f}; pixels close/mean rel: "
         + ", ".join(report))
 
+    mark("5b")
     # ---- 5b. megakernel parity: 512x512 against the plain version; JAX golden ----
     m_opts, m_tb = t_opts, t_tb  # the mega pass's options and tables
     n_full = RES * RES
@@ -3601,6 +3990,7 @@ def main() -> int:
         report.append(f"gradient {cfg} within {g_err:.2e} of max|g|")
     log(f"[5b parity] JAX megakernel golden {mres}x{mres} on the card: " + "; ".join(report))
 
+    mark("5c")
     # ---- 5c. large-scene parity: the JAX golden; kernels vs forced plain ----
     gb = np.load(ROOT / "tests" / "golden" / "torch_port_bigroom_24.npz")
     gbview = SceneView.from_numpy({k[5:]: gb[k] for k in gb.files if k.startswith("view.")},
@@ -3676,6 +4066,7 @@ def main() -> int:
         f"diff| {max(diffs):.3g} ({time.perf_counter() - t0:.1f} s for both passes)")
     del out_k, out_p
 
+    mark("6")
     # ---- 6. per-launch timing at the main path's inputs ----
     calls = {n: [] for n in kernels}
 
@@ -4412,6 +4803,15 @@ def main() -> int:
                                      f" idle {v['idle']:.3f}, atlas {v['atlas_bytes']} B"
                                      if "mrays" in v else "/step")
         + f", peak {v['peak_bytes'] / 2 ** 30:.2f} GiB" for c, v in tex["cells"].items()))
+    mark("summary")
+    log("[summary] seconds per phase " + json.dumps(phase_s))
+    log(f"[summary] the last slice (4o): native OBJ parse {sl['native']['parse_ms']:.1f} ms vs "
+        f"{sl['native']['parse_python_ms']:.1f} ms Python, native BVH {sl['native']['bvh_ms']:.1f}"
+        f" ms vs {sl['native']['bvh_python_ms']:.1f} ms Python; LBVH {sl['lbvh_ms']:.2f} ms; knn "
+        f"{sl['knn_ms']:.1f} ms; filtered_image " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in sl["denoise"].items())
+        + f"; sharded pass {sl['sharded']['ms']:.2f} ms vs {sl['sharded']['unsharded_ms']:.2f} ms;"
+        f" the large OBJ through the CLI {sl['cli_room']['mean_pass_ms']:.2f} ms/pass")
     log(f"[summary] chip_smoke.py ran {time.perf_counter() - _T0:.1f} s in total")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

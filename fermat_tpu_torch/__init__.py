@@ -1,7 +1,8 @@
 """fermat_tpu_torch — the PyTorch/CUDA port of fermat_tpu for NVIDIA Hopper.
 
 The JAX package `fermat_tpu` is the reference; this package mirrors its
-layout (core/, scene/, bsdf/, accel/, ops/, integrators/, render/) and
+layout (core/, scene/, bsdf/, accel/, ops/, integrators/, render/,
+parallel/, utils/) and
 imports neither JAX nor anything of `fermat_tpu`.
 
 Devices are explicit: entry points run on "cuda" unless the caller passes
@@ -35,11 +36,24 @@ render through the same tracers and gathers: JAX's eight renderers. JAX's
 tracer names "brute" and "pallas" take the dense route. Every kernel is
 hand-written CUDA.
 
+The port covers every module of fermat_tpu: besides the above, the glTF
+and COLLADA loaders, the compressed mesh attributes (scene/compression.py),
+the native C++ host runtime for large OBJ files and BVH builds
+(utils/native.py, built from native/fermat_native.cpp), the uv BVH and uv
+charts (scene/uv_bvh.py), the EAW and XBL denoisers
+(RenderingContext.filtered_image, render/denoise.py), checkpoints
+(render/checkpoint.py), the terminal viewer (render/viewer.py), multi-device
+rendering over torch.distributed (parallel/mesh.py) and the library
+modules core/sh.py, core/distributions.py, accel/kdtree.py and
+accel/lbvh.py. None of these reaches a Pallas kernel in JAX; here they are
+plain tensor or host code.
+
 The command line renders a scene file (OBJ+MTL, PLY, STL, OFF, .fa,
-.pbrt; scene/loaders/) on the card, or on the CPU with -cpu:
+.pbrt, .gltf, .glb, .dae; scene/loaders/) on the card, or on the CPU with
+-cpu, and -view opens the progressive terminal viewer:
 
     python -m fermat_tpu_torch -pt -i scene.obj -c camera.txt -r 512 512 \
-        -passes 16 -o out.tga [-benchmark stats.json] [-cpu]
+        -passes 16 -o out.tga [-benchmark stats.json] [-cpu] [-view]
 
 (utils/cli.py lists every flag; -rpt, -bpt, ... pick the renderer).
 """

@@ -9,5 +9,7 @@ subcluster tracer (ops/sub_trace.py). bvh.build_bvh_for_mesh builds the
 triangle BVH (bvh.BvhView) of the skip-link walk: its plain lockstep
 version is traverse.walk_closest / walk_any, its kernel ops/bvh_trace.py
 (tracer="bvh", and tracer="auto" above 4096 triangles without a cluster
-table).
+table); from 4096 triangles it builds through the native C++ builder
+(utils/native.py), as JAX does. lbvh.py builds a Karras LBVH of the same
+layout on the device, kdtree.py a k-d tree for exact kNN queries.
 """

@@ -12,10 +12,11 @@ the next node, its right child is the left child's `skip`, and `skip` of a
 node is where a walk resumes after its subtree (-1 at the end). Leaves hold
 `leaf_size` slots of `prims`, -1 padded.
 
-JAX builds a mesh of 4096 triangles or more with its native C++ builder
-(bvh.py:222-255); the port does not load that library and builds every mesh
-with this Python one. The walk's hits do not depend on the tree, except
-where two triangles tie in t.
+`build_bvh_for_mesh` builds a mesh of `_NATIVE_MIN_TRIS` = 4096 triangles or
+more with the native C++ builder (utils/native.py), as JAX does
+(bvh.py:219-255), so above that size the tree is JAX's array for array;
+`use_native=False` takes this Python builder at every size. A failed native
+build raises.
 """
 from __future__ import annotations
 
@@ -202,10 +203,14 @@ class BvhView(NamedTuple):
                        nodes=t(nodes))
 
 
-def build_bvh_for_mesh(mesh, leaf_size: int = 4) -> BvhView:
+_NATIVE_MIN_TRIS = 4096  # below this the Python build takes under a second
+
+
+def build_bvh_for_mesh(mesh, leaf_size: int = 4, use_native: bool = True) -> BvhView:
     """The skip-link BVH of a MeshView's triangles (bvh.py:224-255), built
     on the host from the (p0, e1, e2) soup: boxes widened by 1e-7, centroids
-    in float32, as JAX builds them; on the mesh's device."""
+    in float32, as JAX builds them; natively from _NATIVE_MIN_TRIS
+    triangles unless use_native is False; on the mesh's device."""
     h = lambda v: np.stack([v.x.detach().cpu().numpy(), v.y.detach().cpu().numpy(),
                             v.z.detach().cpu().numpy()], 1)
     p0 = h(mesh.p0)
@@ -214,7 +219,12 @@ def build_bvh_for_mesh(mesh, leaf_size: int = 4) -> BvhView:
     lo = (np.minimum(np.minimum(p0, p1), p2) - 1e-7).astype(np.float32)
     hi = (np.maximum(np.maximum(p0, p1), p2) + 1e-7).astype(np.float32)
     centroids = ((p0 + p1 + p2) / 3.0).astype(np.float32)
-    b, _ = build_bvh(centroids, lo, hi, leaf_size)
+    if use_native and centroids.shape[0] >= _NATIVE_MIN_TRIS:
+        from fermat_tpu_torch.utils.native import build_bvh_native
+
+        b = HostBvh(leaf_size=leaf_size, **build_bvh_native(centroids, lo, hi, leaf_size))
+    else:
+        b, _ = build_bvh(centroids, lo, hi, leaf_size)
     return BvhView.from_arrays(b.lo, b.hi, b.skip, b.prim_start, b.is_leaf, b.prims,
                                np.arange(1, b.n_nodes + 1, dtype=np.int32), leaf_size,
                                mesh.p0.x.device)

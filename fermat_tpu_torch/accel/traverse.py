@@ -8,8 +8,10 @@ walk's kernel in bvh_trace.py. The table tracers follow the Pallas kernels'
 semantics rather than fermat_tpu's brute twin, which leaves a stale `t` on
 inactive lanes (traverse.py:319-321) where the kernels return `tmax`.
 
-`walk_closest` / `walk_any` are JAX's `trace_closest` / `trace_any` over a
-BvhView (accel/bvh.py): every ray keeps one node cursor, from node 0 (-1
+`walk_closest` / `walk_any` are JAX's `trace_closest` / `trace_any`
+(traverse.py:140, :196) over a BvhView (accel/bvh.py), and JAX's
+`trace_closest_brute` / `trace_any_brute` are the dense tracers' plain
+versions, ops/trace.py's `trace_closest` / `trace_any` on a CPU tensor: every ray keeps one node cursor, from node 0 (-1
 for an inactive lane); each step runs the slab test of the cursor's box
 within [tmin, t] (closest: t is the best hit so far; any: tmax), at a leaf
 the leaf_size Moller-Trumbore tests of its prims in order (-1 slots

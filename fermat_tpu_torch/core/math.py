@@ -1,7 +1,9 @@
 """Vector math on structure-of-arrays Vec3 (fermat_tpu/core/math.py).
 
 A Vec3 is three same-shaped tensors, one per component, so every per-ray
-operation is a flat elementwise op over the wavefront.
+operation is a flat elementwise op over the wavefront. Also the octahedral
+normal mapping (encode, decode and its 8+8-bit packing), reflect/refract
+and the scalar helpers of math.py:108-240.
 """
 from __future__ import annotations
 
@@ -114,3 +116,73 @@ def oct_encode(n: Vec3):
     uf = (1.0 - torch.abs(v)) * torch.sign(torch.where(u == 0.0, 1.0, u))
     vf = (1.0 - torch.abs(u)) * torch.sign(torch.where(v == 0.0, 1.0, v))
     return torch.where(n.z < 0.0, uf, u), torch.where(n.z < 0.0, vf, v)
+
+
+def oct_decode(u: Tensor, v: Tensor) -> Vec3:
+    """Octahedral (u, v) -> unit vector (math.py:187-193)."""
+    z = 1.0 - torch.abs(u) - torch.abs(v)
+    uf = (1.0 - torch.abs(v)) * torch.sign(torch.where(u == 0.0, 1.0, u))
+    vf = (1.0 - torch.abs(u)) * torch.sign(torch.where(v == 0.0, 1.0, v))
+    return normalize(Vec3(torch.where(z < 0.0, uf, u), torch.where(z < 0.0, vf, v), z))
+
+
+def oct_pack16(n: Vec3) -> Tensor:
+    """A unit normal packed into 16 bits, 8 + 8 (math.py:196-201); int64."""
+    u, v = oct_encode(n)
+    q = lambda a: torch.clamp(torch.round((a * 0.5 + 0.5) * 255.0), 0, 255).to(torch.int64)
+    return q(u) | (q(v) << 8)
+
+
+def oct_unpack16(p: Tensor) -> Vec3:
+    p = p.to(torch.int64)
+    u = ((p & 0xFF).to(torch.float32) / 255.0) * 2.0 - 1.0
+    v = (((p >> 8) & 0xFF).to(torch.float32) / 255.0) * 2.0 - 1.0
+    return oct_decode(u, v)
+
+
+def vec3(x, y=None, z=None, device="cpu") -> Vec3:
+    """A Vec3 of float32 tensors; one value fills all three."""
+    if y is None:
+        y = z = x
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return Vec3(t(x), t(y), t(z))
+
+
+def norm(a: Vec3) -> Tensor:
+    return torch.sqrt(dot(a, a))
+
+
+def lerp(a: Vec3, b: Vec3, t) -> Vec3:
+    return a + (b - a) * t
+
+
+def where(m: Tensor, a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(torch.where(m, a.x, b.x), torch.where(m, a.y, b.y), torch.where(m, a.z, b.z))
+
+
+def reflect(i: Vec3, n: Vec3) -> Vec3:
+    """Mirror direction; i points away from the surface (math.py:133-138)."""
+    return n * (2.0 * dot(i, n)) - i
+
+
+def refract(i: Vec3, n: Vec3, eta):
+    """Refract w_i about n with relative IoR eta = n_i/n_t (math.py:141-153):
+    (direction, total internal reflection mask)."""
+    cos_i = dot(i, n)
+    sin2_t = eta * eta * torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
+    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0))
+    return normalize((n * cos_i - i) * eta - n * cos_t), sin2_t >= 1.0
+
+
+def sqr(x):
+    return x * x
+
+
+def luminance(r, g, b):
+    """Rec.709 luminance (math.py:232-234)."""
+    return 0.2126 * r + 0.7152 * g + 0.0722 * b
+
+
+def safe_rcp(x: Tensor, eps: float = 1e-12) -> Tensor:
+    big = torch.abs(x) > eps
+    return torch.where(big, 1.0 / torch.where(big, x, 1.0), 0.0)

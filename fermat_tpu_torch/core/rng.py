@@ -78,6 +78,11 @@ def uniform_from_bits(bits: Tensor) -> Tensor:
     return torch.clamp_max(u, 0.99999994)
 
 
+def uniform(key: U32, counter: U32) -> Tensor:
+    """One uniform float from (key, counter) (rng.py:86-88)."""
+    return uniform_from_bits(hash_combine(key, counter))
+
+
 def reverse_bits32(x: U32) -> U32:
     x = x & M32
     x = ((x & 0x55555555) << 1) | ((x & 0xAAAAAAAA) >> 1)

@@ -1,4 +1,5 @@
-"""Sampling warps and MIS heuristics (fermat_tpu/core/sampling.py)."""
+"""Sampling warps, MIS heuristics and measure conversions
+(fermat_tpu/core/sampling.py)."""
 from __future__ import annotations
 
 import torch
@@ -45,3 +46,29 @@ def square_to_uniform_disk(u0, u1):
     r = torch.where(zero, 0.0, r)
     theta = torch.where(zero, 0.0, theta)
     return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def cosine_hemisphere_pdf(cos_theta):
+    return torch.clamp_min(cos_theta, 0.0) * INV_PI
+
+
+def square_to_uniform_sphere(u0, u1) -> Vec3:
+    z = 1.0 - 2.0 * u0
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = TWO_PI * u1
+    return Vec3(r * torch.cos(phi), r * torch.sin(phi), z)
+
+
+def balance_heuristic(pdf_a, pdf_b):
+    """a/(a+b) in the overflow-safe ratio form 1/(1+r)."""
+    r = pdf_b / torch.clamp_min(pdf_a, 1e-32)
+    return torch.where(pdf_a > 0.0, 1.0 / (1.0 + r), 0.0)
+
+
+def pdf_solid_angle_to_area(pdf_sa, dist2, cos_theta):
+    """p_A = p_sa * |cos| / r^2."""
+    return pdf_sa * torch.abs(cos_theta) / torch.clamp_min(dist2, 1e-20)
+
+
+def pdf_area_to_solid_angle(pdf_a, dist2, cos_theta):
+    return pdf_a * dist2 / torch.clamp_min(torch.abs(cos_theta), 1e-8)

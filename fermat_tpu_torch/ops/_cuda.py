@@ -123,11 +123,16 @@ class CudaKernel:
     """One C entry point of a csrc/ library, with its launch count.
 
     `launches` counts calls that launched the kernel; chip_smoke.py resets
-    it to 0 before driving the main path and reads it afterwards.
+    it to 0 before driving the main path and reads it afterwards, and the
+    command line's -benchmark JSON reports it. `every` lists the kernels
+    defined so far.
     """
+
+    every: List["CudaKernel"] = []
 
     def __init__(self, name: str, source: str, symbol: str, argtypes: list,
                  replaces: str):
+        CudaKernel.every.append(self)
         self.name = name
         self.source = source
         self.symbol = symbol

@@ -8,7 +8,9 @@ idx[n] == r; lanes whose index lies outside [0, R) add nothing (their
 forward row is zero), and idx gets no gradient. On a CUDA tensor the
 backward launches `fermat_gather_rows_bwd` (csrc/gather.cu), on a CPU
 tensor it runs `_gather_bwd_plain`; a CUDA cotangent never takes the plain
-backward.
+backward. JAX's `one_hot_matmul_gather` (gather.py:19-33, the XLA one-hot
+matmul of small tables, ONE_HOT_MAX_ROWS) computes the same rows: its
+counterpart here is the plain version, `_gather_plain`.
 """
 from __future__ import annotations
 

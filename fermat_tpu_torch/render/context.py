@@ -305,6 +305,19 @@ class RenderingContext:
     def hdr_image(self) -> np.ndarray:
         return self.fb.composited.cpu().numpy()
 
+    def filtered_image(self, exposure: float = 1.0, gamma: float = 2.2,
+                       method: str = "eaw") -> np.ndarray:
+        """The denoised output, RGBA8 (context.py:457-473, the reference's
+        kFiltered path); method eaw or xbl (render/denoise.py)."""
+        from fermat_tpu_torch.render.denoise import denoise
+
+        if self.gbuffer is None:
+            raise ValueError("filtered_image needs a G-buffer: render at least one pass first")
+        out = denoise(self.fb, self.gbuffer["normal"], self.gbuffer["position"],
+                      self.gbuffer["miss"], self.view.camera, instance=self.instance - 1,
+                      method=method)
+        return to_rgba8(out, exposure, gamma).cpu().numpy()
+
     def rmse_vs(self, ref_hdr: np.ndarray) -> float:
         """RMSE of the accumulated image against a reference (context.py:475)."""
         ref = torch.as_tensor(np.asarray(ref_hdr, np.float32), device=self.device)

@@ -1,5 +1,5 @@
-"""Framebuffer: AOV channels, progressive blending, online variance, tonemap
-(fermat_tpu/render/framebuffer.py).
+"""Framebuffer: AOV channels, progressive blending, online variance, tonemap,
+and the first-hit G-buffer record (fermat_tpu/render/framebuffer.py).
 
 Progressive accumulation is fb' = fb * n/(n+1) + sample/(n+1), with the
 blend weights computed in float32 as the JAX version computes them.
@@ -12,6 +12,14 @@ import numpy as np
 import torch
 
 Tensor = torch.Tensor
+
+# channel ids (FBufferDesc, renderer_view.h:133-145; framebuffer.py:24-29)
+DIFFUSE_C = 0
+SPECULAR_C = 1
+DIRECT_C = 2
+COMPOSITED_C = 3
+DIFFUSE_A = 4
+SPECULAR_A = 5
 
 
 class Framebuffer(NamedTuple):
@@ -28,6 +36,10 @@ class Framebuffer(NamedTuple):
         z3 = torch.zeros((res_y, res_x, 3), dtype=torch.float32, device=device)
         z4 = torch.zeros((res_y, res_x, 4), dtype=torch.float32, device=device)
         return Framebuffer(z3, z3, z3, z3, z3, z3, z4)
+
+    @property
+    def res(self):
+        return self.composited.shape[0], self.composited.shape[1]
 
     def accumulate_pass(self, instance: int, diffuse: Tensor, specular: Tensor,
                         direct: Tensor, composited: Tensor, diffuse_albedo: Tensor,
@@ -73,3 +85,24 @@ def rmse(a: Tensor, b: Tensor) -> Tensor:
     """Image RMSE (main.cu:63-126 diff/ref compare)."""
     d = a.to(torch.float32) - b.to(torch.float32)
     return torch.sqrt(torch.mean(d * d))
+
+
+class GBuffer(NamedTuple):
+    """First-hit geometry buffer (framebuffer.py:116-135, GBufferView of
+    framebuffer.h:49-124). RenderingContext keeps these fields, with the
+    hit position and the miss mask, in its `gbuffer` dict."""
+
+    depth: Tensor  # (H, W)
+    tri: Tensor  # (H, W) int32, -1 = miss
+    normal: Tensor  # (H, W, 3) shading normal
+    uv: Tensor  # (H, W, 2)
+    material: Tensor  # (H, W) int32
+
+    @staticmethod
+    def create(res_y: int, res_x: int, device) -> "GBuffer":
+        f = lambda shape, v, dt: torch.full(shape, v, dtype=dt, device=device)
+        return GBuffer(depth=f((res_y, res_x), float("inf"), torch.float32),
+                       tri=f((res_y, res_x), -1, torch.int32),
+                       normal=f((res_y, res_x, 3), 0.0, torch.float32),
+                       uv=f((res_y, res_x, 2), 0.0, torch.float32),
+                       material=f((res_y, res_x), -1, torch.int32))

@@ -1,4 +1,5 @@
-"""Mesh-emitter sampling (fermat_tpu/scene/lights.py:31-149) and the
+"""Mesh-emitter sampling (fermat_tpu/scene/lights.py:31-149), the emitted
+radiance toward a direction (`emitter_radiance`, lights.py:161-181) and the
 directional lights (lights.py:184-207).
 
 The tables are built on the host in numpy float32 with a sequential
@@ -17,7 +18,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from fermat_tpu_torch.core.math import Vec3
+from fermat_tpu_torch.core.math import Vec3, dot
 from fermat_tpu_torch.core.sampling import square_to_uniform_triangle
 from fermat_tpu_torch.ops.cdf_gather import pick_index
 from fermat_tpu_torch.ops.gather import gather_rows
@@ -195,6 +196,20 @@ def row_uv(r: Tensor, b0: Tensor, b1: Tensor):
     (lights.py:128-130)."""
     return (r[:, 16] + r[:, 18] * b0 + r[:, 20] * b1, r[:, 17] + r[:, 19] * b0 + r[:, 21] * b1,
             r[:, 22].to(torch.int32))
+
+
+def emitter_radiance(mesh: MeshView, tri: Tensor, wo_world: Vec3, gn: Vec3 = None,
+                     mid: Tensor = None) -> Vec3:
+    """Le leaving a surface toward wo_world, front side only (lights.py:161-181,
+    edf.h Lambert). Pass (gn, mid) when the hit's row is already fetched."""
+    if gn is None or mid is None:
+        rows = gather_rows(mesh.packed_rows(), torch.clamp_min(tri, 0))
+        gn = Vec3(rows[:, 9], rows[:, 10], rows[:, 11]) if gn is None else gn
+        mid = torch.round(rows[:, 27]).to(torch.int32) if mid is None else mid
+    em = mesh.materials.emissive
+    le = gather_rows(torch.stack([em.x, em.y, em.z], dim=1), mid)
+    front = dot(gn, wo_world) > 0.0
+    return Vec3(*(torch.where(front, le[:, c], 0.0) for c in range(3)))
 
 
 @dataclass

@@ -11,8 +11,8 @@ extension. Directives:
   DirectionalLight direction x y z color r g b
 
 Each directive pre-multiplies the stack top, so a later directive is applied
-last to the vertices. glTF and COLLADA are not ported yet: `load_mesh_any`
-raises NotImplementedError for .gltf, .glb and .dae.
+last to the vertices. `load_mesh_any` also reads glTF (.gltf, .glb) and
+COLLADA (.dae) through loaders/gltf.py and dae.py (fa.py:86-93).
 """
 from __future__ import annotations
 
@@ -65,7 +65,8 @@ def _rot_z(a):
 
 
 def load_mesh_any(path: str) -> MeshStorage:
-    """The mesh of a scene file, by its extension: obj, ply, fa, stl, off."""
+    """The mesh of a scene file, by its extension: obj, ply, fa, stl, off,
+    gltf, glb, dae."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".obj":
         return load_obj(path)
@@ -79,12 +80,17 @@ def load_mesh_any(path: str) -> MeshStorage:
         from fermat_tpu_torch.scene.loaders.misc import load_off, load_stl
 
         return load_stl(path) if ext == ".stl" else load_off(path)
-    if ext in (".gltf", ".glb", ".dae"):
-        raise NotImplementedError(
-            f"{path}: the glTF and COLLADA loaders (scene/loaders/gltf.py, dae.py) are not "
-            "ported yet; they head the next slice of the port (ROADMAP Queue 1)")
+    if ext in (".gltf", ".glb"):
+        from fermat_tpu_torch.scene.loaders.gltf import load_gltf
+
+        return load_gltf(path)
+    if ext == ".dae":
+        from fermat_tpu_torch.scene.loaders.dae import load_dae
+
+        return load_dae(path)
     raise ValueError(
-        f"unsupported mesh format: {path} (supported: obj, ply, fa, pbrt, stl, off)")
+        f"unsupported mesh format: {path} (supported: obj, ply, fa, pbrt, stl, off, gltf, "
+        "glb, dae)")
 
 
 def load_fa(path: str, strict: bool = True) -> LoadedScene:

@@ -7,13 +7,16 @@ vt streams with independent v/vt/vn index triplets, 1-based and negative
 with their names, `mtllib` and `usemtl` materials in first-use order.
 `save_obj` writes a MeshStorage as an OBJ and its MTL, which load_obj reads
 back to the same arrays and materials (the scene files a test or a card
-run writes at run time).
+run writes at run time). Its corners take the standard forms v, v/vt,
+v//vn and v/vt/vn: the native parser misreads "v/vt/" (an empty normal
+index last), taking the next corner's vertex as its normal (ROADMAP
+Queue 3).
 
-JAX parses files of 1 MB or more with its native C++ runtime (obj.py:77,
-:90-121); the port parses every file in Python until the native host
-runtime is bound (ROADMAP Queue 1), so a large OBJ loads slower here. The
-result is the same mesh: JAX's native path differs only in giving the file
-one group, "default".
+Files of 1 MB or more (`_NATIVE_MIN_BYTES`) parse their geometry through
+the native C++ runtime (utils/native.py), the MTL still here, as JAX routes
+them (obj.py:77-121): the file is then one group, "default", and its
+materials are the usemtl names in first-use order. A failed native build or
+parse raises; nothing falls back to the Python parser.
 """
 from __future__ import annotations
 
@@ -75,8 +78,45 @@ def _resolve(idx: int, count: int) -> int:
     return idx - 1 if idx > 0 else count + idx
 
 
+_NATIVE_MIN_BYTES = 1 << 20  # the C++ parser takes files of 1 MB and more
+
+
 def load_obj(path: str) -> MeshStorage:
-    """An OBJ file and the MTL files it names, as a MeshStorage."""
+    """An OBJ file and the MTL files it names, as a MeshStorage; large files
+    parse their geometry natively."""
+    if os.path.getsize(path) >= _NATIVE_MIN_BYTES:
+        return _load_obj_native(path)
+    return _load_obj_python(path)
+
+
+def _load_obj_native(path: str) -> MeshStorage:
+    """The native parse with the MTL read here (obj.py:90-121)."""
+    from fermat_tpu_torch.utils.native import load_obj_geometry
+
+    geo = load_obj_geometry(path)
+    base = os.path.dirname(path)
+    mtl_mats: Dict[str, HostMaterial] = {}
+    with open(path, "r", errors="replace") as f:
+        for line in f:
+            if line.startswith("mtllib"):
+                mtl_path = os.path.join(base, line.split(None, 1)[1].strip())
+                if os.path.exists(mtl_path):
+                    for m in load_mtl(mtl_path):
+                        mtl_mats[m.name] = m
+    materials = [mtl_mats.get(n, HostMaterial(n)) for n in geo["material_names"]
+                 ] or [HostMaterial("default")]
+    ntri = geo["tri_v"].shape[0]
+    return MeshStorage(
+        vertices=geo["vertices"], triangles=geo["tri_v"],
+        normals=geo["normals"], normal_indices=geo["tri_n"],
+        uvs=geo["uvs"], uv_indices=geo["tri_uv"],
+        material_ids=geo["tri_mat"], materials=materials,
+        group_names=["default"], group_offsets=np.asarray([0, ntri], np.int32),
+    )
+
+
+def _load_obj_python(path: str) -> MeshStorage:
+    """The Python parse of an OBJ file and the MTL files it names."""
     verts: List[List[float]] = []
     norms: List[List[float]] = []
     uvs: List[List[float]] = []
@@ -189,8 +229,8 @@ def save_obj(storage: MeshStorage, path: str) -> None:
     starts = {int(o): k for k, o in enumerate(storage.group_offsets[:-1])}
     with open(path, "w") as f:
         f.write(f"mtllib {mtl}\n")
-        for rows, key in ((storage.vertices, "v"), (storage.normals, "vn"),
-                          (storage.uvs, "vt")):
+        for rows, key in ((storage.vertices, "v"), (storage._resolved_normals(), "vn"),
+                          (storage._resolved_uvs(), "vt")):
             for r in rows:
                 f.write(key + " " + " ".join(_num(c) for c in r) + "\n")
         cur = None
@@ -202,8 +242,9 @@ def save_obj(storage: MeshStorage, path: str) -> None:
                 f.write(f"usemtl {storage.materials[m].name}\n")
                 cur = m
             corners = []
-            for c in range(3):
+            for c in range(3):  # v, v/vt, v//vn or v/vt/vn
                 vt = str(ui[t, c] + 1) if has(ui) and ui[t, c] >= 0 else ""
                 vn = str(ni[t, c] + 1) if has(ni) and ni[t, c] >= 0 else ""
-                corners.append(f"{tri[t, c] + 1}/{vt}/{vn}")
+                corners.append(f"{tri[t, c] + 1}" + (f"/{vt}" if vt or vn else "")
+                               + (f"/{vn}" if vn else ""))
             f.write("f " + " ".join(corners) + "\n")

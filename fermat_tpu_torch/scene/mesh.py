@@ -2,19 +2,27 @@
 (fermat_tpu/scene/mesh.py:31-370).
 
 `MeshStorage` is the port's own copy of the host-side triangle mesh (the JAX
-package's lives in a module that imports JAX). `MeshView` is the device-side
-triangle soup, pre-gathered per corner.
+package's lives in a module that imports JAX), with the packed attribute
+storage of mesh.py:45-86: `compress_normals()` / `compress_tex()` swap the
+float normals / uvs for scene/compression.py's words, and every consumer
+(the view build, `transform`, `merge`, `filtered`, the uv BVH, save_obj)
+reads them through `_resolved_normals()` / `_resolved_uvs()`. JAX's
+`transform`, `merge` and `filtered` read the float arrays alone, which are
+empty on a compressed mesh; the port's keep its attributes (ROADMAP Queue 3).
+`MeshView` is the device-side triangle soup, pre-gathered per corner.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fermat_tpu_torch.core.math import Vec3, cross, normalize, ray_barycentrics
 from fermat_tpu_torch.ops.gather import gather_rows
+from fermat_tpu_torch.scene import compression
 from fermat_tpu_torch.scene.materials import HostMaterial, MaterialTable
 
 Tensor = torch.Tensor
@@ -36,6 +44,43 @@ class MeshStorage:
     # metadata the device view does not read
     group_names: List[str] = field(default_factory=list)
     group_offsets: np.ndarray = field(default_factory=lambda: np.zeros((1,), np.int32))
+    # compressed attributes (MeshStorage.h:146-147): when set, the float
+    # arrays above are empty and the resolvers decode these
+    normals_packed: Optional[np.ndarray] = None  # (N,) uint32 octahedral 16+16
+    uvs_packed: Optional[np.ndarray] = None  # (N,) uint32 fixed 15-bit pair
+    uv_bias: Optional[np.ndarray] = None  # (2,) float32
+    uv_scale: Optional[np.ndarray] = None  # (2,) float32
+
+    def compress_normals(self) -> "MeshStorage":
+        """Swap float normals for the packed octahedral codec (mesh.py:51-59)."""
+        if self.normals.shape[0] and self.normals_packed is None:
+            self.normals_packed = compression.compress_normals(self.normals)
+            self.normals = np.zeros((0, 3), np.float32)
+        return self
+
+    def compress_tex(self) -> "MeshStorage":
+        """Swap float uvs for the fixed-point codec (mesh.py:61-70)."""
+        if self.uvs.shape[0] and self.uvs_packed is None:
+            self.uv_bias, self.uv_scale = compression.uv_bias_scale(self.uvs)
+            self.uvs_packed = compression.compress_uv(self.uvs, self.uv_bias, self.uv_scale)
+            self.uvs = np.zeros((0, 2), np.float32)
+        return self
+
+    def _resolved_normals(self) -> np.ndarray:
+        if self.normals_packed is not None and self.normals.shape[0] == 0:
+            return compression.decompress_normals(self.normals_packed)
+        return self.normals
+
+    def _resolved_uvs(self) -> np.ndarray:
+        if self.uvs_packed is not None and self.uvs.shape[0] == 0:
+            return compression.decompress_uv(self.uvs_packed, self.uv_bias, self.uv_scale)
+        return self.uvs
+
+    def _expand(self) -> "MeshStorage":
+        """Decode packed attributes into the float arrays in place."""
+        self.normals, self.uvs = self._resolved_normals(), self._resolved_uvs()
+        self.normals_packed = self.uvs_packed = self.uv_bias = self.uv_scale = None
+        return self
 
     @property
     def n_triangles(self) -> int:
@@ -49,11 +94,15 @@ class MeshStorage:
         """Apply a 4x4 affine transform in place (mesh.py:96-105)."""
         v = self.vertices @ m[:3, :3].T + m[:3, 3]
         self.vertices = v.astype(np.float32)
-        if self.normals.shape[0]:
+        packed = self.normals_packed is not None
+        normals = self._resolved_normals()
+        if normals.shape[0]:
             ninv = np.linalg.inv(m[:3, :3]).T
-            n = self.normals @ ninv.T
+            n = normals @ ninv.T
             n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-20)
-            self.normals = n.astype(np.float32)
+            self.normals, self.normals_packed = n.astype(np.float32), None
+            if packed:
+                self.compress_normals()
         return self
 
     def merge(self, other: "MeshStorage") -> "MeshStorage":
@@ -61,6 +110,8 @@ class MeshStorage:
         An empty per-corner index array means "no attribute"; once meshes
         are merged it becomes explicit -1 rows so the row count stays
         n_triangles."""
+        self._expand()
+        other = copy.copy(other)._expand()
         mat_off = len(self.materials)
         vtx_off = self.n_vertices
         nrm_off = self.normals.shape[0]
@@ -115,6 +166,8 @@ class MeshStorage:
             materials=self.materials,
             group_names=["shadow"],
             group_offsets=np.asarray([0, t.shape[0]], np.int32),
+            normals_packed=self.normals_packed, uvs_packed=self.uvs_packed,
+            uv_bias=self.uv_bias, uv_scale=self.uv_scale,
         )
 
     def device_view(self, device) -> "MeshView":
@@ -128,15 +181,17 @@ class MeshStorage:
         gn = np.cross(p1 - p0, p2 - p0)
         gn /= np.maximum(np.linalg.norm(gn, axis=1, keepdims=True), 1e-20)
         corner_n = np.repeat(gn[:, None, :], 3, axis=1)  # (T, 3 corners, 3)
-        if self.normals.shape[0]:
+        normals = self._resolved_normals()
+        if normals.shape[0]:
             ni = self.normal_indices
             ok = ni >= 0
-            corner_n[ok] = self.normals[np.where(ok, ni, 0)][ok]
+            corner_n[ok] = normals[np.where(ok, ni, 0)][ok]
         corner_uv = np.zeros((self.n_triangles, 3, 2), np.float32)
-        if self.uvs.shape[0]:
+        uvs = self._resolved_uvs()
+        if uvs.shape[0]:
             ui = self.uv_indices
             ok = ui >= 0
-            corner_uv[ok] = self.uvs[np.where(ok, ui, 0)][ok]
+            corner_uv[ok] = uvs[np.where(ok, ui, 0)][ok]
 
         mat = [m.finalize_flags() for m in self.materials] or [HostMaterial("default")]
         # texture-LOD base: uv-space area vs world-space area per triangle

@@ -1,6 +1,7 @@
 """Procedural scenes (fermat_tpu/scene/procedural.py): the Cornell box built in
-code, random triangle soups for tracer tests, the large "big room" scene and
-the textured bathroom-class stand-in. Host data only (numpy).
+code, random triangle soups for tracer tests, the large "big room" scene,
+the textured bathroom-class stand-in and the water-caustic stand-in. Host
+data only (numpy).
 
 The stand-in reads a material set from disk (bathroom.mtl and its textures),
 as JAX's does; `write_standin_assets` writes a seeded one, and
@@ -339,3 +340,43 @@ def set_texture_names(storage, names: Dict[str, dict]):
         for attr, value in names.get(m.name, {}).items():
             setattr(m, attr, value)
     return storage
+
+
+def caustic_standin():
+    """The water_caustic stand-in (procedural.py:291-337): a refractive slab
+    over a diffuse floor under a small area light, the SDS transport BPT is
+    for; (MeshStorage, Camera). `fov=45.0` is passed in radians, as JAX
+    passes it (the fault JAX's bathroom_standin shares, ROADMAP Queue 3)."""
+    vs: List = []
+    tris: List = []
+    midx: List[int] = []
+
+    floor = HostMaterial("floor")
+    floor.diffuse = (0.75, 0.72, 0.65)
+    glass = HostMaterial("glass")
+    glass.diffuse = (0.0, 0.0, 0.0)
+    glass.specular = (0.9, 0.9, 0.9)
+    glass.ior = 1.33
+    glass.opacity = 0.0  # pure refractor (glossy-trans lobe)
+    glass.phong_exponent = 3000.0  # near-smooth water surface
+    light = HostMaterial("light")
+    light.emissive = (60.0, 58.0, 52.0)
+
+    _quad(vs, tris, midx, [-3, 0, 3], [3, 0, 3], [3, 0, -3], [-3, 0, -3], 0)
+    _box(vs, tris, midx, [-2.2, 0.8, -2.2], [2.2, 1.1, 2.2], 1)
+    # the light faces down
+    _quad(vs, tris, midx, [-0.5, 3.2, 0.5], [-0.5, 3.2, -0.5],
+          [0.5, 3.2, -0.5], [0.5, 3.2, 0.5], 2)
+
+    t = np.asarray(tris, np.int32)
+    mesh = MeshStorage(
+        vertices=np.asarray(vs, np.float32),
+        triangles=t,
+        normal_indices=np.full_like(t, -1),
+        uv_indices=np.full_like(t, -1),
+        material_ids=np.asarray(midx, np.int32),
+        materials=[floor, glass, light],
+        group_names=["caustic_standin"],
+        group_offsets=np.asarray([0, t.shape[0]], np.int32),
+    )
+    return mesh, Camera.create(eye=(0.0, 2.6, 5.4), aim=(0.0, 0.6, 0.0), fov=45.0)

@@ -7,8 +7,8 @@ Usage:
   python -m fermat_tpu_torch -pt -i scene.obj -c camera.txt -r 512 512 \\
       -passes 16 -o out.tga [-benchmark stats.json] [-cpu]
 
-  -i FILE          the scene: .obj (with its .mtl), .ply, .stl, .off, .fa
-                   or .pbrt
+  -i FILE          the scene: .obj (with its .mtl), .ply, .stl, .off, .fa,
+                   .pbrt, .gltf, .glb or .dae
   -c FILE          a camera file (eye, aim, up, fov); else the scene's own
                    camera, else one framing the mesh's bounding box
   -r W H           the resolution (a .pbrt scene's Film sets it when -r is
@@ -18,7 +18,8 @@ Usage:
   -ref FILE        print the RMSE against this image after each batch
   -diff A B        only compare two images: print their RMSE and write
                    <-o's base>_diff.tga
-  -benchmark FILE  write dump_speed_stats() as JSON
+  -benchmark FILE  write dump_speed_stats() as JSON, with the run's kernel
+                   launches (every wrapper's count, none on the CPU)
   -save-intermediate   write <-o's base>_<passes>.tga at each power of two
   -seed N          the sampler's seed (0)
   -plugin MOD      import MOD and call MOD.register_plugin(), which
@@ -30,8 +31,10 @@ Usage:
   -cpu             render on the CPU with the plain PyTorch versions; the
                    default is the CUDA card, and without one the context
                    raises (the renderer never falls back to the CPU)
-  -view            the interactive viewer: not ported, raises
-                   NotImplementedError
+  -view            the progressive terminal viewer (render/viewer.py): one
+                   pass a frame, keys from stdin (a pipe of scripted
+                   bytes works; then -passes bounds the frames), then the
+                   TGA of the last image
 
 An unknown argument or a missing -i exits with code 2.
 """
@@ -109,6 +112,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     passes = 1
     out_path = "output.tga"
     save_intermediate = False
+    view_mode = False
     device = "cuda"
     seed = 0
     opts = {}
@@ -151,9 +155,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         elif a == "-save-intermediate":
             save_intermediate = True
         elif a == "-view":
-            raise NotImplementedError(
-                "-view: the interactive viewer (render/viewer.py) is not ported yet "
-                "(ROADMAP Queue 1 item 6)")
+            view_mode = True
         elif a == "-seed":
             i += 1
             seed = int(argv[i])
@@ -200,6 +202,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         **light, **opts)
 
     ref_img = read_image(ref_path) if ref_path else None
+    if view_mode:  # cli.py:196-207; `passes` bounds a session whose stdin is no terminal
+        from fermat_tpu_torch.render.viewer import Viewer
+
+        frames = Viewer(ctx).run(passes_per_frame=1,
+                                 max_frames=None if sys.stdin.isatty() else max(passes, 1))
+        write_tga(out_path, ctx.image(exposure, gamma))
+        print(f"viewer: {frames} frames, wrote {out_path}", file=sys.stderr)
+        return 0
     t0 = time.time()
     next_dump = 1
     done = 0
@@ -221,7 +231,10 @@ def main(argv: Optional[List[str]] = None) -> int:
           file=sys.stderr)
 
     if bench_path:
+        from fermat_tpu_torch.ops._cuda import CudaKernel
+
         stats = ctx.dump_speed_stats()
+        stats["launches"] = {k.name: k.launches for k in CudaKernel.every if k.launches}
         stats["elapsed_s"] = elapsed
         stats["resolution"] = list(res)
         stats["renderer"] = renderer

@@ -3,7 +3,8 @@
   * `capture_trace`: a callable run under torch.profiler after one warm-up
     call, its Chrome trace written to a directory;
   * `op_breakdown`: (op name, total ms, count) from the Chrome traces under
-    a directory (the reference's print_timer_stats);
+    a directory, and `print_op_breakdown`, which prints them (the
+    reference's print_timer_stats);
   * `stage_split`: one call's time split into the three stage families of
     the reference's dump_speed_stats: rt_ms (closest tracers), shadow_rt_ms
     (any-hit tracers) and shade_ms (the rest), what
@@ -78,6 +79,12 @@ def op_breakdown(trace_dir: str, top: int = 30) -> List[Tuple[str, float, int]]:
     out = [(name, ms, cnt[name]) for name, ms in agg.items()]
     out.sort(key=lambda x: -x[1])
     return out[:top]
+
+
+def print_op_breakdown(trace_dir: str, top: int = 30) -> None:
+    """print_timer_stats analog (profiling.py:54-57)."""
+    for name, ms, n in op_breakdown(trace_dir, top):
+        print(f"{ms:10.3f} ms  x{n:6d}  {name[:100]}")
 
 
 def _sync() -> None:

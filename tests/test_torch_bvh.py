@@ -5,8 +5,9 @@ pass routed through it (tracer="bvh").
 The walk's plain lockstep version serves the CPU and is the kernel's plain
 twin on the card (tests/test_torch_cuda.py holds csrc/bvh.cu to it there).
 Here it is held to JAX's walk over the same trees, JAX's own (from_numpy of
-its leaves; JAX builds random_soup(5000) with its native builder) and the
-port's (the Python builder, which JAX also runs below 4096 triangles), on
+its leaves) and the port's, which is JAX's array for array: the Python
+builder below 4096 triangles and the native builder of native/ above
+(random_soup(5000)), as JAX routes them, on
 512 rays a scene with a quarter of the lanes inactive: the first-hit
 triangle and the occlusion flag equal, t, u, v within 1e-5 (XLA:CPU
 contracts a*b+c into FMAs). Only tie-free rays are compared: rays whose
@@ -187,6 +188,24 @@ def test_wrappers_run_the_plain_walk_on_the_cpu():
     assert (visits[~act] == 0).all() and (visits[act] >= 1).all()
     assert (tests <= visits * bvh.leaf_size).all() and int(tests.sum()) > 0
     assert int(v_any.sum()) > 0
+
+
+def test_port_tree_equals_jax_native_build():
+    """From 4096 triangles both packages build with the native C++ builder of
+    native/fermat_native.cpp (the port from its own build of the source): the
+    trees are equal, array for array; use_native=False keeps the Python
+    builder, whose tree differs."""
+    jb = jbuild(jproc.random_soup(5000, seed=1).device_view())
+    mesh = tproc.random_soup(5000, seed=1).device_view(torch.device("cpu"))
+    tb = build_bvh_for_mesh(mesh)
+    want = _jax_bvh_view(jb)
+    for f in BvhView._fields:
+        a, b = getattr(tb, f), getattr(want, f)
+        if f == "nodes":
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert (a == b) if f == "leaf_size" else torch.equal(a, b), f
+    py = build_bvh_for_mesh(mesh, use_native=False)
+    assert py.n_nodes != tb.n_nodes or not torch.equal(py.prims, tb.prims)
 
 
 def test_from_numpy_takes_the_jax_bvh_leaves():

@@ -337,15 +337,45 @@ def test_camera_file_and_write_hdr_match_jax(tmp_path):
     assert (np.abs(got - img) <= img.max(-1, keepdims=True) / 128 + 1e-32).all()
 
 
-def test_gltf_dae_and_view_raise_not_implemented(tmp_path):
-    for ext in (".gltf", ".glb", ".dae"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            tfa.load_mesh_any(str(tmp_path / f"scene{ext}"))
+@pytest.mark.parametrize("ext", [".gltf", ".glb", ".dae"])
+def test_cli_renders_gltf_glb_and_dae(tmp_path, ext):
+    """The CornellBox written as glTF (JSON with a data URI, or binary) and as
+    COLLADA renders through -i at 16x16 on the CPU: the TGA's bytes equal a
+    RenderingContext's on the mesh load_mesh_any reads (which is JAX's mesh,
+    tests/test_torch_loaders_ext.py)."""
+    from fermat_tpu_torch.scene.loaders.dae import save_dae
+    from fermat_tpu_torch.scene.loaders.gltf import save_gltf
+    from fermat_tpu_torch.utils.image import write_tga
+
+    path = str(tmp_path / f"cornell{ext}")
+    (save_dae if ext == ".dae" else save_gltf)(tproc.cornell_box(), path)
+    cam, out = _camera(tmp_path), tmp_path / "out.tga"
+    assert cli.main(["-i", path, "-c", cam, "-r", "16", "16", "-passes", "2", "-o", str(out),
+                     "-cpu"]) == 0
+    ctx = RenderingContext.create(tfa.load_mesh_any(path), load_camera_file(cam), 16, 16,
+                                  device="cpu")
+    ctx.render(2)
+    write_tga(str(tmp_path / "want.tga"), ctx.image())
+    assert out.read_bytes() == (tmp_path / "want.tga").read_bytes()
+
+
+def test_cli_view_runs_from_a_scripted_stream(tmp_path):
+    """-view as a process whose stdin is a pipe of scripted keys (one 64-byte
+    read a frame): TAB to the uv mode, a step forward (the camera moves and
+    the accumulation restarts), q. Its frames on stdout, its TGA the last
+    image."""
     path = write_cornell(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cli.main(["-i", path, "-cpu", "-view"])
-    with pytest.raises(ValueError, match="unsupported"):
-        tfa.load_mesh_any("model.fbx")
+    out = tmp_path / "view.tga"
+    keys = b"".join(k.ljust(64) for k in (b"\t", b"w", b"q"))
+    p = subprocess.run([sys.executable, "-m", "fermat_tpu_torch", "-i", path, "-c",
+                        _camera(tmp_path), "-r", "8", "8", "-passes", "9", "-o", str(out),
+                        "-cpu", "-view"], input=keys, capture_output=True, cwd=ROOT, timeout=300)
+    assert p.returncode == 0, p.stderr.decode()
+    frames = p.stdout.decode()
+    assert "pass 1 mode=shaded" in frames and "pass 2 mode=uv" in frames
+    assert "pass 1 mode=uv" in frames.split("pass 2 mode=uv")[1]  # restarted by "w"
+    assert "viewer: 3 frames" in p.stderr.decode()
+    assert out.stat().st_size == 18 + 8 * 8 * 3  # an 8x8 RGB TGA
 
 
 # ---- the command line ----
@@ -381,6 +411,7 @@ def test_cli_image_equals_the_context_image(tmp_path, renderer, opts):
     stats = json.loads(bench.read_text())
     assert stats["device"] == "cpu" and stats["renderer"] == renderer
     assert stats["passes"] == 2 and stats["rays_per_s"] > 0 and stats["resolution"] == [16, 16]
+    assert stats["launches"] == {}  # the CPU runs the plain versions
 
 
 def test_cli_save_intermediate_and_ref(tmp_path, capsys):

@@ -1879,3 +1879,106 @@ def test_dump_speed_stats_detailed_on_card(dev):
     stats = ctx.dump_speed_stats(detailed=True)
     assert stats["rt_ms"] + stats["shadow_rt_ms"] + stats["shade_ms"] > 0.0
     assert stats["device"].startswith("cuda")
+
+
+# ---- the last slice: denoisers, checkpoints, LBVH, kNN, uv BVH, multi-device ----
+
+def _slice_ctx(dev, renderer="pt", res=64):
+    from fermat_tpu_torch.render.context import RenderingContext
+
+    return RenderingContext.create(cornell_box(glossy_boxes=True), cornell_camera(), res, res,
+                                   renderer=renderer, device=dev, max_path_length=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["eaw", "xbl"])
+def test_denoise_on_card_matches_cpu(dev, method):
+    """The card's denoisers against the same call on the CPU, at the CPU
+    test's tolerance (tests/test_torch_denoise.py: rtol 2e-5, atol 1e-6)."""
+    from fermat_tpu_torch.render.denoise import denoise
+    from fermat_tpu_torch.render.framebuffer import Framebuffer
+
+    ctx = _slice_ctx(dev)
+    ctx.render(2)
+    gb = ctx.gbuffer
+    got = denoise(ctx.fb, gb["normal"], gb["position"], gb["miss"], ctx.view.camera, 1,
+                  method=method).cpu()
+    want = denoise(Framebuffer(*(t.cpu() for t in ctx.fb)),
+                   *(gb[k].cpu() for k in ("normal", "position", "miss")),
+                   ctx.view.camera.to("cpu"), 1, method=method)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+    assert ctx.filtered_image(method=method).shape == (64, 64, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renderer", ["pt", "pssmlt", "psfpt"])
+def test_checkpoint_round_trip_on_card(dev, renderer, tmp_path):
+    from fermat_tpu_torch.render.checkpoint import load_checkpoint, save_checkpoint
+
+    full = _slice_ctx(dev, renderer)
+    full.render(2)
+    save_checkpoint(str(tmp_path / "c.npz"), full)
+    full.render(1)
+    resumed = _slice_ctx(dev, renderer)
+    load_checkpoint(str(tmp_path / "c.npz"), resumed)
+    resumed.render(1)
+    if renderer == "pt":
+        assert all(torch.equal(a, b) for a, b in zip(resumed.fb, full.fb))
+    else:  # their splats and cell sums are index_add_s, in no fixed order on the card
+        for a, b in zip(resumed.fb, full.fb):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_lbvh_knn_and_locate_on_card_match_cpu(dev):
+    from fermat_tpu_torch.accel.kdtree import build_kdtree, knn
+    from fermat_tpu_torch.accel.lbvh import build_lbvh_for_mesh
+    from fermat_tpu_torch.scene.uv_bvh import build_uv_bvh, locate
+
+    storage = random_soup(3000, seed=5)
+    a, b = build_lbvh_for_mesh(storage.device_view(dev)), build_lbvh_for_mesh(
+        storage.device_view("cpu"))
+    for f in ("lo_x", "hi_z", "skip", "prim_start", "is_leaf", "prims", "child"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    assert torch.equal(a.nodes.cpu().view(torch.int32), b.nodes.view(torch.int32))
+    r = np.random.default_rng(2)
+    pts, q = r.random((5000, 3), dtype=np.float32), torch.from_numpy(r.random((4096, 3),
+                                                                               dtype=np.float32))
+    qd = q.to(dev)
+    d2, ids = knn(build_kdtree(pts, device=dev), qd[:, 0], qd[:, 1], qd[:, 2], k=4)
+    d2c, idc = knn(build_kdtree(pts, device="cpu"), q[:, 0], q[:, 1], q[:, 2], k=4)
+    assert torch.equal(ids.cpu(), idc)
+    torch.testing.assert_close(d2.cpu(), d2c, rtol=1e-6, atol=0)
+    box = cornell_box()
+    su, sv = torch.rand(2, 2048, generator=torch.Generator().manual_seed(1))
+    t_d = locate(build_uv_bvh(box, device=dev), 0, su.to(dev), sv.to(dev))
+    t_c = locate(build_uv_bvh(box, device="cpu"), 0, su, sv)
+    assert torch.equal(t_d[0].cpu(), t_c[0])
+    torch.testing.assert_close(t_d[1].cpu(), t_c[1], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_sharded_pass_and_step_on_nccl_at_world_size_one(dev, tmp_path):
+    import torch.distributed as dist
+
+    from fermat_tpu_torch.parallel import mesh as pmesh
+
+    ctx = _slice_ctx(dev)
+    view, opts = ctx.view, tpt.PTOptions(**ctx.renderer_options)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rdv'}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    try:
+        mesh = pmesh.make_mesh(torch.device("cuda", 0))
+        with pytest.raises(ValueError):
+            pmesh.make_mesh("cpu")
+        out = pmesh.render_pass_sharded(view, opts, 64, 64, 3, mesh)
+        want = tpt.render_pass(view, opts, 64, 64, 3)
+        assert torch.equal(out.composited.stack(), want.composited.stack())
+        assert torch.equal(out.rays, want.rays)
+        target = torch.zeros((64 * 64, 3), device=dev)
+        new_view, loss = pmesh.train_step_sharded(view, target, opts, 64, 64, 3, mesh)
+        assert float(loss) > 0
+        assert not torch.equal(new_view.mesh.materials.diffuse.stack(),
+                               view.mesh.materials.diffuse.stack())
+    finally:
+        dist.destroy_process_group()
