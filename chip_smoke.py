@@ -38,8 +38,9 @@ result is printed then):
                 plain version; cdf_pick_rows (K4) on big_room's emissive subset and on a
                 544-row table, NaN and out-of-range u included; all
                 bit-equal; on the same rays the cluster tracer (K6a/K6b)
-                and the binned tracer (K7a/K7b, also at u_steps=1,
-                block=64) bit-equal to the shared plain versions (t, tri,
+                and the binned tracer (K7a/K7b, also with a queue of one
+                key and work items of 32 rays) bit-equal to the shared
+                plain versions (t, tri,
                 u, v; occlusion) and to K5's (t, tri) and occlusion; and
                 the subcluster tracer (K8a/K8b) over the 32-triangle
                 subcluster table of each scene bit-equal to its plain
@@ -66,8 +67,9 @@ result is printed then):
   4e. tracers — the same big_room pass through RenderingContext with
                 tracer="cluster" and tracer="binned" (render_batch): ms/pass,
                 Mrays/s, launches (6 K6a + 6 K6b a pass, or 6 K7a and 6 K7b
-                launch groups with their rounds; no K5), one profiled pass
-                each; then one 400x224 pass with each tracer and one with
+                launch groups with their rounds, host readbacks and scans;
+                no K5), one profiled pass each (K7's in-pass time by
+                kernel); then one 400x224 pass with each tracer and one with
                 the plain versions forced in their place, all three
                 bit-equal (every channel, first hits, rays), and the
                 frontier pass beside them within the golden tolerances;
@@ -442,8 +444,8 @@ PEAKS = {"SXM": (3.35e12, 67e12), "PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12
 # phase 6: replays a kernel is timed over, and the bytes written between
 # replays for its cold-L2 figure (the H100's L2 is 50 MB)
 REPLAYS = 20
-# K7's launch groups (50-90 ms each, their rounds read back to the host) are
-# timed over fewer replays
+# K7's launch groups (a trace each, its batches of rounds read back to the
+# host) are timed over fewer replays
 BINNED_REPLAYS = 5
 FLUSH_BYTES = 128 * 2 ** 20
 SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's 1.98 GHz boost clock
@@ -537,6 +539,8 @@ SHARD_ROUNDS = 5
 # accel/traverse.py _slab_test, ops/csrc/bvh.cu box_hit (6 subtractions, 6
 # multiplications, 12 min/max; the compare not counted)
 FLOPS_PER_VISIT = 24
+STEP_ROUNDS = 2  # rounds of the binned loop held step by step to the plain steps (phase 6)
+STEP_REPS = 5  # timed runs of each first-round step
 
 
 class SmokeFailure(AssertionError):
@@ -678,26 +682,40 @@ def profiled(fn):
     return out, start.elapsed_time(end)
 
 
-def device_split(fn, reps: int = 3) -> dict:
-    """Device time per call of the binned tracer by kernel family, from
-    torch.profiler: its scan and test kernels, the sort (cub radix or
-    bitonic kernels), and the rest (gathers, nonzero, the state's setup)."""
+def device_split(fn, kernels: int, reps: int = 3) -> dict:
+    """Device time of one call of the binned tracer by kernel family, from
+    torch.profiler: its scan, counting-sort and test kernels, and the rest
+    (the box table's concatenation, the counts' readbacks). `kernels` is the
+    number of the tracer's kernels one call launches (its launch counters):
+    a capture that records fewer lost records (CUPTI) and is taken again,
+    up to PROFILE_TRIES times, the fullest kept (the log says when none was
+    whole). Of `reps` captures, the one with the median total is kept."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from fermat_tpu_torch.ops import binned_trace as bt
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    split = {"scan": 0.0, "sort": 0.0, "test": 0.0, "other": 0.0}
-    for name, ms in device_records(prof):
-        n = name.lower()
-        k = ("scan" if "scan_kernel" in n else "test" if "test_kernel" in n
-             else "sort" if "sort" in n else "other")
-        split[k] += ms
-    return {k: v / reps for k, v in split.items()}
+    splits = []
+    for _ in range(reps):
+        best = (-1, None)
+        for attempt in range(1, PROFILE_TRIES + 1):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            split = {"scan": 0.0, "bin": 0.0, "test": 0.0, "other": 0.0}
+            got = 0
+            for name, ms in device_records(prof):
+                split[bt.kernel_family(name)] += ms
+                got += bt.kernel_family(name) != "other"
+            best = max(best, (got, split), key=lambda b: b[0])
+            if got >= kernels:
+                break
+            log(f"[profile] capture {attempt} of {PROFILE_TRIES} holds {got} of the binned "
+                f"tracer's {kernels} kernels")
+        splits.append(best[1])
+    return sorted(splits, key=lambda sp: sum(sp.values()))[len(splits) // 2]
 
 
 def profile_one_pass(ctx, narrow: bool = False, expect: tuple = ()):
@@ -2871,6 +2889,179 @@ def slice_phase(dev, smi: str, reset_counts, counts, bview, room_options: dict) 
     return out
 
 
+def scan_box_tests(cl, o, d, t0, t1, active, closest: bool) -> tuple:
+    """(box tests the answer needs, box tests the kernel makes) of the binned
+    tracer's first scan over the active rays: the scan tests the union box
+    of each bt.SCAN_GROUP boxes and the boxes of a group only when the ray
+    enters its union (for the closest hit with E' <= its best t, tmax at the
+    first scan; for occlusion up to its (QUEUE + 1)-th entered box, the
+    scan's stop). Needed, for the closest hit: the union tests and the
+    boxes of the groups entered with E' <= the ray's final t (the answer's
+    t, from a binned trace of the same rays); for occlusion: what the scan
+    makes."""
+    import torch
+
+    from fermat_tpu_torch.core.math import Vec3
+    from fermat_tpu_torch.ops import binned_trace as bt
+    from fermat_tpu_torch.ops import frontier_trace as ft
+
+    c_pad, w, inf = cl.rows.shape[0], bt.SCAN_GROUP, float("inf")
+    groups = -(-c_pad // w)
+    box = [getattr(cl, f)[0, :c_pad] for f in ("lo_x", "lo_y", "lo_z", "hi_x", "hi_y", "hi_z")]
+    real = box[0] <= box[3]
+    union = {}
+    for f, b, far in zip(("lo_x", "lo_y", "lo_z", "hi_x", "hi_y", "hi_z"), box,
+                         (inf, inf, inf, -inf, -inf, -inf)):
+        col = torch.full((groups * w,), far, device=b.device)
+        col[:c_pad] = torch.where(real, b, far)
+        col = col.view(groups, w)
+        union[f] = (col.min(dim=1).values if far > 0 else col.max(dim=1).values)[None]
+    ucl = cl._replace(**union)
+    size = torch.clamp(c_pad - w * torch.arange(groups, device=real.device), max=w).double()
+    t_end = bt.trace_closest_binned(cl, o, d, t0, t1, active).t if closest else None
+    lanes = torch.nonzero(active)[:, 0]
+    need = made = 0.0
+    for sl in ft._chunks(lanes.shape[0], c_pad):
+        g = lanes[sl]
+        pick = lambda a: a[g]
+        ray = (Vec3(*map(pick, o)), Vec3(*map(pick, d)), pick(t0), pick(t1))
+        eu = ft._slack(ft.cluster_entries(ucl, *ray))
+        hit_u = eu < inf
+        if closest:
+            made += groups * g.shape[0] + float(((hit_u & (eu <= t1[g][:, None])) * size).sum())
+            need += groups * g.shape[0] + float(((hit_u & (eu <= t_end[g][:, None]))
+                                                 * size).sum())
+            continue
+        e = ft._slack(ft.cluster_entries(cl, *ray)[:, :c_pad]) < inf
+        reach = torch.cumsum(e.to(torch.int32), dim=1) == bt.QUEUE + 1
+        stop = torch.where(reach.any(dim=1), reach.int().argmax(dim=1), c_pad - 1)
+        col = torch.arange(c_pad, device=e.device)
+        tested = hit_u[:, col // w] & (col[None, :] <= stop[:, None])
+        made += float(tested.sum()) + float((stop // w + 1).sum())
+        need = made
+    return need, made
+
+
+def binned_step_rows(dev, bw: float, fp32: float, tcalls: dict, launches: dict,
+                     max_err: dict) -> tuple:
+    """The binned tracer's round loop step by step, at the first call of each
+    kind of one cluster pass (bounce 0's rays): the first STEP_ROUNDS rounds,
+    each kernel step (scan, counting sort, test) on a copy of the state
+    beside its plain version on another, the two held equal
+    (binned_trace._state_diff: the state and bins bit for bit, the lists
+    bin by bin). The first round's steps are timed (CUDA events around the
+    step on a fresh copy, behind a short spin, median of STEP_REPS) beside
+    the plain step and their bounds: the scan by FP32 operations
+    (FLOPS_PER_VISIT a box test over the box tests the answer needs,
+    `scan_box_tests`) or bytes; the counting sort by bytes (the
+    ready list in, the sorted list out, the bins); the test by FP32
+    operations (FLOPS_PER_TEST over each ray's cluster, an occluded ray
+    counted at one test) or bytes. -> (rows of the scan and counting-sort
+    kernels, {kind: the test step's first-round numbers})."""
+    import statistics
+
+    import torch
+
+    from fermat_tpu_torch.ops import binned_trace as bt
+    from fermat_tpu_torch.ops import trace as trace_mod
+
+    copy = lambda lp: bt._Loop(*(x.clone() for x in lp))
+
+    def timed(fn, base):
+        ms = []
+        for _ in range(STEP_REPS):
+            lp = copy(base)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES // 10)
+            start.record()
+            fn(lp)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        return statistics.median(ms), lp
+
+    rows, tests, first_round = [], {}, {}
+    for kind in ("closest", "any"):
+        closest = kind == "closest"
+        cl, o, d, tmin, tmax, active = tcalls[kind][0]
+        n, c_pad, k = o.x.shape[0], cl.rows.shape[0], bt.QUEUE
+        t0, t1, active = trace_mod._lane_args(o, tmin, tmax, active)
+        rays = bt._Rays(o, d, t0, t1)
+        kern = bt._kernel_run(cl, rays, active, closest)
+        plain = bt._plain_run(cl, rays, active, closest)
+        state = bt._new_loop(n, c_pad, closest, dev)
+        for r in range(STEP_ROUNDS):
+            for step, fam in ((bt.STEP_SCAN, "scan"), (bt.STEP_BIN, "bin"), (bt.STEP_TEST, "test")):
+                first = r == 0 and step == bt.STEP_SCAN
+                base, ref = state, copy(state)
+                if r == 0:
+                    ms, state = timed(lambda lp: kern(lp, 1, first, step), base)
+                    _, plain_ms = profiled(lambda: plain(ref, 1, first, step))
+                else:
+                    state = copy(base)
+                    kern(state, 1, first, step)
+                    plain(ref, 1, first, step)
+                torch.cuda.synchronize()
+                diff = bt._state_diff(state, ref, closest)
+                check(not diff, f"binned {kind} {fam} step, round {r + 1}: differs from its "
+                                f"plain version in {diff}")
+                if r:
+                    continue
+                ctl = state.ctl.tolist()
+                if fam == "scan":
+                    boxes, made = scan_box_tests(cl, o, d, t0, t1, active, closest)
+                    ops = boxes * FLOPS_PER_VISIT
+                    nbytes = (ctl[bt.CTL_SCANS] * (32 + k * (8 if closest else 4) + 9 + 8)
+                              + 24 * c_pad)
+                    work = (f"{ctl[bt.CTL_SCANS]} rays scanned, {boxes:.0f} box tests needed "
+                            f"({made:.0f} made)")
+                elif fam == "bin":
+                    m = ctl[bt.CTL_LIVE]
+                    ops, nbytes = 0.0, 12.0 * m + 20.0 * c_pad
+                    cids = base.ready_cid[:m].clone()
+                    lib = device_ms(lambda: torch.sort(cids), reps=STEP_REPS, cold=False)["ms"]
+                    work = f"{m} rays into {c_pad} bins"
+                else:
+                    m = ctl[bt.CTL_LIVE]
+                    lanes = base.lists[0, :m].long()
+                    cnt = cl.count[base.qc[base.qhead[lanes].long(), lanes].long()].double()
+                    if not closest:
+                        cnt = torch.where(state.occ[lanes], 1.0, cnt)
+                    ops = float(cnt.sum()) * FLOPS_PER_TEST
+                    # each ray and its state in and out once, each cluster's rows once
+                    bins = torch.unique(base.qc[base.qhead[lanes].long(), lanes].long())
+                    nbytes = 64.0 * m + 48.0 * float(cl.count[bins].sum())
+                    work = f"{m} rays, {float(cnt.sum()):.0f} triangle tests"
+                bound = max(nbytes / bw, ops / fp32) * 1e3
+                first_round[(kind, fam)] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by="bytes" if nbytes / bw >= ops / fp32 else "operations",
+                    library_ms=lib if fam == "bin" else None, work=work)
+                log(f"[6 timing] binned {kind} {fam} step, first round at bounce 0's {n} rays "
+                    f"({work}): {ms * 1e3:.2f} us (median of {STEP_REPS}), plain "
+                    f"{plain_ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us by "
+                    f"{first_round[(kind, fam)]['bound_by']}"
+                    + (f", torch.sort of its cids {lib * 1e3:.2f} us" if fam == "bin" else "")
+                    + f"; rounds 1-{STEP_ROUNDS} equal to the plain steps")
+        tests[kind] = first_round[(kind, "test")]
+    for name, key in (("binned_scan_closest", ("closest", "scan")),
+                      ("binned_scan_any", ("any", "scan")), ("binned_bin", ("closest", "bin"))):
+        kern = {"binned_scan_closest": bt.SCAN_CLOSEST, "binned_scan_any": bt.SCAN_ANY,
+                "binned_bin": bt.BIN}[name]
+        f = first_round[key]
+        max_err[name] = 0.0
+        rows.append({
+            "name": name, "route": "cuda", "source": f"fermat_tpu_torch/ops/csrc/{kern.source}",
+            "replaces": kern.replaces, "launches": launches[name], "max_abs_err": 0.0,
+            "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"], "library_ms": f["library_ms"],
+            "library_call": "torch.sort of the ready rays' cids" if f["library_ms"] else None,
+            "timed_at": f"the first round of bounce 0's {key[0]} trace: {f['work']}",
+            "timer": "events", "shapes": [f["work"]]})
+    return rows, tests
+
+
 def walk_rows(dev, bw: float, fp32: float, bview, opt: dict, lcalls: dict, k5_plain: dict,
               bvhk: dict, max_err: dict) -> list:
     """Phase 6's rows of the BVH walk, at big_room's bounce-0 and bounce-1
@@ -3097,15 +3288,17 @@ def main() -> int:
     subk = {"trace_closest_sub": st.CLOSEST, "trace_any_sub": st.ANY}
     bvhk = {"trace_closest_bvh": bvh_trace.CLOSEST, "trace_any_bvh": bvh_trace.ANY}
     kernels = {**dense, **mega, **large, **tracers, **ad, **subk, **bvhk}
-    # helper kernels, counted, not rows of their own: the binned tracer's
-    # scan, and the frontier tracer's ray sort key (held to its plain version
-    # in phases 3c and 6, its time beside K5's)
-    scans = {"binned_scan_closest": bt.SCAN_CLOSEST, "binned_scan_any": bt.SCAN_ANY}
+    # helper kernels, counted: the binned tracer's scan and counting sort
+    # (rows of their own, phase 6), and the frontier tracer's ray sort key
+    # (held to its plain version in phases 3c and 6, its time beside K5's)
+    scans = {"binned_scan_closest": bt.SCAN_CLOSEST, "binned_scan_any": bt.SCAN_ANY,
+             "binned_bin": bt.BIN}
     helpers = {**scans, "frontier_sort_key": ft.KEY}
 
     def reset_counts():
         for k in (*kernels.values(), *helpers.values()):
             k.launches = 0
+        bt.LOOP.reset()
 
     def counts():
         return {n: k.launches for n, k in {**kernels, **helpers}.items()}
@@ -3346,8 +3539,8 @@ def main() -> int:
             for label, f_c, f_a, consts in (
                     ("K6", ct.trace_closest_cluster, ct.trace_any_cluster, []),
                     ("K7", bt.trace_closest_binned, bt.trace_any_binned, []),
-                    ("K7 u_steps=1 block=64", bt.trace_closest_binned, bt.trace_any_binned,
-                     [(bt, "BLOCK", 64), (bt, "U_STEPS", 1)])):
+                    ("K7 queue=1 block=32", bt.trace_closest_binned, bt.trace_any_binned,
+                     [(bt, "BLOCK", 32), (bt, "QUEUE", 1)])):
                 with patched(consts):
                     h6 = f_c(cl, o, d, 1e-4, 3.0e38, active)
                     o6 = f_a(cl, o, d, 0.0, tmax, active)
@@ -3381,8 +3574,8 @@ def main() -> int:
                 f"({float(active.float().mean()):.2f} active): trace_closest_frontier tri equal, "
                 f"t bit-equal (hit {hits:.3f}); trace_any_frontier equal (occluded "
                 f"{float(occ.float().mean()):.3f}); their sort keys equal to plain; K6a/K6b, "
-                f"K7a/K7b and K7 at u_steps=1, "
-                f"block=64 bit-equal to the plain versions (t, tri, u, v; occ) and to K5; "
+                f"K7a/K7b and K7 with a queue of 1 and "
+                f"work items of 32 rays bit-equal to the plain versions (t, tri, u, v; occ) and to K5; "
                 f"K8a/K8b over {subs_of[scene].n_subclusters} subclusters bit-equal to their "
                 f"plain versions and to K5")
     w = torch.rand(544, generator=gen, device=dev) + 1e-3
@@ -3602,27 +3795,53 @@ def main() -> int:
         if tracer == "cluster":
             check(all(e_launches[n] == per_bounce for n in mine),
                   f"tracer=cluster: {e_launches} over {n_big} passes of {MPL} bounces")
+            loop = None
         else:
             check(all(e_launches[n] > 0 for n in (*mine, *scans)),
                   f"tracer=binned: a kernel was never launched: {e_launches}")
+            loop = dict(vars(bt.LOOP))  # the loop's totals over these passes
+            # the round loop on the device: a readback of its counts per
+            # batch of ROUND_BATCH rounds, the last finding the loop over
+            check(loop["traces"] == 2 * per_bounce
+                  and loop["readbacks"] <= loop["rounds"] / bt.ROUND_BATCH + loop["traces"],
+                  f"tracer=binned: {loop} over {2 * per_bounce} traces")
         e_ms = e_best / BIG_PASSES * 1e3
-        n_kern, busy_ms, top, _ = profile_one_pass(c4)
+        n_kern, busy_ms, top, each = profile_one_pass(c4)
+        # K7's device time in the pass, by kind (the kernels' template
+        # argument) and family
+        fam = {k: {"scan": 0.0, "bin": 0.0, "test": 0.0} for k in ("closest", "any")}
+        for name, v in each.items():
+            if bt.kernel_family(name) != "other":
+                fam["closest" if "<true" in name else "any"][bt.kernel_family(name)] += sum(v)
+        # test launches: every enqueued round, the empty ones of a group's
+        # last batch included; rounds: those that tested rays
         rounds = {k: e_launches[f"trace_{k}_binned"] / per_bounce for k in ("closest", "any")}
         big[tracer] = dict(ms=e_ms, mrays=e_rays / e_best / 1e6, rays=e_rays / BIG_PASSES,
                            launches=e_launches, groups=dict(groups), kernels=n_kern,
-                           busy_ms=busy_ms, idle=1 - busy_ms / e_ms, rounds=rounds)
+                           busy_ms=busy_ms, idle=1 - busy_ms / e_ms, rounds=rounds,
+                           loop=loop, in_pass_ms=fam)
         log(f"[4e tracers] big_room({BIG_BOXES}) {BIG_W}x{BIG_H} mpl={MPL} tracer={tracer}: "
             f"{e_ms:.2f} ms/pass, {e_rays / e_best / 1e6:.3f} Mrays/s ({e_rays / BIG_PASSES:.0f} "
             f"rays/pass; best of {REPS} x {BIG_PASSES} passes) on {smi}; image mean "
             f"{e_hdr.mean():.4f}; launches over {n_big} passes: "
             f"{ {n: e_launches[n] for n in (*mine, *large, *scans)} }; tracer calls "
             f"(launch groups) {groups}"
-            + (f"; rounds per launch group: closest {rounds['closest']:.1f}, any "
-               f"{rounds['any']:.1f}" if tracer == "binned" else ""))
+            + (f"; enqueued rounds per launch group: closest {rounds['closest']:.1f}, any "
+               f"{rounds['any']:.1f}; over both kinds, rounds that tested rays per group "
+               f"{loop['rounds'] / loop['traces']:.1f}, host readbacks per group "
+               f"{loop['readbacks'] / loop['traces']:.2f} (batches of {bt.ROUND_BATCH}, a "
+               f"graph launch each), full "
+               f"box scans per visit {loop['scans'] / max(loop['pairs'], 1):.3f} "
+               f"({loop['scans']} scans, {loop['pairs']} ray-cluster visits)"
+               if tracer == "binned" else ""))
         log(f"[4e tracers] tracer={tracer}: one pass under torch.profiler: {n_kern} device "
             f"kernels, device busy {busy_ms:.2f} ms of the {e_ms:.2f} ms pass (idle share "
             f"{1 - busy_ms / e_ms:.3f}); top by device time: "
-            + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
+            + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top)
+            + "".join(f"; K7 {k} in the pass: scan {f['scan']:.2f} ms, counting sort "
+                      f"{f['bin']:.2f} ms, test {f['test']:.2f} ms ({sum(f.values()):.2f} ms, "
+                      f"{sum(f.values()) / MPL * 1e3:.1f} us a launch group)"
+                      for k, f in fam.items() if tracer == "binned"))
         tctx[tracer] = c4
 
     # one PLAIN_W x PLAIN_H pass with each tracer and one with the plain
@@ -4474,7 +4693,8 @@ def main() -> int:
         return True
 
     acc = {n: dict(times={}, plain_ms=0.0, bound=0.0, by_bytes=0.0, by_ops=0.0, err=0.0,
-                   wall_ms=0.0, rounds=0, split=dict(scan=0.0, sort=0.0, test=0.0, other=0.0))
+                   wall_ms=0.0, rounds=0, loop=dict(rounds=0, readbacks=0, scans=0, pairs=0),
+                   split=dict(scan=0.0, bin=0.0, test=0.0, other=0.0))
            for n in tracers}
     fns = {"cluster": (ct.trace_closest_cluster, ct.trace_any_cluster),
            "binned": (bt.trace_closest_binned, bt.trace_any_binned)}
@@ -4501,9 +4721,17 @@ def main() -> int:
                 f_k = (lambda fn=fns[tracer][kind == "any"]:
                        fn(cl, o, d, tmin, tmax, active))
                 launches0 = tracers[tname].launches
+                bt.LOOP.reset()
                 got = f_k()
                 torch.cuda.synchronize()
+                enqueued = tracers[tname].launches - launches0  # rounds of a binned call
                 a = acc[tname]
+                if tracer == "binned":  # no readback a round: one per batch of rounds
+                    lp = vars(bt.LOOP)
+                    check(lp["readbacks"] == lp["rounds"] // bt.ROUND_BATCH + 1,
+                          f"{tname}: {lp['readbacks']} readbacks for {lp['rounds']} rounds")
+                    for k in a["loop"]:
+                        a["loop"][k] += lp[k]
                 if kind == "closest":
                     for x, y, what in ((got.t, want.t, "t"), (got.u, want.u, "u"),
                                        (got.v, want.v, "v")):
@@ -4516,18 +4744,22 @@ def main() -> int:
                     check(torch.equal(got, want),
                           f"{tname} at the cluster pass's inputs: occ differs from plain and K5")
                     a["err"] = max(a["err"], float((got != want).sum()))
-                a["rounds"] += tracers[tname].launches - launches0
+                a["rounds"] += enqueued
                 add_times(a["times"], device_ms(
                     f_k, reps=BINNED_REPLAYS if tracer == "binned" else REPLAYS))
                 if tracer == "binned":  # its split by kernel family; its wall time
-                    sp = device_split(f_k)
+                    # the scan, offsets, scatter and test kernels of each round
+                    sp = device_split(f_k, 4 * enqueued)
                     for k in sp:
                         a["split"][k] += sp[k]
-                    torch.cuda.synchronize()
-                    w0 = time.perf_counter()
-                    f_k()
-                    torch.cuda.synchronize()
-                    a["wall_ms"] += (time.perf_counter() - w0) * 1e3
+                    walls = []
+                    for _ in range(3):
+                        torch.cuda.synchronize()
+                        w0 = time.perf_counter()
+                        f_k()
+                        torch.cuda.synchronize()
+                        walls.append((time.perf_counter() - w0) * 1e3)
+                    a["wall_ms"] += sorted(walls)[1]
                 a["plain_ms"] += plain_ms
                 a["bound"] += max(k5["b_bytes"], k5["b_ops"])
                 a["by_bytes"] += k5["b_bytes"]
@@ -4554,9 +4786,16 @@ def main() -> int:
             "tests_needed_per_launch": t_tests[kind] / nc,
         }
         if tracer == "binned":  # one launch group = one wrapper call, all its rounds
+            lp = a["loop"]
             row.update(launch_groups_per_pass=big[tracer]["groups"][kind] / n_big,
-                       rounds_per_launch_group=a["rounds"] / nc,
+                       enqueued_rounds_per_launch_group=a["rounds"] / nc,
+                       rounds_per_launch_group=lp["rounds"] / nc,
+                       readbacks_per_launch_group=lp["readbacks"] / nc,
+                       scans_per_visit=lp["scans"] / max(lp["pairs"], 1),
                        wall_ms_per_launch_group=a["wall_ms"] / nc,
+                       device_work_ms_per_launch_group=sum(a["split"].values()) / nc,
+                       in_pass_ms_per_launch_group=sum(big[tracer]["in_pass_ms"][kind].values())
+                       / MPL,
                        **{f"{k}_ms": v / nc for k, v in a["split"].items()})
         rows.append(row)
         log(f"[6 timing] {tname}: {fmt_times(t)}/"
@@ -4564,10 +4803,20 @@ def main() -> int:
             + f" (plain {a['plain_ms'] / nc * 1e3:.1f} us, bound {a['bound'] / nc * 1e3:.2f} us by "
             f"{row['bound_by']}, K5's on the same rays) over the {nc} calls of one cluster "
             f"pass, each equal to its plain version and to K5 (max abs err {a['err']:.3g})"
-            + (f"; {a['rounds'] / nc:.1f} rounds a group; per group scan "
-               f"{a['split']['scan'] / nc:.2f} ms, sort {a['split']['sort'] / nc:.2f} ms, test "
-               f"{a['split']['test'] / nc:.2f} ms, other {a['split']['other'] / nc:.2f} ms; wall "
-               f"{a['wall_ms'] / nc:.1f} ms" if tracer == "binned" else ""))
+            + (f"; a group: {a['loop']['rounds'] / nc:.1f} rounds that tested rays "
+               f"({a['rounds'] / nc:.1f} enqueued), {a['loop']['readbacks'] / nc:.2f} host "
+               f"readbacks, {a['loop']['scans'] / max(a['loop']['pairs'], 1):.3f} full scans a "
+               f"visit; device work {sum(a['split'].values()) / nc:.2f} ms (scan "
+               f"{a['split']['scan'] / nc:.2f}, counting sort {a['split']['bin'] / nc:.2f}, test "
+               f"{a['split']['test'] / nc:.2f}, other {a['split']['other'] / nc:.2f} ms), wall "
+               f"{a['wall_ms'] / nc:.2f} ms (median of 3); in the 4e pass "
+               f"{row['in_pass_ms_per_launch_group']:.2f} ms" if tracer == "binned" else ""))
+    step_rows, first_tests = binned_step_rows(dev, bw, fp32, tcalls, big["binned"]["launches"],
+                                              max_err)
+    for row in rows:
+        if row["name"] in ("trace_closest_binned", "trace_any_binned"):
+            row["first_round_test_step"] = first_tests[row["name"].split("_")[1]]
+    rows += step_rows
 
     # K2b at the inputs of the 4f steps (the recorded step of each scene):
     # each launch held to its plain version within BWD_RTOL, then timed with

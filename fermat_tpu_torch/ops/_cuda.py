@@ -152,7 +152,9 @@ class CudaKernel:
         self._fn, self._err = fn, err
         return fn
 
-    def launch(self, device: torch.device, *args) -> None:
+    def launch(self, device: torch.device, *args, count: int = 1) -> None:
+        """Calls the entry point; `count` is the number of this kernel's
+        launches the call enqueues (one C call may enqueue a batch)."""
         fn = self._fn or self._bind()
         stream = torch.cuda.current_stream(device).cuda_stream
         code = fn(*args, device.index if device.index is not None
@@ -160,7 +162,7 @@ class CudaKernel:
         if code != 0:
             raise RuntimeError(f"{self.name}: CUDA error {code} "
                                f"({self._err(code).decode()}) at launch")
-        self.launches += 1
+        self.launches += count
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtype, ndim: int,

@@ -17,8 +17,10 @@ package, on the CPU:
     1e-5 where the triangle agrees, occlusion flags equal;
   * JAX K6's phantom hit at tmax = inf, pinned (the port misses); JAX K7
     shows none;
-  * the binned round loop (`_rounds`) with the plain versions of its scan
-    and test kernels equals the function bit for bit, retries included;
+  * the binned round loop (`_rounds`) with the plain versions of its scan,
+    counting sort and test kernels equals the function bit for bit, with
+    small queues, work items and batches, and with the rays shuffled within
+    each bin; a loop that never advances raises at the liveness cap;
   * the build key of each csrc/ library follows the shared header it
     includes (csrc/cluster_common.cuh);
   * the port's PT pass on big_room(400), 24x24, 4 bounces, with
@@ -33,7 +35,9 @@ package, on the CPU:
     matches the dense pass (tests/test_binned_trace.py:90-108).
 """
 import os
+import re
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -216,42 +220,125 @@ def test_tmax_inf(soup1500, tracer):
         np.testing.assert_array_equal(np.asarray(jh.tri) >= 0, m.numpy())
 
 
-@pytest.mark.parametrize("block,u_steps", [(64, 1), (256, 8)])
-@pytest.mark.parametrize("tmax", ["3e38", "per-ray", "inf"])
-def test_binned_rounds_equal_the_function(soup1500, block, u_steps, tmax, monkeypatch):
-    """The round loop with the plain versions of the scan and the test
-    kernel (rays sorted by cluster, at most U_STEPS clusters a block a
-    round, the rest retried) gives the function's answer bit for bit."""
-    monkeypatch.setattr(bt, "BLOCK", block)
-    monkeypatch.setattr(bt, "U_STEPS", u_steps)
-    _, cl = soup1500
-    o, d = _tv(_rays(6)[0]), _tv(_rays(6)[1])
+def _shuffled_bins(seed):
+    """A counting-sort order that shuffles the rays within each bin."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def order(cids):
+        jitter = torch.randperm(cids.shape[0], generator=gen)
+        return torch.argsort(cids.long() * cids.shape[0] + jitter)
+    return order
+
+
+def _loop_rays(tmax, n=N_RAYS):
+    o, d = _rays(6, n=n)
     act, tmax_v = _masks(12)
-    active = torch.from_numpy(act) if tmax == "per-ray" else torch.ones(N_RAYS, dtype=torch.bool)
-    t1 = {"3e38": _lanes(3e38, N_RAYS, "cpu"), "per-ray": torch.from_numpy(tmax_v),
-          "inf": _lanes(float("inf"), N_RAYS, "cpu")}[tmax]
-    t0 = _lanes(1e-4, N_RAYS, "cpu")
-    rays = bt._Rays(o, d, t0, t1)
-    st, rounds = bt._rounds(cl, rays, active, *bt._plain_steps(cl, rays, True))
-    h, ref = bt._hit(st, t1), ft._closest_uv_plain(cl, o, d, t0, t1, active)
+    active = (torch.from_numpy(act) if tmax == "per-ray"
+              else torch.ones(n, dtype=torch.bool))
+    t1 = {"3e38": _lanes(3e38, n, "cpu"), "per-ray": torch.from_numpy(tmax_v),
+          "inf": _lanes(float("inf"), n, "cpu")}[tmax]
+    return bt._Rays(_tv(o), _tv(d), _lanes(1e-4, n, "cpu"), t1), active
+
+
+@pytest.mark.parametrize("block,queue", [(64, 1), (256, 8)])
+@pytest.mark.parametrize("tmax", ["3e38", "per-ray", "inf"])
+def test_binned_rounds_equal_the_function(soup1500, block, queue, tmax, monkeypatch):
+    """The round loop over the plain versions of its scan, counting sort and
+    test (one visit of each live ray a round, a queue of QUEUE keys a scan,
+    ROUND_BATCH rounds between readbacks) gives the function's answer bit
+    for bit; a queue of 1 and batches of 2 force rescans and many batches."""
+    batch = 2 if queue == 1 else 16
+    monkeypatch.setattr(bt, "BLOCK", block)
+    monkeypatch.setattr(bt, "QUEUE", queue)
+    monkeypatch.setattr(bt, "ROUND_BATCH", batch)
+    _, cl = soup1500
+    rays, active = _loop_rays(tmax)
+    o, d, t0, t1 = rays
+    bt.LOOP.reset()
+    lp, rounds = bt._rounds(cl, rays, active, True, bt._plain_run(cl, rays, active, True))
+    h, ref = bt._hit(lp), ft._closest_uv_plain(cl, o, d, t0, t1, active)
     for a, b in zip(h, ref):
         assert torch.equal(a, b)
-    st, _ = bt._rounds(cl, rays, active, *bt._plain_steps(cl, rays, False))
-    assert torch.equal(st.occ, ft._any_plain(cl, o, d, t0, t1, active))
+    assert bt.LOOP.readbacks == rounds // batch + 1 and bt.LOOP.rounds == rounds
+    lp, _ = bt._rounds(cl, rays, active, False, bt._plain_run(cl, rays, active, False))
+    assert torch.equal(lp.occ, ft._any_plain(cl, o, d, t0, t1, active))
     assert rounds > 1 and bool((ref.tri >= 0).any())
+    # a queue of 1 scans the boxes once a visit or more, a queue of 8 less
+    # often than it visits (about once a traced ray here)
+    assert (bt.LOOP.scans >= bt.LOOP.pairs) if queue == 1 else (bt.LOOP.scans < bt.LOOP.pairs)
+
+
+def test_binned_rounds_ignore_the_order_within_a_bin(soup1500, monkeypatch):
+    """Rays shuffled within each bin of every round's counting sort give
+    the same bits."""
+    monkeypatch.setattr(bt, "BLOCK", 32)
+    monkeypatch.setattr(bt, "QUEUE", 4)
+    _, cl = soup1500
+    rays, active = _loop_rays("per-ray")
+    for closest in (True, False):
+        lp, _ = bt._rounds(cl, rays, active, closest, bt._plain_run(cl, rays, active, closest))
+        lq, _ = bt._rounds(cl, rays, active, closest,
+                           bt._plain_run(cl, rays, active, closest, order=_shuffled_bins(3)))
+        for a, b in ((lp.t_best, lq.t_best), (lp.id_best, lq.id_best), (lp.u, lq.u),
+                     (lp.v, lq.v)) if closest else ((lp.occ, lq.occ),):
+            assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                               b.view(torch.int32) if b.is_floating_point() else b)
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_binned_steps_compare_as_the_kernels_promise(soup1500, closest, monkeypatch):
+    """`_state_diff`, which holds each kernel step to its plain version on
+    the card, finds nothing between two step-by-step runs whose counting
+    sorts order each bin differently, and finds a changed field."""
+    monkeypatch.setattr(bt, "BLOCK", 32)
+    monkeypatch.setattr(bt, "QUEUE", 4)
+    _, cl = soup1500
+    rays, active = _loop_rays("per-ray")
+    run_a = bt._plain_run(cl, rays, active, closest)
+    run_b = bt._plain_run(cl, rays, active, closest, order=_shuffled_bins(5))
+    a = bt._new_loop(N_RAYS, cl.rows.shape[0], closest, "cpu")
+    for t in a:
+        t.zero_()
+    b = bt._Loop(*(t.clone() for t in a))
+    for r in range(4):
+        for step in (bt.STEP_SCAN, bt.STEP_BIN, bt.STEP_TEST):
+            first = r == 0 and step == bt.STEP_SCAN
+            run_a(a, 1, first, step)
+            run_b(b, 1, first, step)
+            assert bt._state_diff(a, b, closest) == [], (r, step)
+    assert int(a.ctl[bt.CTL_LIVE]) > 0 and not torch.equal(a.lists, b.lists)
+    lane = int(a.lists[0, 0])
+    a.qhead[lane] += 1
+    a.lists[2, 0] = -1
+    assert bt._state_diff(a, b, closest) == ["qhead"] + (["rescan"] if int(a.ctl[2]) else [])
 
 
 def test_binned_rounds_hold_the_liveness_cap(soup1500, monkeypatch):
     monkeypatch.setattr(bt, "BLOCK", 32)
-    monkeypatch.setattr(bt, "U_STEPS", 1)
+    monkeypatch.setattr(bt, "QUEUE", 1)
     _, cl = soup1500
     o, d = _rays(6, n=64)
     t0, t1 = _lanes(1e-4, 64, "cpu"), _lanes(3e38, 64, "cpu")
     rays = bt._Rays(_tv(o), _tv(d), t0, t1)
-    scan, test = bt._plain_steps(cl, rays, True)
+    every = torch.ones(64, dtype=torch.bool)
     with pytest.raises(RuntimeError, match="liveness cap"):
-        bt._rounds(cl, rays, torch.ones(64, dtype=torch.bool), scan,
-                   lambda *a: None)  # a test step that never advances a cursor
+        bt._rounds(cl, rays, every, True,  # a test step that never advances a cursor
+                   bt._plain_run(cl, rays, every, True, advance=False))
+
+
+def test_binned_kernel_names_have_their_family():
+    """Every kernel of csrc/binned.cu falls in a family of
+    `binned_trace.kernel_family` (phase 6 and the K7 tool split the device
+    time by it), and the module's constants are the source's: the scan's
+    group of boxes under one union box and a queue depth the library is
+    built for."""
+    src = (Path(bt.__file__).parent / "csrc" / "binned.cu").read_text()
+    names = set(re.findall(r"__global__ void (?:__launch_bounds__\(\w+\) )?(\w+)\(", src))
+    assert len(names) == 4, names
+    assert sorted(bt.kernel_family(n) for n in names) == ["bin", "bin", "scan", "test"]
+    assert bt.kernel_family("void frontier_kernel<true>(Args)") == "other"
+    assert f"constexpr int kGroup = {bt.SCAN_GROUP};" in src
+    assert f"(k == 1 || k == {bt.QUEUE})" in src
 
 
 @pytest.mark.parametrize("source,includes", [("frontier.cu", True), ("cluster.cu", True),

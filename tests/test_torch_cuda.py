@@ -260,10 +260,10 @@ def test_tracer_wrappers_launch_no_fill_on_card(dev, tracer):
     """With number tmin / tmax (and no mask) a tracer wrapper dispatches the
     same aten ops as with lanes made before the call, and launches its
     kernel as often: its lanes are cached (ops/trace._lanes), so it fills
-    none. No wrapper but the binned one dispatches a fill at all (the
-    binned round loop starts its per-ray state from fills,
-    binned_trace._new_state, in both calls alike). trace_any dispatches
-    only its output's empty and launches K1b once.
+    none. No wrapper dispatches a fill at all (the binned round loop's
+    first scan starts the per-ray state on the card, and its C entry point
+    zeroes the loop's counts, binned_trace._new_loop allocating only).
+    trace_any dispatches only its output's empty and launches K1b once.
 
     The kernels are counted at the dispatcher, not from torch.profiler's
     event list: on an H100 the profiler's list of one call now and then
@@ -286,7 +286,7 @@ def test_tracer_wrappers_launch_no_fill_on_card(dev, tracer):
             assert kern.launches - mid == mid - before >= 2
             assert with_numbers == with_lanes, (with_numbers, with_lanes)
             fills = [op for op in with_numbers if op.startswith(_FILLS)]
-            assert not fills or tracer == "binned", fills
+            assert not fills, fills
     soup = mesh.tri_soup()
     before = trace_mod.ANY.launches
     ops = _dispatched(lambda: trace_mod.trace_any(soup, o, d, 0.0, 2.5, active))
@@ -440,11 +440,12 @@ def test_frontier_and_cdf_wrappers_count_launches_and_reject_bad_input(dev):
         b + 1 for b in before)
 
 
-# the third entry: binned_trace constants set for the case (retries forced)
+# the third entry: binned_trace constants set for the case (a queue of one
+# key, so a scan a visit, and work items of 32 rays)
 _K6_K7 = {"cluster": (ct.trace_closest_cluster, ct.trace_any_cluster, {}),
           "binned": (bt.trace_closest_binned, bt.trace_any_binned, {}),
-          "binned_u1_b64": (bt.trace_closest_binned, bt.trace_any_binned,
-                            dict(BLOCK=64, U_STEPS=1))}
+          "binned_q1_b32": (bt.trace_closest_binned, bt.trace_any_binned,
+                            dict(BLOCK=32, QUEUE=1))}
 
 
 @pytest.mark.cuda
@@ -481,18 +482,58 @@ def test_cluster_and_binned_kernels_match_plain_on_card(dev, scene, tracer, monk
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("closest", [True, False])
+def test_binned_steps_match_plain_on_card(dev, closest):
+    """Each kernel of the binned round loop (scan, counting sort, test)
+    against its plain version, step by step over the first rounds of a
+    trace on big_room(400): the per-ray state and the bins bit-equal, the
+    lists equal as binned_trace._state_diff reads them."""
+    cl = build_clusters(big_room(400).device_view(dev))
+    lo = torch.tensor([-8.0, 0.0, -8.0], device=dev)
+    hi = torch.tensor([8.0, 8.0, 8.0], device=dev)
+    o, d, active, tmax = _rays(8192, 0.0, 1.0, dev, seed=5)
+    o = Vec3(*(lo[k] + (hi[k] - lo[k]) * c for k, c in enumerate(o)))
+    n = o.x.shape[0]
+    t0 = trace_mod._lanes(1e-4, n, dev)
+    t1 = trace_mod._lanes(3.0e38, n, dev) if closest else tmax * 4.0
+    rays = bt._Rays(o, d, t0, t1)
+    kern = bt._kernel_run(cl, rays, active, closest)
+    plain = bt._plain_run(cl, rays, active, closest)
+    lk = bt._new_loop(n, cl.rows.shape[0], closest, dev)
+    for r in range(4):
+        for step in (bt.STEP_SCAN, bt.STEP_BIN, bt.STEP_TEST):
+            lp = bt._Loop(*(t.clone() for t in lk))
+            first = r == 0 and step == bt.STEP_SCAN
+            kern(lk, 1, first, step)
+            plain(lp, 1, first, step)
+            torch.cuda.synchronize()
+            assert bt._state_diff(lk, lp, closest) == [], (r, step)
+    assert int(lk.ctl[bt.CTL_ROUNDS]) == 4 and int(lk.ctl[bt.CTL_SCANS]) > 0
+
+
+@pytest.mark.cuda
 def test_cluster_and_binned_wrappers_count_launches_and_reject_bad_input(dev):
     cl = build_clusters(random_soup(300).device_view(dev))
     o, d, active, _ = _rays(64, -1.0, 1.0, dev, seed=3)
-    kernels = (ct.CLOSEST, ct.ANY, bt.CLOSEST, bt.ANY, bt.SCAN_CLOSEST, bt.SCAN_ANY)
+    kernels = (ct.CLOSEST, ct.ANY, bt.CLOSEST, bt.ANY, bt.SCAN_CLOSEST, bt.SCAN_ANY, bt.BIN)
     before = [k.launches for k in kernels]
     ct.trace_closest_cluster(cl, o, d, 1e-4, 3.0e38, active)
     ct.trace_any_cluster(cl, o, d, 1e-4, 3.0e38, active)
-    bt.trace_closest_binned(cl, o, d, 1e-4, 3.0e38, active)
-    bt.trace_any_binned(cl, o, d, 1e-4, 3.0e38, active)
+    readbacks = 0
+    for fn in (bt.trace_closest_binned, bt.trace_any_binned):
+        # one readback of the loop's counts per batch of ROUND_BATCH rounds,
+        # the last of them finding the loop over
+        bt.LOOP.reset()
+        fn(cl, o, d, 1e-4, 3.0e38, active)
+        assert bt.LOOP.traces == 1 and bt.LOOP.rounds > 0
+        assert bt.LOOP.readbacks == bt.LOOP.rounds // bt.ROUND_BATCH + 1
+        readbacks += bt.LOOP.readbacks
     after = [k.launches for k in kernels]
     assert after[:2] == [b + 1 for b in before[:2]]
-    assert all(a > b for a, b in zip(after[2:], before[2:]))  # one launch a round
+    # each kernel of a round launched once per enqueued round
+    rounds = [a - b for a, b in zip(after[2:], before[2:])]
+    assert rounds[0] == rounds[2] and rounds[1] == rounds[3] and rounds[4] == sum(rounds[:2])
+    assert sum(rounds[:2]) == bt.ROUND_BATCH * readbacks
     with pytest.raises(ValueError):  # an active mask on the CPU
         ct.trace_closest_cluster(cl, o, d, 1e-4, 3.0e38, active.cpu())
     with pytest.raises(TypeError):  # float64 rays
